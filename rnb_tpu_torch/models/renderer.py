@@ -1,0 +1,336 @@
+"""NeuS volume renderer for the RNb training step, on tensors.
+
+Counterpart of ``rnb_tpu/models/renderer.py`` for the training path:
+
+  * ``sample_pdf``: inverse-CDF importance sampling with
+    ``torch.searchsorted(cdf, u, right=True)`` (the count of cdf entries
+    ≤ u).
+  * ``up_sample`` / ``cat_z_vals`` / ``upsampled_z_vals``: the no-grad
+    hierarchical up-sampling, 4 rounds at inv_s = 64·2^i. The merge of the
+    sorted z list with the new one is a *stable* sort of cat([z, new]), so
+    ties keep z entries first.
+  * ``render_core_mvps``: sigmoid-SDF alpha, cos annealing, transmittance,
+    the eikonal error over the relaxed sphere. SDF value, feature and ∇SDF
+    come from the fused kernel op (``ops.sdf_core``), the albedo from the
+    fused albedo op (``ops.albedo``).
+  * ``render_rnb``: per-light Lambertian compositing; ReLU on the shading in
+    warm-up only.
+
+The stratified perturbation ``t_rand`` is an input ([B,1], uniform − 0.5),
+so the tests can feed the JAX package's draws. Parity epsilons kept: alpha
+guards 1e-5, cumprod 1e-7, sample_pdf weight floor 1e-5 and denominator
+floor 1e-5, cos clip [-1e3, 0], inv_s clip [1e-6, 1e6].
+
+Not ported yet: the background NeRF (``n_outside > 0``), ``render`` for
+novel views and the mesh-extraction grid.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from rnb_tpu_torch.models import fields
+from rnb_tpu_torch.models.fields import ModelStatics
+from rnb_tpu_torch.ops import albedo as albedo_op
+from rnb_tpu_torch.ops import sdf_core
+
+_KERNEL_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class RendererConfig:
+    """The ``model.neus_renderer`` conf section plus two precision knobs:
+
+      upsample_prec   'bf16' | 'f32': matmul operands of the no-grad
+                      up-sampling SDF sweeps (sample placement only)
+      kernel_prec     'bf16' | 'f32': op dtype of the fused SDF-core and
+                      albedo kernels (bf16 operands with f32 accumulation
+                      on the main path; f32 to compare against a reference)
+    """
+    n_samples: int = 64
+    n_importance: int = 64
+    n_outside: int = 0
+    up_sample_steps: int = 4
+    perturb: float = 1.0
+    upsample_prec: str = "bf16"
+    kernel_prec: str = "bf16"
+
+    @property
+    def total_samples(self) -> int:
+        return self.n_samples + self.n_importance
+
+
+def renderer_conf(conf_model) -> RendererConfig:
+    if "neus_renderer" not in conf_model:
+        return RendererConfig()
+    return RendererConfig(**dict(conf_model["neus_renderer"].as_dict()))
+
+
+# ---------------------------------------------------------------------------
+# importance sampling
+# ---------------------------------------------------------------------------
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
+               n_samples: int) -> torch.Tensor:
+    """Deterministic (midpoint-stratified) inverse-CDF sampling. bins [B,N],
+    weights [B,N-1] -> samples [B,n_samples]."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)   # [B,N]
+
+    u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
+                       device=bins.device)
+    u = u.expand(*cdf.shape[:-1], n_samples).contiguous()
+    N = cdf.shape[-1]
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp_min(inds - 1, 0)
+    above = torch.clamp_max(inds, N - 1)
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, below)
+    bins_above = torch.gather(bins, -1, above)
+
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
+
+
+def _exclusive_cumprod_transmittance(alpha: torch.Tensor) -> torch.Tensor:
+    """weights = alpha * cumprod(1 - alpha + 1e-7)[exclusive]."""
+    shifted = torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-7],
+                        dim=-1)
+    return alpha * torch.cumprod(shifted, dim=-1)[:, :-1]
+
+
+# ---------------------------------------------------------------------------
+# hierarchical up-sampling (no grad)
+# ---------------------------------------------------------------------------
+
+def up_sample(rays_o, rays_d, z_vals, sdf, n_importance: int,
+              inv_s: float) -> torch.Tensor:
+    """One NeuS up-sampling round at fixed inv_s."""
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., :, None]
+    radius = torch.linalg.vector_norm(pts, dim=-1)
+    inside_sphere = (radius[:, :-1] < 1.0) | (radius[:, 1:] < 1.0)
+
+    prev_sdf, next_sdf = sdf[:, :-1], sdf[:, 1:]
+    prev_z, next_z = z_vals[:, :-1], z_vals[:, 1:]
+    mid_sdf = (prev_sdf + next_sdf) * 0.5
+    cos_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
+
+    # min(cos, prev_cos): robust against local SDF dips
+    prev_cos = torch.cat([torch.zeros_like(cos_val[:, :1]), cos_val[:, :-1]],
+                         dim=-1)
+    cos_val = torch.minimum(prev_cos, cos_val)
+    cos_val = torch.clamp(cos_val, -1e3, 0.0) * inside_sphere
+
+    dist = next_z - prev_z
+    prev_esti = mid_sdf - cos_val * dist * 0.5
+    next_esti = mid_sdf + cos_val * dist * 0.5
+    prev_cdf = torch.sigmoid(prev_esti * inv_s)
+    next_cdf = torch.sigmoid(next_esti * inv_s)
+    alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+    weights = _exclusive_cumprod_transmittance(alpha)
+    return sample_pdf(z_vals, weights, n_importance)
+
+
+def _sdf_infer(statics: ModelStatics, params, pts_flat, prec: str = "bf16"):
+    """No-grad SDF sweep (sample placement only)."""
+    if prec == "bf16":
+        return fields.sdf_only_lowp(statics.sdf, params["sdf"], pts_flat)
+    return fields.sdf_only(statics.sdf, params["sdf"], pts_flat)
+
+
+def _merge_sorted(z, new, *vals):
+    """Merge per-row sorted z [B,W1] and new [B,W2]: a stable sort of
+    cat([z, new]), so ties keep z entries first. Extra (v_z, v_new) pairs
+    go through the same permutation."""
+    z_sorted, order = torch.sort(torch.cat([z, new], dim=-1), dim=-1,
+                                 stable=True)
+    out = [z_sorted]
+    for v_z, v_new in vals:
+        out.append(torch.gather(torch.cat([v_z, v_new], dim=-1), -1, order))
+    return out
+
+
+def cat_z_vals(statics: ModelStatics, params, rays_o, rays_d, z_vals,
+               new_z_vals, sdf, last: bool, prec: str = "bf16"):
+    """Merge new z-values in; query the SDF at them unless final round."""
+    if last:
+        (z_sorted,) = _merge_sorted(z_vals, new_z_vals)
+        return z_sorted, sdf
+    batch_size = z_vals.shape[0]
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., :, None]
+    new_sdf = _sdf_infer(statics, params, pts.reshape(-1, 3), prec)
+    new_sdf = new_sdf.reshape(batch_size, new_z_vals.shape[-1])
+    return _merge_sorted(z_vals, new_z_vals, (sdf, new_sdf))
+
+
+@torch.no_grad()
+def upsampled_z_vals(statics: ModelStatics, rcfg: RendererConfig, params,
+                     rays_o, rays_d, z_vals) -> torch.Tensor:
+    """The no-grad up-sample loop: ``up_sample_steps`` rounds with
+    inv_s = 64·2^i."""
+    if rcfg.n_importance <= 0:
+        return z_vals
+    batch_size = z_vals.shape[0]
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., :, None]
+    sdf = _sdf_infer(statics, params, pts.reshape(-1, 3), rcfg.upsample_prec)
+    sdf = sdf.reshape(batch_size, rcfg.n_samples)
+    per_round = rcfg.n_importance // rcfg.up_sample_steps
+    for i in range(rcfg.up_sample_steps):
+        new_z = up_sample(rays_o, rays_d, z_vals, sdf, per_round, 64 * 2 ** i)
+        z_vals, sdf = cat_z_vals(statics, params, rays_o, rays_d, z_vals, new_z,
+                                 sdf, last=(i + 1 == rcfg.up_sample_steps),
+                                 prec=rcfg.upsample_prec)
+    return z_vals
+
+
+# ---------------------------------------------------------------------------
+# core integrator
+# ---------------------------------------------------------------------------
+
+def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
+                     sample_dist, cos_anneal_ratio, need_albedo: bool = True,
+                     kernel_prec: str = "bf16") -> Dict[str, torch.Tensor]:
+    """The training integrator. Returns per-sample albedo and normals for
+    the light compositing."""
+    batch_size, n_samples = z_vals.shape
+    dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
+                       torch.full_like(z_vals[:, :1], sample_dist)], dim=-1)
+    mid_z = z_vals + dists * 0.5
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., :, None]
+    dirs = rays_d[:, None, :].expand(pts.shape)
+    pts_flat = pts.reshape(-1, 3)
+    dirs_flat = dirs.reshape(-1, 3)
+    dtype = _KERNEL_DTYPES[kernel_prec]
+
+    if sdf_core.supported(statics.sdf):
+        sdf, feature, gradients = sdf_core.sdf_value_feat_grad_fused(
+            statics.sdf, params["sdf"], pts_flat, dtype)
+    else:
+        sdf, feature, gradients = fields.sdf_value_feat_grad(
+            statics.sdf, params["sdf"], pts_flat)
+    sdf = sdf[:, None]
+
+    if not need_albedo:
+        sampled_albedo = torch.ones(batch_size, n_samples, statics.color.d_out,
+                                    device=z_vals.device)
+    elif albedo_op.supported(statics.color):
+        sampled_albedo = albedo_op.albedo_apply_fused(
+            statics.color, params["color"], pts_flat, gradients, feature,
+            dtype).reshape(batch_size, n_samples, statics.color.d_out)
+    else:
+        sampled_albedo = fields.rendering_apply(
+            statics.color, params["color"], pts_flat, gradients, dirs_flat,
+            feature).reshape(batch_size, n_samples, statics.color.d_out)
+
+    inv_s = torch.clamp(fields.variance_inv_s(params["variance"]), 1e-6, 1e6)
+
+    true_cos = (dirs_flat * gradients).sum(-1, keepdim=True)
+    # annealed non-positive cos
+    iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
+                 + torch.relu(-true_cos) * cos_anneal_ratio)
+
+    dists_flat = dists.reshape(-1, 1)
+    est_next = sdf + iter_cos * dists_flat * 0.5
+    est_prev = sdf - iter_cos * dists_flat * 0.5
+    prev_cdf = torch.sigmoid(est_prev * inv_s)
+    next_cdf = torch.sigmoid(est_next * inv_s)
+    alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+    alpha = torch.clamp(alpha.reshape(batch_size, n_samples), 0.0, 1.0)
+
+    pts_norm = torch.linalg.vector_norm(pts_flat, dim=-1).reshape(
+        batch_size, n_samples).detach()
+    inside_sphere = (pts_norm < 1.0).float()
+    relax_inside_sphere = (pts_norm < 1.2).float()
+
+    weights = _exclusive_cumprod_transmittance(alpha)
+    sampled_normals = gradients.reshape(batch_size, n_samples, 3)
+
+    grad_norm = torch.linalg.vector_norm(sampled_normals, dim=-1)
+    gradient_error_num = (relax_inside_sphere * (grad_norm - 1.0) ** 2).sum()
+    gradient_error_den = relax_inside_sphere.sum()
+    gradient_error = gradient_error_num / (gradient_error_den + 1e-5)
+
+    return {
+        "sdf": sdf,
+        "dists": dists,
+        "gradients": sampled_normals,
+        "s_val": (1.0 / inv_s).expand(batch_size, n_samples),
+        "mid_z_vals": mid_z,
+        "alpha_raw": alpha,
+        "weights": weights,
+        "cdf": prev_cdf.reshape(batch_size, n_samples),
+        "gradient_error": gradient_error,
+        "gradient_error_num": gradient_error_num,
+        "gradient_error_den": gradient_error_den,
+        "inside_sphere": inside_sphere,
+        "sampled_albedo": sampled_albedo,
+        "sampled_normal": sampled_normals,
+    }
+
+
+# ---------------------------------------------------------------------------
+# z-value initialization and the RNb render
+# ---------------------------------------------------------------------------
+
+def init_z_vals(rcfg: RendererConfig, near, far, t_rand=None):
+    """Uniform z init plus the stratified shift ``t_rand`` [B,1] (uniform −
+    0.5; ignored when perturb is 0)."""
+    z = torch.linspace(0.0, 1.0, rcfg.n_samples, device=near.device)
+    z_vals = near + (far - near) * z[None, :]
+    if rcfg.perturb > 0:
+        z_vals = z_vals + t_rand * 2.0 / rcfg.n_samples
+    return z_vals
+
+
+def render_rnb(statics: ModelStatics, rcfg: RendererConfig, params,
+               rays_o, rays_d, near, far, lights_dir, t_rand,
+               cos_anneal_ratio=1.0, no_albedo: bool = False,
+               warmup: bool = False) -> Dict[str, torch.Tensor]:
+    """RNb rendering. lights_dir broadcasts against [n_lights, batch,
+    n_samples, 3]: [L,1,1,3] in warm-up (fixed per-view world lights),
+    [L,B,1,3] in the main phase (per-pixel world lights). warmup=True
+    applies ReLU to the shading; the main phase does not, because the
+    per-pixel lights keep n·l > 0 on valid pixels."""
+    if rcfg.n_outside > 0:
+        raise NotImplementedError("n_outside > 0 (the background NeRF) is "
+                                  "not ported yet")
+    sample_dist = 2.0 / rcfg.n_samples
+    z_vals = init_z_vals(rcfg, near, far, t_rand)
+    z_vals = upsampled_z_vals(statics, rcfg, params, rays_o, rays_d, z_vals)
+    n_samples = rcfg.total_samples if rcfg.n_importance > 0 else rcfg.n_samples
+
+    ret = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
+                           sample_dist, cos_anneal_ratio,
+                           need_albedo=not no_albedo,
+                           kernel_prec=rcfg.kernel_prec)
+    albedo = ret["sampled_albedo"]
+    normal = ret["sampled_normal"]
+    weights = ret["weights"]
+
+    shading = (normal[None] * lights_dir).sum(dim=-1, keepdim=True)  # [L,B,S,1]
+    if warmup:
+        shading = torch.relu(shading)
+    w = weights[None, :, :n_samples, None]
+    color_fine = (albedo[None] * w * shading).sum(dim=2)              # [L,B,C]
+
+    return {
+        "color_fine": color_fine,
+        "s_val": ret["s_val"].mean(dim=-1, keepdim=True),
+        "cdf_fine": ret["cdf"],
+        "weight_sum": weights.sum(dim=-1, keepdim=True),
+        "weight_max": weights.max(dim=-1, keepdim=True).values,
+        "gradients": ret["gradients"],
+        "weights": weights,
+        "gradient_error": ret["gradient_error"],
+        "gradient_error_num": ret["gradient_error_num"],
+        "gradient_error_den": ret["gradient_error_den"],
+        "inside_sphere": ret["inside_sphere"],
+    }
