@@ -15,7 +15,7 @@
 //             The pts cotangent is zero (sample points never need one).
 //
 // What bounds it on the H100: arithmetic. At the shipped conf a point costs
-// ~0.6 M multiply-adds per primal chain (9 layers, ~256x256): the forward
+// ~0.52 M multiply-adds per primal chain (9 layers, ~256x256): the forward
 // runs 2 chains, the backward 6 (primal+tangent, their reverse, dW). This
 // first version runs them on the CUDA cores in fp32 (bf16-rounded operands
 // on the main path); the products are the place for wgmma later.

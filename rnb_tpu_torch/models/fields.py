@@ -32,8 +32,6 @@ import torch
 
 from rnb_tpu_torch.models.embedder import make_embedder
 
-Params = Any
-
 
 # ---------------------------------------------------------------------------
 # linear layers (with optional weight norm)

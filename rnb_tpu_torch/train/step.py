@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Dict
+from typing import Any
 
 import torch
 

@@ -30,7 +30,7 @@ def _dense(layer):
                 np.maximum(np.linalg.norm(v, axis=0, keepdims=True), 1e-12))
 
 
-def _push_off_relu_boundary(cfg, params, x0, tau=2e-5, delta=1e-4):
+def _push_off_relu_boundary(params, x0, tau=2e-5, delta=1e-4):
     """Nudge the biases of hidden units whose pre-activation sits within tau
     of 0 for some row (as tests/test_pallas_nerf.py does): ReLU's gradient
     jumps there, and a summation-order difference between the two packages
@@ -61,7 +61,7 @@ def _setup(n=200, **over):
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     feat = (rng.normal(size=(n, kw["d_feature"])) * 0.3).astype(np.float32)
     x0 = np.asarray(jnp.concatenate([jalb._pe(4, pts), jalb._pe(4, nrm), feat], -1))
-    params = _push_off_relu_boundary(jcfg, params, x0)
+    params = _push_off_relu_boundary(params, x0)
     return jcfg, tcfg, params, pts, nrm, feat
 
 

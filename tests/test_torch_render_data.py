@@ -149,9 +149,9 @@ def test_render_rnb(scenes, warmup):
     kz, _ = jax.random.split(key)
     t_rand = torch.tensor(np.asarray(jax.random.uniform(kz, (96, 1)) - 0.5))
 
-    jo = jrnd.render_rnb(jstatics, jrnd.RendererConfig(**kw_r), params,
-                         jb.rays_o, jb.rays_d, jb.near, jb.far, jl, key,
-                         warmup=warmup)
+    jrender = jax.jit(lambda *a: jrnd.render_rnb(
+        jstatics, jrnd.RendererConfig(**kw_r), *a, warmup=warmup))
+    jo = jrender(params, jb.rays_o, jb.rays_d, jb.near, jb.far, jl, key)
     to = trnd.render_rnb(tstatics, trnd.RendererConfig(**kw_r, kernel_prec="f32"),
                          tp, tb.rays_o, tb.rays_d, tb.near, tb.far, tl, t_rand,
                          warmup=warmup)

@@ -8,7 +8,6 @@ at warm_up_end > 0 starts with LR 0 (step 0), so two steps are taken.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
