@@ -30,7 +30,11 @@
 // kernels of common.cuh reduce them across points.
 #include "common.cuh"
 
-static __global__ void __launch_bounds__(RNB_NT)
+// Two blocks an SM: left free, ptxas gives this kernel 190 registers and one
+// 256-thread block an SM; capped at 128 (a 72-byte spill) it ran 13.79 ->
+// 11.73 ms at 65,536 points on an H100 (700 W). The other sweep kernels fit
+// two or three blocks already and got slower under the same cap.
+static __global__ void __launch_bounds__(RNB_NT, 2)
 sdf_fwd_kernel(const float* __restrict__ pts, long long n,
                const float* __restrict__ w, const float* __restrict__ wt,
                const float* __restrict__ b, RnbNet net, int multires,

@@ -15,11 +15,16 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
+
+from rnb_tpu_torch.models.fields import round_to
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -134,3 +139,32 @@ def splits_for(m: int, n: int, k: int) -> int:
     card's SMs a few times, each split at least 256 rows long."""
     tiles = ((m + 63) // 64) * ((n + 63) // 64)
     return max(1, min(-(-528 // tiles), -(-k // 256)))
+
+
+def bf16_flag(dtype) -> int:
+    """The C entries' op-dtype flag: 1 for bfloat16 operands, 0 for float32."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"op dtype must be bfloat16 or float32, got {dtype}")
+    return int(dtype == torch.bfloat16)
+
+
+def flat_params(ws, bs, dtype):
+    """The C entries' weight layout: every W_l [in, out] rounded to the op
+    dtype, concatenated flat; the same for every W_l^T [out, in]; every b_l
+    concatenated. -> (w, wt, b, in_dims, out_dims)."""
+    w16 = [round_to(w.detach(), dtype).contiguous() for w in ws]
+    wflat = torch.cat([w.reshape(-1) for w in w16])
+    wtflat = torch.cat([w.t().contiguous().reshape(-1) for w in w16])
+    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+    return (wflat, wtflat, bflat, [w.shape[0] for w in ws],
+            [w.shape[1] for w in ws])
+
+
+def unflat(flat, shapes):
+    """Split a flat buffer laid out as ``flat_params`` lays out W or b."""
+    out, off = [], 0
+    for shp in shapes:
+        size = math.prod(shp)
+        out.append(flat[off:off + size].reshape(shp))
+        off += size
+    return out

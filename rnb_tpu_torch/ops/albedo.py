@@ -30,7 +30,6 @@ from torch.autograd.function import once_differentiable
 from rnb_tpu_torch.models.fields import (RenderingConfig, fold_weight_norm,
                                          round_to)
 from rnb_tpu_torch.ops import _build
-from rnb_tpu_torch.ops.sdf_core import _bf, _flat, _unflat
 
 
 def supported(cfg: RenderingConfig) -> bool:
@@ -144,11 +143,11 @@ def albedo_fwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs,
     if not pts.is_cuda:
         return albedo_fwd_plain(cfg, pts, nrm, feat, ws, bs, dtype)
     _check_args(cfg, pts, nrm, feat, ws, bs)
-    bf = _bf(dtype)
+    bf = _build.bf16_flag(dtype)
     lib = _build.library()
     pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
     n, L = pts.shape[0], len(ws)
-    wflat, _, bflat, in_dims, out_dims = _flat(ws, bs, dtype)
+    wflat, _, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
     out = torch.empty(n, out_dims[-1], device=pts.device)
     with torch.cuda.device(pts.device):
         rc = lib.rnb_albedo_fwd(
@@ -169,11 +168,11 @@ def albedo_bwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs, c_out,
     if not pts.is_cuda:
         return albedo_bwd_plain(cfg, pts, nrm, feat, ws, bs, c_out, dtype)
     _check_args(cfg, pts, nrm, feat, ws, bs)
-    bf = _bf(dtype)
+    bf = _build.bf16_flag(dtype)
     lib = _build.library()
     pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
     n, L, F = pts.shape[0], len(ws), feat.shape[1]
-    wflat, wtflat, bflat, in_dims, out_dims = _flat(ws, bs, dtype)
+    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
     c_out = c_out.detach().float().contiguous()
     if c_out.shape != (n, out_dims[-1]):
         raise ValueError("albedo backward: cotangent shape does not match")
@@ -200,8 +199,8 @@ def albedo_bwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs, c_out,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_albedo_bwd")
     _build.launches["albedo_bwd"] += 1
-    return (_unflat(dw, [tuple(w.shape) for w in ws]),
-            _unflat(db, [tuple(b.shape) for b in bs]), cnrm, cfeat)
+    return (_build.unflat(dw, [tuple(w.shape) for w in ws]),
+            _build.unflat(db, [tuple(b.shape) for b in bs]), cnrm, cfeat)
 
 
 class _Albedo(torch.autograd.Function):

@@ -54,12 +54,6 @@ def _c16(dtype) -> float:
     return float(torch.tensor(1.0 / math.sqrt(2.0)).to(dtype))
 
 
-def _bf(dtype) -> int:
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"op dtype must be bfloat16 or float32, got {dtype}")
-    return int(dtype == torch.bfloat16)
-
-
 # ---------------------------------------------------------------------------
 # plain PyTorch version of the kernels' algorithm
 # ---------------------------------------------------------------------------
@@ -198,36 +192,17 @@ def _check_args(cfg: SDFConfig, pts, ws, bs):
                          f"encoding gives {cfg.input_ch}")
 
 
-def _flat(ws, bs, dtype):
-    w16 = [round_to(w.detach(), dtype).contiguous() for w in ws]
-    wflat = torch.cat([w.reshape(-1) for w in w16])
-    wtflat = torch.cat([w.t().contiguous().reshape(-1) for w in w16])
-    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
-    in_dims = [w.shape[0] for w in ws]
-    out_dims = [w.shape[1] for w in ws]
-    return wflat, wtflat, bflat, in_dims, out_dims
-
-
-def _unflat(flat, shapes):
-    out, off = [], 0
-    for shp in shapes:
-        size = math.prod(shp)
-        out.append(flat[off:off + size].reshape(shp))
-        off += size
-    return out
-
-
 def sdf_core_fwd(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16):
     """Forward kernel (``rnb_sdf_fwd``) for a CUDA tensor, plain version
     for a CPU tensor."""
     if not pts.is_cuda:
         return sdf_core_fwd_plain(cfg, pts, ws, bs, dtype)
     _check_args(cfg, pts, ws, bs)
-    bf = _bf(dtype)
+    bf = _build.bf16_flag(dtype)
     lib = _build.library()
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
-    wflat, wtflat, bflat, in_dims, out_dims = _flat(ws, bs, dtype)
+    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
     rec_ld = max(out_dims[:-1], default=1)
     dev = pts.device
     rec = torch.empty(max(L - 1, 1) * n * rec_ld, device=dev)
@@ -256,11 +231,11 @@ def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
         return sdf_core_bwd_plain(cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
                                   dtype)
     _check_args(cfg, pts, ws, bs)
-    bf = _bf(dtype)
+    bf = _build.bf16_flag(dtype)
     lib = _build.library()
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
-    wflat, wtflat, bflat, in_dims, out_dims = _flat(ws, bs, dtype)
+    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
     cots = [t.detach().float().contiguous() for t in (c_sdf, c_feat, c_grad)]
     if (cots[0].shape != (n,) or cots[1].shape != (n, out_dims[-1] - 1)
             or cots[2].shape != (n, 3)):
@@ -289,8 +264,8 @@ def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_sdf_bwd")
     _build.launches["sdf_core_bwd"] += 1
-    return (_unflat(dw, [tuple(w.shape) for w in ws]),
-            _unflat(db, [tuple(b.shape) for b in bs]))
+    return (_build.unflat(dw, [tuple(w.shape) for w in ws]),
+            _build.unflat(db, [tuple(b.shape) for b in bs]))
 
 
 class _SDFCore(torch.autograd.Function):

@@ -80,14 +80,14 @@ class TrainState:
     step: int = 0
 
 
-def init_train_state(params, step: int = 0) -> TrainState:
+def init_train_state(params) -> TrainState:
     """Adam (torch defaults = optax.adam's) over ``tree_leaves(params)``;
     the learning rate is set per step from the schedule."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     opt = torch.optim.Adam(leaves, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(params=params, optimizer=opt, step=step)
+    return TrainState(params=params, optimizer=opt)
 
 
 def _loss_terms(statics: ModelStatics, rcfg: RendererConfig, tcfg: TrainConfig,
