@@ -1,0 +1,288 @@
+"""Device-resident dataset with on-the-fly virtual-light supervision.
+
+Only the source maps (normals, albedo, masks) live on the device as
+``[V, H, W(,3)]`` tensors. The per-pixel lights, the warm-up and main
+supervision colours, the rays and near/far are computed in the train step
+from the sampled pixel indices (``rnb_tpu_torch.data.lights`` has the
+closed-form frames): no per-step host-to-device traffic.
+
+Pixel draws are inputs (``sample_rays_on_all_lights`` takes ``px``, ``py``;
+``draw_pixels`` makes them from a ``torch.Generator``), so the tests can
+feed the JAX package's draws.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from rnb_tpu_torch.data import cameras as cam
+from rnb_tpu_torch.data import lights
+
+
+class DataArrays(NamedTuple):
+    normals: torch.Tensor          # [V, H, W, 3] camera-space
+    albedos: torch.Tensor          # [V, H, W, 3] (ones when no_albedo)
+    masks: torch.Tensor            # [V, H, W]
+    intrinsics_inv: torch.Tensor   # [V, 4, 4]
+    pose_all: torch.Tensor         # [V, 4, 4] cam-to-world
+    lights_warmup_world: torch.Tensor  # [V, L, 3]
+
+
+class RayBatch(NamedTuple):
+    rays_o: torch.Tensor           # [B, 3]
+    rays_d: torch.Tensor           # [B, 3]
+    mask: torch.Tensor             # [B, 1]
+    rgb_warmup: torch.Tensor       # [L, B, 3]
+    rgb: torch.Tensor              # [L, B, 3]
+    lights_warmup: torch.Tensor    # [L, 3]    world, per-view
+    lights: torch.Tensor           # [L, B, 3] world, per-pixel
+    near: torch.Tensor             # [B, 1]
+    far: torch.Tensor              # [B, 1]
+    pixels_x: torch.Tensor         # [B]
+    pixels_y: torch.Tensor         # [B]
+
+
+def draw_pixels(gen: torch.Generator, batch_size: int, H: int, W: int):
+    """Uniform pixel indices (px in [0, W), py in [0, H)) on the
+    generator's device."""
+    px = torch.randint(0, W, (batch_size,), generator=gen, device=gen.device)
+    py = torch.randint(0, H, (batch_size,), generator=gen, device=gen.device)
+    return px, py
+
+
+def _rays_from_pixels(arrays: DataArrays, view_idx, px, py):
+    """Unproject pixel centers to world rays."""
+    p = torch.stack([px.float(), py.float(), torch.ones_like(px, dtype=torch.float32)],
+                    dim=-1)
+    Kinv = arrays.intrinsics_inv[view_idx, :3, :3]
+    pose = arrays.pose_all[view_idx]
+    d_cam = p @ Kinv.T
+    d_cam = d_cam / torch.linalg.vector_norm(d_cam, dim=-1, keepdim=True)
+    rays_d = d_cam @ pose[:3, :3].T
+    rays_o = pose[:3, 3].expand_as(rays_d)
+    return rays_o, rays_d
+
+
+def sample_rays_on_all_lights(arrays: DataArrays, view_idx, px, py) -> RayBatch:
+    """Rays, supervision under all lights, and the lights themselves for
+    the pixels (px, py) of one view."""
+    n = arrays.normals[view_idx, py, px]          # [B,3] camera space
+    a = arrays.albedos[view_idx, py, px]          # [B,3]
+    m = arrays.masks[view_idx, py, px][:, None]   # [B,1]
+    pose_r = arrays.pose_all[view_idx, :3, :3]
+
+    # warm-up: fixed camera-space lights
+    u_warm = torch.as_tensor(lights.warmup_light_dirs_cam(), device=n.device)
+    rgb_warmup = lights.shade(n, u_warm, a)                  # [L,B,3]
+    lights_warmup_world = arrays.lights_warmup_world[view_idx]
+
+    # main: per-pixel closed-form frames
+    l_cam = lights.per_pixel_light_dirs_cam(n)               # [L,B,3]
+    rgb_main = lights.shade(n, l_cam, a)
+    l_world = torch.einsum("ij,lbj->lbi", pose_r, l_cam)
+
+    rays_o, rays_d = _rays_from_pixels(arrays, view_idx, px, py)
+    near, far = cam.near_far_from_sphere(rays_o, rays_d)
+    return RayBatch(rays_o=rays_o, rays_d=rays_d, mask=m,
+                    rgb_warmup=rgb_warmup, rgb=rgb_main,
+                    lights_warmup=lights_warmup_world, lights=l_world,
+                    near=near, far=far, pixels_x=px, pixels_y=py)
+
+
+class Dataset:
+    """Owns the device tensors, the host camera matrices and the mesh bbox."""
+
+    def __init__(self, normals_np, albedos_np, masks_np, world_mats, scale_mats,
+                 object_scale_mat=None, no_albedo: bool = False, device="cpu"):
+        self.no_albedo = bool(no_albedo or albedos_np is None)
+        self.n_images, self.H, self.W = masks_np.shape[:3]
+        self.n_lights = lights.N_LIGHTS
+        self.device = torch.device(device)
+
+        self.world_mats_np = [np.asarray(w, np.float32) for w in world_mats]
+        self.scale_mats_np = [np.asarray(s, np.float32) for s in scale_mats]
+        intrinsics_list, pose_list = [], []
+        for world_mat, scale_mat in zip(self.world_mats_np, self.scale_mats_np):
+            intr, pose = cam.decompose_projection((world_mat @ scale_mat)[:3, :4])
+            intrinsics_list.append(intr)
+            pose_list.append(pose)
+        intrinsics_all = np.stack(intrinsics_list)
+        pose_all = np.stack(pose_list)
+
+        # warm-up lights rotated to world per view
+        u_warm = lights.warmup_light_dirs_cam()
+        lights_warmup_world = np.einsum("vij,lj->vli", pose_all[:, :3, :3], u_warm)
+
+        if self.no_albedo:
+            albedos_np = np.ones_like(normals_np)
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+        self.arrays = DataArrays(
+            normals=put(normals_np),
+            albedos=put(albedos_np),
+            masks=put(masks_np),
+            intrinsics_inv=put(np.linalg.inv(intrinsics_all)),
+            pose_all=put(pose_all),
+            lights_warmup_world=put(lights_warmup_world),
+        )
+        self.intrinsics_all = intrinsics_all
+        self.pose_all_np = pose_all
+        self.focal = float(intrinsics_all[0, 0, 0])
+
+        # mesh ROI bbox
+        if object_scale_mat is None:
+            object_scale_mat = self.scale_mats_np[0]
+        bbox_min = np.array([-1.01, -1.01, -1.01, 1.0])
+        bbox_max = np.array([1.01, 1.01, 1.01, 1.0])
+        inv0 = np.linalg.inv(self.scale_mats_np[0])
+        self.object_bbox_min = (inv0 @ object_scale_mat @ bbox_min[:, None])[:3, 0]
+        self.object_bbox_max = (inv0 @ object_scale_mat @ bbox_max[:, None])[:3, 0]
+
+
+# ---------------------------------------------------------------------------
+# synthetic scenes (test fixtures / demos)
+# ---------------------------------------------------------------------------
+
+def _look_at_origin(C):
+    """World-to-camera rotation (rows x, y, z) of a camera at C looking at
+    the origin, z toward the origin."""
+    z = -C / np.linalg.norm(C)
+    up = np.array([0.0, 0.0, 1.0])
+    if abs(np.dot(z, up)) > 0.99:
+        up = np.array([0.0, 1.0, 0.0])
+    x = np.cross(z, up)
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    return np.stack([x, y, z])
+
+
+def _world_mat(K, R_w2c, C):
+    t = -R_w2c @ C
+    world_mat = np.eye(4, dtype=np.float32)
+    world_mat[:3, :4] = K @ np.concatenate([R_w2c, t[:, None]], axis=1)
+    return world_mat
+
+
+def _pixel_dirs_world(K, R_w2c, H, W):
+    px, py = np.meshgrid(np.arange(W), np.arange(H), indexing="xy")
+    p = np.stack([px + 0.0, py + 0.0, np.ones_like(px, np.float64)], axis=-1)
+    d_cam = p @ np.linalg.inv(K).T
+    d_cam /= np.linalg.norm(d_cam, axis=-1, keepdims=True)
+    return d_cam @ R_w2c          # rows are axes => cam->world is R^T
+
+
+def torus_sdf(p: np.ndarray, R: float = 0.5, r: float = 0.22) -> np.ndarray:
+    """Signed distance to a z-axis torus (exact point-to-surface distance)."""
+    rho = np.sqrt(p[..., 0] ** 2 + p[..., 1] ** 2)
+    return np.sqrt((rho - R) ** 2 + p[..., 2] ** 2) - r
+
+
+def _torus_normal(p: np.ndarray, R: float = 0.5) -> np.ndarray:
+    rho = np.maximum(np.sqrt(p[..., 0] ** 2 + p[..., 1] ** 2), 1e-12)
+    g = np.stack([p[..., 0] * (rho - R) / rho,
+                  p[..., 1] * (rho - R) / rho,
+                  p[..., 2]], axis=-1)
+    return g / np.maximum(np.linalg.norm(g, axis=-1, keepdims=True), 1e-12)
+
+
+def make_torus_scene(n_views: int = 8, H: int = 128, W: int = 128,
+                     R: float = 0.5, r: float = 0.22, cam_dist: float = 3.0,
+                     albedo_rgb=(0.7, 0.55, 0.35),
+                     center=(0.0, 0.0, 0.0), device="cpu") -> Dataset:
+    """Analytic torus scene rendered by sphere tracing: a non-convex,
+    genus-1 fixture. ``center`` moves the torus off the origin while the
+    cameras still ring the origin."""
+    center = np.asarray(center, np.float64)
+    normals_np = np.zeros((n_views, H, W, 3), np.float32)
+    albedos_np = np.zeros((n_views, H, W, 3), np.float32)
+    masks_np = np.zeros((n_views, H, W), np.float32)
+    world_mats, scale_mats = [], []
+    focal = 1.2 * max(H, W)
+    K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]])
+
+    for v in range(n_views):
+        theta = 2 * np.pi * v / n_views
+        # tilt the ring so some views look into the hole
+        phi = 0.9 * np.sin(theta * 2 + 1.0)
+        C = cam_dist * np.array([np.cos(theta) * np.cos(phi),
+                                 np.sin(theta) * np.cos(phi),
+                                 np.sin(phi)])
+        R_w2c = _look_at_origin(C)
+        world_mats.append(_world_mat(K, R_w2c, C))
+        scale_mats.append(np.eye(4, dtype=np.float32))
+        d_world = _pixel_dirs_world(K, R_w2c, H, W)
+
+        # sphere-trace; start and far bound widen with |center|
+        c_norm = np.linalg.norm(center)
+        t_far = cam_dist + 1.2 + c_norm
+        t_ray = np.full((H, W), cam_dist - 1.2 - c_norm)
+        alive = np.ones((H, W), bool)
+        for _ in range(160):
+            p = C[None, None] + t_ray[..., None] * d_world
+            d = torus_sdf(p - center, R, r)
+            t_ray = np.where(alive, t_ray + d, t_ray)
+            alive = alive & (d > 1e-5) & (t_ray < t_far)
+        p = C[None, None] + t_ray[..., None] * d_world
+        hit = (np.abs(torus_sdf(p - center, R, r)) < 1e-3) & (t_ray < t_far)
+
+        n_cam = _torus_normal(p - center, R) @ R_w2c.T
+        normals_np[v] = np.where(hit[..., None], n_cam, 0.0)
+        masks_np[v] = hit.astype(np.float32)
+        tex = 0.5 + 0.5 * np.sin(6 * np.pi * p[..., 0]) * np.cos(
+            6 * np.pi * p[..., 2])
+        albedos_np[v] = np.where(
+            hit[..., None],
+            np.asarray(albedo_rgb)[None, None] * (0.5 + 0.5 * tex[..., None]),
+            0.0)
+
+    return Dataset(normals_np, albedos_np, masks_np, world_mats, scale_mats,
+                   device=device)
+
+
+def make_sphere_scene(n_views: int = 8, H: int = 64, W: int = 64,
+                      radius: float = 0.5, cam_dist: float = 3.0,
+                      albedo_rgb=(0.8, 0.5, 0.3),
+                      device="cpu") -> Dataset:
+    """Analytic textured sphere with known normals, albedo and masks."""
+    focal = 1.2 * max(H, W)
+    K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]])
+
+    normals_np = np.zeros((n_views, H, W, 3), np.float32)
+    albedos_np = np.zeros((n_views, H, W, 3), np.float32)
+    masks_np = np.zeros((n_views, H, W), np.float32)
+    world_mats, scale_mats = [], []
+
+    for v in range(n_views):
+        theta = 2 * np.pi * v / n_views
+        phi = 0.3 * np.sin(theta * 2 + 1.0)
+        C = cam_dist * np.array([np.cos(theta) * np.cos(phi),
+                                 np.sin(theta) * np.cos(phi),
+                                 np.sin(phi)])
+        R_w2c = _look_at_origin(C)
+        world_mats.append(_world_mat(K, R_w2c, C))
+        scale_mats.append(np.eye(4, dtype=np.float32))
+
+        d_world = _pixel_dirs_world(K, R_w2c, H, W)
+        oc = C[None, None, :]
+        b = 2 * (d_world * oc).sum(-1)
+        c = (oc * oc).sum(-1) - radius ** 2
+        disc = b ** 2 - 4 * c
+        hit = disc > 0
+        t_hit = (-b - np.sqrt(np.maximum(disc, 0))) / 2.0
+        pts = oc + t_hit[..., None] * d_world
+        n_world = pts / np.maximum(np.linalg.norm(pts, axis=-1, keepdims=True), 1e-12)
+        normals_np[v] = np.where(hit[..., None], n_world @ R_w2c.T, 0.0)
+        masks_np[v] = hit.astype(np.float32)
+        tex = 0.5 + 0.5 * np.sin(4 * np.pi * pts[..., 0]) * np.cos(4 * np.pi * pts[..., 1])
+        albedos_np[v] = np.where(
+            hit[..., None],
+            np.asarray(albedo_rgb)[None, None] * (0.5 + 0.5 * tex[..., None]),
+            0.0)
+
+    return Dataset(normals_np, albedos_np, masks_np, world_mats, scale_mats,
+                   device=device)
