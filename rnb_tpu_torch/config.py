@@ -1,10 +1,9 @@
 """HOCON-subset config system (the port's own copy of ``rnb_tpu/config.py``,
 so that a conf drives the port without importing the JAX package).
 
-The reference drives experiments with pyhocon HOCON files
-(`/root/reference/exp_runner.py:34`, `confs/*.conf`). pyhocon is not available
-here, so this module implements a small parser covering the subset the
-reference confs actually use:
+The reference RNb-NeuS runner drives experiments with pyhocon HOCON files
+(`confs/*.conf`). Rather than depend on pyhocon, this module implements a
+small parser covering the subset the reference confs actually use:
 
   * nested ``section { ... }`` blocks
   * ``key = value`` with optional trailing commas
@@ -292,9 +291,8 @@ def parse_string(text: str) -> Config:
 
 def apply_override(conf: Config, override: str) -> None:
     """Apply one ``dotted.path=value`` override in place, with the same value
-    coercion the parser uses (the TPU replacement for the reference jobs'
-    heredoc-templated per-case confs,
-    `/root/reference/jobs/run_job_bearPNG_001.job:20-111`)."""
+    coercion the parser uses (in place of the reference job scripts'
+    heredoc-templated per-case confs)."""
     if "=" not in override:
         raise ValueError(f"override must be 'dotted.path=value', got {override!r}")
     path, _, raw = override.partition("=")
