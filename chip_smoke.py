@@ -3,25 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a),
+Builds the seven CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a),
 then:
   1. checks each kernel against its plain PyTorch version on the card, at
-     the main path's point count (512 rays x 128 samples = 65,536) and at a
-     ragged one (65,573); f32 operands within 1e-4 and bf16 operands within
-     1e-2 of the plain result's norm; times kernel and plain version with
-     CUDA events;
-  2. drives the training step of confs/wmask_rnb.conf at full width (8x256
-     SDF net, 2x256 albedo net, batch 512, 64+64 samples, 3 lights) on the
-     sphere fixture: 10 warm-up steps and 10 main-phase steps, every loss
-     finite, every kernel's launch count above zero;
+     its main path's point count and at a ragged one: the SDF core and
+     albedo at 512 rays x 128 samples = 65,536 and 65,573, the background
+     NeRF at 512 x (128 + 4) = 67,584 and 67,617, the four SDF-forward
+     ablation variants at 65,536; f32 operands within 1e-4 and bf16
+     operands within 1e-2 of the plain result's norm; times kernel and
+     plain version with CUDA events;
+  2. drives the training step at full width (8x256 SDF net, 2x256 albedo
+     net, batch 512, 64+64 samples, 3 lights) on the sphere fixture, for
+     confs/wmask_rnb.conf and for confs/womask_rnb.conf with n_outside=4
+     (the 8x256 background NeRF on 4 outside samples, mask_weight 0): 10
+     warm-up and 10 main-phase steps each, every loss finite, each kernel
+     of the path launched (counts set to 0 before each path, read after);
   3. runs one main step of 64 rays on the CPU (plain versions) and on the
-     card (kernels, f32 operands) from the same params and draws, and
-     compares loss, gradients and updated params;
-  4. trains 200 warm-up steps on a sphere of radius 0.35: the mean loss of
-     the last 20 steps must be below that of the first 20.
+     card (kernels, f32 operands) from the same params and draws, for each
+     of the two confs, and compares loss, gradients and updated params;
+  4. trains 200 warm-up steps of each conf on a sphere of radius 0.35: the
+     mean loss of the last 20 steps must be below that of the first 20;
+  5. runs the kernel-ablation entry point
+     (python -m rnb_tpu_torch.tools.ablate_kernel) and checks that it went
+     through the ablation kernel.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
-kernels, and last {"ok": true, "device": {...}}. Any failed check raises;
-there is no fallback: without a CUDA device it exits non-zero.
+kernels, and last {"ok": true, "device": {...}}. In that line `launches`
+counts each kernel's launches on its path (the wmask step for the SDF core
+and albedo, the womask step for the NeRF, the ablation run for the ablation
+variants), and `ms` / `plain_ms` are at the main-path shape with bf16
+operands (for the ablation kernel: one launch of each of its four variants).
+Any failed check raises; there is no fallback: without a CUDA device it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -37,7 +49,11 @@ import torch
 
 F32_TOL, BF16_TOL = 1e-4, 1e-2
 MAIN_N, RAGGED_N = 512 * 128, 65573
-CONF = "confs/wmask_rnb.conf"
+NERF_N, NERF_RAGGED_N = 512 * (128 + 4), 67617
+WMASK = ("confs/wmask_rnb.conf", ())
+WOMASK = ("confs/womask_rnb.conf", ("model.neus_renderer.n_outside=4",))
+WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "albedo_fwd", "albedo_bwd")
+WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd")
 
 KERNELS = {
     "sdf_core_fwd": ("rnb_tpu_torch/csrc/sdf_core.cu",
@@ -48,6 +64,12 @@ KERNELS = {
                    "rnb_tpu/ops/pallas_albedo.py:85"),
     "albedo_bwd": ("rnb_tpu_torch/csrc/albedo.cu",
                    "rnb_tpu/ops/pallas_albedo.py:101"),
+    "nerf_fwd": ("rnb_tpu_torch/csrc/nerf.cu",
+                 "rnb_tpu/ops/pallas_nerf.py:105"),
+    "nerf_bwd": ("rnb_tpu_torch/csrc/nerf.cu",
+                 "rnb_tpu/ops/pallas_nerf.py:122"),
+    "sdf_fwd_ablate": ("rnb_tpu_torch/csrc/sdf_core.cu",
+                       "tools/ablate_kernel.py:62"),
 }
 
 
@@ -67,16 +89,39 @@ def rel_err(got, want):
     return mx, (num ** 0.5) / max(den ** 0.5, 1e-30)
 
 
-def cuda_ms(fn, iters=10, warm=2):
-    for _ in range(warm):
-        fn()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
+def load(conf_spec):
+    """(statics, renderer config, train config) of a (path, overrides)."""
+    from rnb_tpu_torch import config
+    from rnb_tpu_torch.models import fields, renderer
+    from rnb_tpu_torch.train import step as steplib
+
+    path, overrides = conf_spec
+    conf = config.load_conf(path)
+    for o in overrides:
+        config.apply_override(conf, o)
+    return (fields.statics_from_conf(conf["model"]),
+            renderer.renderer_conf(conf["model"]), steplib.train_conf(conf))
+
+
+def check_kernel(results, name, n, dtype, kern, plain, timed):
+    """Hold one kernel call against its plain version; time both when
+    ``timed``."""
+    from rnb_tpu_torch.tools.ablate_kernel import cuda_ms
+
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    got = kern()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    want = plain()
+    mx, rel = rel_err(got, want)
+    tag = f"{name} n={n} {str(dtype).split('.')[-1]}"
+    log(f"[kernel] {tag}: max_abs_err={mx:.3e} rel_err={rel:.3e} (tol {tol:g})")
+    assert rel <= tol, f"{tag}: rel err {rel} > {tol}"
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], mx)
+    if timed:
+        k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+        r["ms"], r["plain_ms"] = r.get("ms", 0.0) + k_ms, r.get("plain_ms", 0.0) + p_ms
+        log(f"[time] {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -85,10 +130,10 @@ def cuda_ms(fn, iters=10, warm=2):
 
 def kernel_checks(dev):
     from rnb_tpu_torch.models import fields
-    from rnb_tpu_torch.ops import albedo, sdf_core
+    from rnb_tpu_torch.ops import albedo, nerf, sdf_ablate, sdf_core
 
     gen = torch.Generator().manual_seed(0)
-    scfg, acfg = fields.SDFConfig(), fields.RenderingConfig()
+    scfg, acfg, ncfg = fields.SDFConfig(), fields.RenderingConfig(), fields.NeRFConfig()
     sdf_p = fields.init_sdf_network(gen, scfg, dev)
     for layer in sdf_p:   # off the exact geometric init: every layer carries signal
         layer["v"] = layer["v"] + 0.02 * torch.randn(layer["v"].shape, generator=gen).to(dev)
@@ -97,8 +142,10 @@ def kernel_checks(dev):
     sb = [l["b"].detach() for l in sdf_p]
     aw = [fields.fold_weight_norm(l).detach() for l in alb_p]
     ab = [l["b"].detach() for l in alb_p]
+    nw, nb = nerf.flatten_params(fields.init_nerf(gen, ncfg, dev))
 
-    results = {k: {} for k in KERNELS}
+    results = {}
+    dtypes = (torch.float32, torch.bfloat16)
     for n in (MAIN_N, RAGGED_N):
         pts = (torch.rand(n, 3, generator=gen) * 1.6 - 0.8).to(dev)
         nrm = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
@@ -107,7 +154,7 @@ def kernel_checks(dev):
         cf = (0.1 * torch.randn(n, scfg.d_out - 1, generator=gen)).to(dev)
         cg = torch.randn(n, 3, generator=gen).to(dev)
         co = torch.randn(n, acfg.d_out, generator=gen).to(dev)
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype in dtypes:
             calls = {
                 "sdf_core_fwd": (
                     lambda: list(sdf_core.sdf_core_fwd(scfg, pts, sw, sb, dtype)),
@@ -122,21 +169,44 @@ def kernel_checks(dev):
                     lambda: _flat_alb(albedo.albedo_bwd(acfg, pts, nrm, feat, aw, ab, co, dtype)),
                     lambda: _flat_alb(albedo.albedo_bwd_plain(acfg, pts, nrm, feat, aw, ab, co, dtype))),
             }
+            if n == MAIN_N:   # the ablation variants at the main path's count
+                for mode in sdf_ablate.MODES:
+                    calls[f"sdf_fwd_ablate:{mode}"] = (
+                        lambda m=mode: list(sdf_ablate.sdf_fwd_ablate(m, scfg, pts, sw, sb, dtype)),
+                        lambda m=mode: list(sdf_ablate.sdf_fwd_ablate_plain(m, scfg, pts, sw, sb, dtype)))
             for name, (kern, plain) in calls.items():
-                got = kern()
-                torch.cuda.synchronize()
-                want = plain()
-                mx, rel = rel_err(got, want)
-                tag = f"{name} n={n} {str(dtype).split('.')[-1]}"
-                log(f"[kernel] {tag}: max_abs_err={mx:.3e} rel_err={rel:.3e} (tol {tol:g})")
-                assert rel <= tol, f"{tag}: rel err {rel} > {tol}"
-                if n == MAIN_N and dtype == torch.bfloat16:
-                    k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
-                    results[name].update(max_abs_err=mx, rel_err=rel, ms=k_ms,
-                                         plain_ms=p_ms)
-                    log(f"[time] {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-                del got, want
+                check_kernel(results, name.split(":")[0], n, dtype, kern, plain,
+                             n == MAIN_N and dtype == torch.bfloat16)
         del pts, nrm, feat, cs, cf, cg, co
+        torch.cuda.empty_cache()
+
+    for n in (NERF_N, NERF_RAGGED_N):
+        # pts4 = [x/r, 1/r] with |x| > 1, as render_core_outside feeds it,
+        # kept where every ReLU pre-activation lies at least 2e-5 from 0:
+        # nearer, f32 summation noise flips a mask between the two versions
+        # (nerf.relu_margin)
+        m = 2 * n
+        x = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1)
+        inv_r = torch.rand(m, 1, generator=gen) * 0.9 + 0.1
+        pts4 = torch.cat([x, inv_r], dim=-1).to(dev)
+        views = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1).to(dev)
+        keep = torch.nonzero(nerf.relu_margin(ncfg, pts4, views, nw, nb) >= 2e-5)[:, 0]
+        assert keep.numel() >= n, f"only {keep.numel()} of {m} points off the ReLU boundary"
+        log(f"[kernel] nerf: {keep.numel()} of {m} drawn points lie off the ReLU boundary")
+        pts4, views = pts4[keep[:n]], views[keep[:n]]
+        ca = torch.randn(n, 1, generator=gen).to(dev)
+        cr = torch.randn(n, 3, generator=gen).to(dev)
+        for dtype in dtypes:
+            timed = n == NERF_N and dtype == torch.bfloat16
+            check_kernel(results, "nerf_fwd", n, dtype,
+                         lambda: list(nerf.nerf_fwd(ncfg, pts4, views, nw, nb, dtype)),
+                         lambda: list(nerf.nerf_fwd_plain(ncfg, pts4, views, nw, nb, dtype)),
+                         timed)
+            check_kernel(results, "nerf_bwd", n, dtype,
+                         lambda: sum(nerf.nerf_bwd(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
+                         lambda: sum(nerf.nerf_bwd_plain(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
+                         timed)
+        del pts4, views, ca, cr
         torch.cuda.empty_cache()
     return results
 
@@ -147,21 +217,17 @@ def _flat_alb(r):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the training step of the shipped conf
+# phase 2: the training step of a shipped conf
 # ---------------------------------------------------------------------------
 
-def slice_run(dev):
-    from rnb_tpu_torch import config
+def slice_run(dev, conf_spec, kernels):
     from rnb_tpu_torch.data import dataset as ds
-    from rnb_tpu_torch.models import fields, renderer
+    from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.ops import _build
     from rnb_tpu_torch.train import step as steplib
 
-    conf = config.load_conf(CONF)
-    statics = fields.statics_from_conf(conf["model"])
-    rcfg = renderer.renderer_conf(conf["model"])
-    tcfg = steplib.train_conf(conf)
-    assert (rcfg.total_samples, rcfg.n_outside, tcfg.batch_size) == (128, 0, 512)
+    statics, rcfg, tcfg = load(conf_spec)
+    assert (rcfg.total_samples, tcfg.batch_size) == (128, 512)
     scene = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4, device=dev)
     params = fields.init_model_bundle(torch.Generator().manual_seed(0), statics, dev)
     state = steplib.init_train_state(params)
@@ -188,11 +254,11 @@ def slice_run(dev):
         phases[name] = {"first_step_ms": (t1 - t0) * 1e3,
                         "ms_per_step": (t2 - t1) * 1e3 / 9,
                         "loss_first": losses[0].item(), "loss_last": losses[-1].item()}
-        log(f"[slice] {name}: {phases[name]}")
+        log(f"[slice {conf_spec[0]} n_outside={rcfg.n_outside}] {name}: {phases[name]}")
     counts = dict(_build.launches)
     log(f"[slice] launches in the 20 steps: {counts}")
-    for k, v in counts.items():
-        assert v > 0, f"kernel {k} was not launched by the main path"
+    for k in kernels:
+        assert counts[k] > 0, f"kernel {k} was not launched by the main path"
     return phases, counts
 
 
@@ -200,19 +266,16 @@ def slice_run(dev):
 # phase 3: one step on the CPU (plain versions) vs on the card (kernels)
 # ---------------------------------------------------------------------------
 
-def slice_parity(dev):
-    from rnb_tpu_torch import config
+def slice_parity(dev, conf_spec):
     from rnb_tpu_torch.data import dataset as ds
-    from rnb_tpu_torch.models import fields, renderer
+    from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.train import step as steplib
     from rnb_tpu_torch.utils import bridge
 
-    conf = config.load_conf(CONF)
-    statics = fields.statics_from_conf(conf["model"])
-    rcfg = dataclasses.replace(renderer.renderer_conf(conf["model"]),
-                               upsample_prec="f32", kernel_prec="f32")
+    statics, rcfg, tcfg = load(conf_spec)
+    rcfg = dataclasses.replace(rcfg, upsample_prec="f32", kernel_prec="f32")
     # warm_up_end=0: the first update already has the full LR
-    tcfg = dataclasses.replace(steplib.train_conf(conf), warm_up_end=0)
+    tcfg = dataclasses.replace(tcfg, warm_up_end=0)
     B = 64
     scene = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4)
     params = fields.init_model_bundle(torch.Generator().manual_seed(1), statics)
@@ -220,6 +283,7 @@ def slice_parity(dev):
     px = torch.tensor(rng.integers(0, 256, B))
     py = torch.tensor(rng.integers(0, 256, B))
     t_rand = torch.tensor(rng.uniform(size=(B, 1)) - 0.5, dtype=torch.float32)
+    t_out = torch.tensor(rng.uniform(size=(B, rcfg.n_outside)), dtype=torch.float32)
 
     out = {}
     for where in ("cpu", dev):
@@ -229,7 +293,7 @@ def slice_parity(dev):
         fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=False,
                                      no_albedo=False, batch_size=B)
         state, m = fn(state, arrays, 2, px=px.to(where), py=py.to(where),
-                      t_rand=t_rand.to(where))
+                      t_rand=t_rand.to(where), t_out=t_out.to(where))
         leaves = bridge.tree_leaves(state.params)
         out[str(where)] = (m["loss"].item(), [x.grad.detach().cpu() for x in leaves],
                            [x.detach().cpu() for x in leaves])
@@ -239,8 +303,9 @@ def slice_parity(dev):
     worst = max(((a - b).norm() / max(b.norm(), 1e-30)).item()
                 for a, b in zip(gg, gc) if b.norm() > 0)
     dparam = max((a - b).abs().max().item() for a, b in zip(pg, pc))
-    log(f"[parity] loss cpu={lc:.7f} gpu={lg:.7f}; grads rel_err={grad_rel:.3e} "
-        f"(worst leaf {worst:.3e}); max |param diff|={dparam:.3e} (lr {lr:g})")
+    log(f"[parity {conf_spec[0]} n_outside={rcfg.n_outside}] loss cpu={lc:.7f} "
+        f"gpu={lg:.7f}; grads rel_err={grad_rel:.3e} (worst leaf {worst:.3e}); "
+        f"max |param diff|={dparam:.3e} (lr {lr:g})")
     assert abs(lg - lc) <= 1e-4 * abs(lc), "loss differs"
     assert worst <= 1e-3, "gradients differ"
     # Adam's first update is ≈ lr·sign(g): a near-zero gradient may flip it
@@ -253,16 +318,13 @@ def slice_parity(dev):
 # phase 4: training moves
 # ---------------------------------------------------------------------------
 
-def training_moves(dev):
-    from rnb_tpu_torch import config
+def training_moves(dev, conf_spec):
     from rnb_tpu_torch.data import dataset as ds
-    from rnb_tpu_torch.models import fields, renderer
+    from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.train import step as steplib
 
-    conf = config.load_conf(CONF)
-    statics = fields.statics_from_conf(conf["model"])
-    rcfg = renderer.renderer_conf(conf["model"])
-    tcfg = dataclasses.replace(steplib.train_conf(conf), end_iter=400, warm_up_end=50)
+    statics, rcfg, tcfg = load(conf_spec)
+    tcfg = dataclasses.replace(tcfg, end_iter=400, warm_up_end=50)
     scene = ds.make_sphere_scene(n_views=6, H=64, W=64, radius=0.35, device=dev)
     state = steplib.init_train_state(
         fields.init_model_bundle(torch.Generator().manual_seed(0), statics, dev))
@@ -276,10 +338,27 @@ def training_moves(dev):
     losses = torch.stack(losses).cpu().numpy()
     secs = time.perf_counter() - t0
     first, last = float(losses[:20].mean()), float(losses[-20:].mean())
-    log(f"[train] 200 warm-up steps in {secs:.1f} s: mean loss first 20 "
-        f"{first:.5f}, last 20 {last:.5f}")
+    log(f"[train {conf_spec[0]} n_outside={rcfg.n_outside}] 200 warm-up steps in "
+        f"{secs:.1f} s: mean loss first 20 {first:.5f}, last 20 {last:.5f}")
     assert np.isfinite(losses).all() and last < first, "training did not move"
     return {"loss_first20": first, "loss_last20": last, "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the kernel-ablation entry point
+# ---------------------------------------------------------------------------
+
+def ablation_run():
+    from rnb_tpu_torch.ops import _build
+    from rnb_tpu_torch.tools import ablate_kernel
+
+    for k in _build.launches:
+        _build.launches[k] = 0
+    res = ablate_kernel.main([])
+    count = _build.launches["sdf_fwd_ablate"]
+    log(f"[ablate] sdf_fwd_ablate launches: {count}")
+    assert count > 0, "the ablation entry point did not launch its kernel"
+    return res, count
 
 
 def main():
@@ -301,11 +380,16 @@ def main():
         f"({_build.build_info['path']})")
 
     kern = kernel_checks(dev)
-    phases, counts = slice_run(dev)
-    parity = slice_parity(dev)
-    moves = training_moves(dev)
+    summary = {"card": card}
+    counts = {}
+    for label, spec, kernels in (("wmask", WMASK, WMASK_KERNELS),
+                                 ("womask", WOMASK, WOMASK_KERNELS)):
+        phases, run_counts = slice_run(dev, spec, kernels)
+        counts.update({k: run_counts[k] for k in kernels if k not in counts})
+        summary[label] = {"slice": phases, "parity": slice_parity(dev, spec),
+                          "train": training_moves(dev, spec)}
+    summary["ablation"], counts["sdf_fwd_ablate"] = ablation_run()
 
-    summary = {"card": card, "slice": phases, "parity": parity, "train": moves}
     log("[summary] " + json.dumps(summary))
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

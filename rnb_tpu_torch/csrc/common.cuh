@@ -1,4 +1,4 @@
-// Shared pieces of the Hopper kernels (sdf_core.cu, albedo.cu).
+// Shared pieces of the Hopper kernels (sdf_core.cu, albedo.cu, nerf.cu).
 //
 // Conventions of every kernel in this directory:
 //   * fp32 tensors, row-major, contiguous; weights W_l are [in, out] and

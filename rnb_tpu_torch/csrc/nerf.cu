@@ -1,0 +1,413 @@
+// The fused background NeRF (NeRF++ inverted-sphere net) for Hopper
+// (sm_90a), and its VJP over the parameters only.
+//
+// Replaces rnb_tpu/ops/pallas_nerf.py: _fwd_kernel (:105) and _bwd_kernel
+// (:122). Same algorithm (layers 0..D-1 trunk, D alpha, D+1 feature,
+// D+2 views, D+3 rgb):
+//   forward   e = PE(pts), v = PE(views) by the double-angle recurrence;
+//             x_0 = e; z_i = x_i W_i + b_i; h_i = relu(z_i);
+//             x_{i+1} = [e, h_i] if i in skips (PE first, unscaled) else h_i;
+//             alpha = h W_a + b_a; feat = h W_f + b_f;
+//             z_v = [feat, v] W_v + b_v; rgb = relu(z_v) W_rgb + b_rgb.
+//             The heads are raw: softplus and sigmoid stay in the renderer.
+//   backward  pts and views get no cotangent (sample points and view
+//             directions never need one).
+//             bar_z_v = (c_rgb W_rgbᵀ) ⊙ [z_v > 0];
+//             bar_feat = (bar_z_v W_vᵀ)[:, :W]  (the PE(views) slice dropped);
+//             bar_h = bar_feat W_fᵀ + c_alpha W_aᵀ;
+//             bar_z_i = bar_h_i ⊙ [z_i > 0]; bar_h_{i-1} = bar_z_i W_iᵀ minus
+//             its PE slice where i-1 in skips;
+//             dW_l = x_lᵀ rnd(bar_z_l), db_l = Σ bar_z_l.
+//
+// What bounds it on the H100: arithmetic. At the womask conf a point costs
+// ~0.60 M multiply-adds forward (8x256 trunk with an 84-wide PE and a
+// 340-wide skip input, 256+1 heads, 283→128→3 views/rgb); the backward
+// recomputes the forward, runs the reverse products (~0.55 M) and the dW
+// reduction (~0.60 M). This first version runs them on the CUDA cores in
+// fp32 (bf16-rounded operands on the main path), one thread per output
+// column as the other sweep kernels do; the 1- and 3-wide heads leave most
+// threads of their pass idle. The backward records the layer inputs (A
+// rows), the pre-activation cotangents (B rows) and the ReLU pre-activations
+// in global scratch written and read by the same block; the split-K kernels
+// of common.cuh reduce dW and db across points.
+#include "common.cuh"
+
+// [x, sin(f0 x), cos(f0 x), ...] of channel d of a C-channel input, by the
+// double-angle recurrence, rounded to the op dtype, into row e.
+__device__ __forceinline__ void nerf_pe(float x, int d, int C, int multires,
+                                        int bf, float* e) {
+  e[d] = rnb_rnd(x, bf);
+  float s = sinf(x), c = cosf(x);
+  for (int k = 0; k < multires; ++k) {
+    e[C * (1 + 2 * k) + d] = rnb_rnd(s, bf);
+    e[C * (2 + 2 * k) + d] = rnb_rnd(c, bf);
+    if (k + 1 < multires) {
+      const float s2 = 2.0f * s * c;
+      c = 1.0f - 2.0f * s * s;
+      s = s2;
+    }
+  }
+}
+
+// PE(pts) of the tile into sE [P][LDE], PE(views) into sV [P][LDV]
+__device__ __forceinline__ void nerf_inputs(
+    const float* __restrict__ pts, const float* __restrict__ views,
+    long long n, int C, int multires, int multires_view, int bf, long long n0,
+    int LDE, int LDV, float* sE, float* sV) {
+  constexpr int P = RNB_P;
+  for (int idx = threadIdx.x; idx < P * C; idx += blockDim.x) {
+    const int p = idx / C, d = idx % C;
+    const long long row = n0 + p;
+    nerf_pe(row < n ? pts[row * C + d] : 0.0f, d, C, multires, bf,
+            sE + p * LDE);
+  }
+  for (int idx = threadIdx.x; idx < P * 3; idx += blockDim.x) {
+    const int p = idx / 3, d = idx % 3;
+    const long long row = n0 + p;
+    nerf_pe(row < n ? views[row * 3 + d] : 0.0f, d, 3, multires_view, bf,
+            sV + p * LDV);
+  }
+  __syncthreads();
+}
+
+// the tile's rows of X (width w) into the A rows of one layer
+__device__ __forceinline__ void nerf_store_rows(const float* X, int LD, int w,
+                                                long long n0, long long n,
+                                                float* __restrict__ A) {
+  for (int idx = threadIdx.x; idx < RNB_P * w; idx += blockDim.x) {
+    const int p = idx / w, i = idx % w;
+    const long long row = n0 + p;
+    if (row < n) A[row * w + i] = X[p * LD + i];
+  }
+}
+
+// The trunk and the heads up to hv = rnd(relu(z_v)) for one tile; returns
+// the buffer (bufA or bufB) that holds hv. RECORD (the backward): the layer
+// inputs go to the A rows, the trunk and views pre-activations to rec.
+// Otherwise (the forward) the alpha head goes to `alpha`.
+template <bool RECORD>
+__device__ __forceinline__ float* nerf_primal(
+    const float* __restrict__ w, const float* __restrict__ b,
+    const RnbNet& net, unsigned skips, const float* sE, int LDE,
+    const float* sV, int LDV, int bf, long long n0, long long n, float* bufA,
+    float* bufB, float* __restrict__ rec, int rec_ld,
+    float* __restrict__ abuf, float* __restrict__ alpha) {
+  constexpr int P = RNB_P;
+  const int tid = threadIdx.x, LD = net.ld;
+  const int D = net.n_layers - 4;
+  const int E = net.in_dim[0];
+  const float* hin = sE;
+  int ldin = LDE;
+  float* dst = bufA;
+  for (int i = 0; i < D; ++i) {
+    const int in = net.in_dim[i], out = net.out_dim[i];
+    if (RECORD) nerf_store_rows(hin, ldin, in, n0, n, abuf + net.a_off[i]);
+    const int off = ((skips >> i) & 1u) ? E : 0;  // [e, h] after a skip
+    for (int idx = tid; idx < P * off; idx += blockDim.x) {
+      const int p = idx / off, k = idx % off;
+      dst[p * LD + k] = sE[p * LDE + k];
+    }
+    const float* W = w + net.w_off[i];
+    const float* bl = b + net.b_off[i];
+    for (int c = tid; c < out; c += blockDim.x) {
+      float acc[P];
+      rnb_dot_col<P>(hin, ldin, in, W, out, c, acc);
+      const float bc = bl[c];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float z = acc[p] + bc;
+        if (RECORD) {
+          const long long row = n0 + p;
+          if (row < n) rec[((long long)i * n + row) * rec_ld + c] = z;
+        }
+        dst[p * LD + off + c] = rnb_rnd(fmaxf(z, 0.0f), bf);
+      }
+    }
+    __syncthreads();
+    hin = dst;
+    ldin = LD;
+    dst = dst == bufA ? bufB : bufA;
+  }
+
+  // heads: h2 = [rnd(feat), PE(views)] into the free buffer; alpha (forward)
+  const int la = D, lf = D + 1, lv = D + 2;
+  const int oa = net.out_dim[la], of = net.out_dim[lf], ov = net.out_dim[lv];
+  const int V = net.in_dim[lv] - of;
+  float* h = dst == bufA ? bufB : bufA;  // the trunk output
+  float* h2 = dst;
+  if (RECORD) {
+    nerf_store_rows(h, LD, net.in_dim[la], n0, n, abuf + net.a_off[la]);
+    nerf_store_rows(h, LD, net.in_dim[lf], n0, n, abuf + net.a_off[lf]);
+  }
+  for (int idx = tid; idx < P * V; idx += blockDim.x) {
+    const int p = idx / V, k = idx % V;
+    h2[p * LD + of + k] = sV[p * LDV + k];
+  }
+  const int ncol = RECORD ? of : of + oa;
+  for (int c = tid; c < ncol; c += blockDim.x) {
+    float acc[P];
+    if (c < of) {
+      rnb_dot_col<P>(h, LD, net.in_dim[lf], w + net.w_off[lf], of, c, acc);
+      const float bc = b[net.b_off[lf] + c];
+#pragma unroll
+      for (int p = 0; p < P; ++p) h2[p * LD + c] = rnb_rnd(acc[p] + bc, bf);
+    } else {
+      const int ca = c - of;
+      rnb_dot_col<P>(h, LD, net.in_dim[la], w + net.w_off[la], oa, ca, acc);
+      const float bc = b[net.b_off[la] + ca];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const long long row = n0 + p;
+        if (row < n) alpha[row * oa + ca] = acc[p] + bc;
+      }
+    }
+  }
+  __syncthreads();
+
+  // views layer; hv overwrites the trunk output
+  if (RECORD) nerf_store_rows(h2, LD, net.in_dim[lv], n0, n, abuf + net.a_off[lv]);
+  for (int c = tid; c < ov; c += blockDim.x) {
+    float acc[P];
+    rnb_dot_col<P>(h2, LD, net.in_dim[lv], w + net.w_off[lv], ov, c, acc);
+    const float bc = b[net.b_off[lv] + c];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float z = acc[p] + bc;
+      if (RECORD) {
+        const long long row = n0 + p;
+        if (row < n) rec[((long long)D * n + row) * rec_ld + c] = z;
+      }
+      h[p * LD + c] = rnb_rnd(fmaxf(z, 0.0f), bf);
+    }
+  }
+  __syncthreads();
+  if (RECORD) nerf_store_rows(h, LD, ov, n0, n, abuf + net.a_off[lv + 1]);
+  return h;
+}
+
+static __global__ void __launch_bounds__(RNB_NT)
+nerf_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
+                long long n, int C, const float* __restrict__ w,
+                const float* __restrict__ b, RnbNet net, unsigned skips,
+                int multires, int multires_view, int bf,
+                float* __restrict__ alpha, float* __restrict__ rgb) {
+  constexpr int P = RNB_P;
+  extern __shared__ __align__(16) float smem[];
+  const int D = net.n_layers - 4;
+  const int LD = net.ld;
+  const int LDE = (net.in_dim[0] + 3) & ~3;
+  const int LDV = (net.in_dim[D + 2] - net.out_dim[D + 1] + 3) & ~3;
+  float* sE = smem;              // [P][LDE] PE(pts), op dtype
+  float* sV = sE + P * LDE;      // [P][LDV] PE(views), op dtype
+  float* bufA = sV + P * LDV;    // [P][LD]
+  float* bufB = bufA + P * LD;   // [P][LD]
+  const long long n0 = (long long)blockIdx.x * P;
+  nerf_inputs(pts, views, n, C, multires, multires_view, bf, n0, LDE, LDV, sE,
+              sV);
+  const float* hv = nerf_primal<false>(w, b, net, skips, sE, LDE, sV, LDV, bf,
+                                       n0, n, bufA, bufB, nullptr, 0, nullptr,
+                                       alpha);
+  const int lr = D + 3;
+  const int orr = net.out_dim[lr];
+  for (int c = threadIdx.x; c < orr; c += blockDim.x) {
+    float acc[P];
+    rnb_dot_col<P>(hv, LD, net.in_dim[lr], w + net.w_off[lr], orr, c, acc);
+    const float bc = b[net.b_off[lr] + c];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const long long row = n0 + p;
+      if (row < n) rgb[row * orr + c] = acc[p] + bc;
+    }
+  }
+}
+
+// One reverse product of a tile: for c < cols,
+//   v[p] = Σ_j X[p][j] M[j][c0 + c]   (M rows of width C; X already rounded)
+//   bar  = v ⊙ [rec[p][c] > 0]        (no mask where rec is null)
+// then the B rows of the layer below get bar, and Y[p][yoff + c] = rnd(bar).
+__device__ __forceinline__ void nerf_reverse(
+    const float* X, int LD, int R, const float* __restrict__ M, int C, int c0,
+    int cols, const float* __restrict__ rec, int rec_ld, long long n0,
+    long long n, int bf, float* __restrict__ B, float* Y, int yoff) {
+  constexpr int P = RNB_P;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    float acc[P];
+    rnb_dot_col<P>(X, LD, R, M + c0, C, c, acc);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const long long row = n0 + p;
+      float v = acc[p];
+      if (rec != nullptr)
+        v = (row < n && rec[row * rec_ld + c] > 0.0f) ? v : 0.0f;
+      if (row < n) B[row * cols + c] = v;
+      Y[p * LD + yoff + c] = rnb_rnd(v, bf);
+    }
+  }
+}
+
+// Two blocks an SM: left free, ptxas gives this kernel 254 registers and one
+// block an SM; capped at 128 (a 224-byte spill) the whole backward ran
+// 27.34 -> 20.09 ms at 67,584 points, bf16, on an H100 (700 W), bitwise the
+// same outputs.
+static __global__ void __launch_bounds__(RNB_NT, 2)
+nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
+                long long n, int C, const float* __restrict__ w,
+                const float* __restrict__ wt, const float* __restrict__ b,
+                RnbNet net, unsigned skips, int multires, int multires_view,
+                int bf, const float* __restrict__ calpha,
+                const float* __restrict__ crgb, float* __restrict__ rec,
+                int rec_ld, float* __restrict__ abuf,
+                float* __restrict__ bbuf) {
+  constexpr int P = RNB_P;
+  extern __shared__ __align__(16) float smem[];
+  const int D = net.n_layers - 4;
+  const int la = D, lf = D + 1, lv = D + 2, lr = D + 3;
+  const int LD = net.ld;
+  const int E = net.in_dim[0];
+  const int LDE = (E + 3) & ~3;
+  const int LDV = (net.in_dim[lv] - net.out_dim[lf] + 3) & ~3;
+  float* sE = smem;
+  float* sV = sE + P * LDE;
+  float* bufA = sV + P * LDV;
+  float* bufB = bufA + P * LD;
+  const long long n0 = (long long)blockIdx.x * P;
+  const long long rstride = n * rec_ld;  // one layer's rec rows
+  nerf_inputs(pts, views, n, C, multires, multires_view, bf, n0, LDE, LDV, sE,
+              sV);
+  float* Y = nerf_primal<true>(w, b, net, skips, sE, LDE, sV, LDV, bf, n0, n,
+                               bufA, bufB, rec, rec_ld, abuf, nullptr);
+  float* X = Y == bufA ? bufB : bufA;
+  const int oa = net.out_dim[la], of = net.out_dim[lf];
+  const int ov = net.out_dim[lv], orr = net.out_dim[lr];
+
+  // rgb head: bar_z = c_rgb
+  for (int idx = threadIdx.x; idx < P * orr; idx += blockDim.x) {
+    const int p = idx / orr, j = idx % orr;
+    const long long row = n0 + p;
+    const float co = row < n ? crgb[row * orr + j] : 0.0f;
+    if (row < n) bbuf[net.bb_off[lr] + row * orr + j] = co;
+    X[p * LD + j] = rnb_rnd(co, bf);
+  }
+  __syncthreads();
+  // views layer: bar_z_v = (c_rgb W_rgbᵀ) ⊙ [z_v > 0]
+  nerf_reverse(X, LD, orr, wt + net.w_off[lr], net.in_dim[lr], 0, ov,
+               rec + D * rstride, rec_ld, n0, n, bf, bbuf + net.bb_off[lv], Y,
+               0);
+  __syncthreads();
+  { float* t = X; X = Y; Y = t; }
+  // feature head: bar_feat = (bar_z_v W_vᵀ)[:, :of]; alpha head: c_alpha.
+  // Y becomes [rnd(c_alpha), rnd(bar_feat)].
+  for (int idx = threadIdx.x; idx < P * oa; idx += blockDim.x) {
+    const int p = idx / oa, j = idx % oa;
+    const long long row = n0 + p;
+    const float ca = row < n ? calpha[row * oa + j] : 0.0f;
+    if (row < n) bbuf[net.bb_off[la] + row * oa + j] = ca;
+    Y[p * LD + j] = rnb_rnd(ca, bf);
+  }
+  nerf_reverse(X, LD, ov, wt + net.w_off[lv], net.in_dim[lv], 0, of, nullptr,
+               rec_ld, n0, n, bf, bbuf + net.bb_off[lf], Y, oa);
+  __syncthreads();
+  { float* t = X; X = Y; Y = t; }
+  // bar_h = c_alpha W_aᵀ + bar_feat W_fᵀ in one product: in the flat Wᵀ
+  // buffer the alpha layer's [oa, W] block is followed by the feature
+  // layer's [of, W] block, one [oa+of, W] matrix.
+  nerf_reverse(X, LD, oa + of, wt + net.w_off[la], net.in_dim[la], 0,
+               net.in_dim[la], rec + (long long)(D - 1) * rstride, rec_ld, n0,
+               n, bf, bbuf + net.bb_off[D - 1], Y, 0);
+  __syncthreads();
+  { float* t = X; X = Y; Y = t; }
+  // trunk: bar_z_{i-1} = (bar_z_i W_iᵀ)[PE slice dropped] ⊙ [z_{i-1} > 0]
+  for (int i = D - 1; i >= 1; --i) {
+    const int in = net.in_dim[i];
+    const int off = ((skips >> (i - 1)) & 1u) ? E : 0;
+    nerf_reverse(X, LD, net.out_dim[i], wt + net.w_off[i], in, off, in - off,
+                 rec + (long long)(i - 1) * rstride, rec_ld, n0, n, bf,
+                 bbuf + net.bb_off[i - 1], Y, 0);
+    __syncthreads();
+    float* t = X; X = Y; Y = t;
+  }
+}
+
+// RnbNet of the NeRF: layers [trunk..., alpha, feature, views, rgb]; checks
+// the widths the kernels rely on and widens ld for the [c_alpha, bar_feat]
+// row of the backward.
+static int nerf_make_net(RnbNet* net, const int* in_dims, const int* out_dims,
+                         int n_layers, unsigned skips, long long n, int C,
+                         int multires, int multires_view) {
+  if (n_layers < 5 || C < 1 ||
+      rnb_make_net(net, in_dims, out_dims, nullptr, n_layers, n, 1))
+    return 1;
+  const int D = n_layers - 4;
+  const int E = C * (1 + 2 * multires), V = 3 * (1 + 2 * multires_view);
+  if ((skips >> (D - 1)) != 0u) return 1;  // no skip at the last trunk layer
+  for (int i = 1; i < D; ++i)
+    if (in_dims[i] != out_dims[i - 1] + (((skips >> (i - 1)) & 1u) ? E : 0))
+      return 1;
+  if (in_dims[0] != E || in_dims[D] != out_dims[D - 1] ||
+      in_dims[D + 1] != out_dims[D - 1] ||
+      in_dims[D + 2] != out_dims[D + 1] + V || in_dims[D + 3] != out_dims[D + 2])
+    return 1;
+  const int hw = out_dims[D] + out_dims[D + 1];
+  if (hw > net->ld) net->ld = (hw + 3) & ~3;
+  return 0;
+}
+
+static int nerf_smem(const RnbNet& net, int C, int multires, int multires_view) {
+  const int LDE = (C * (1 + 2 * multires) + 3) & ~3;
+  const int LDV = (3 * (1 + 2 * multires_view) + 3) & ~3;
+  return (int)sizeof(float) * RNB_P * (LDE + LDV + 2 * net.ld);
+}
+
+extern "C" int rnb_nerf_fwd(const float* pts, const float* views, long long n,
+                            int C, const float* w, const float* b,
+                            const int* in_dims, const int* out_dims,
+                            int n_layers, int skips, int multires,
+                            int multires_view, int bf, float* alpha,
+                            float* rgb, void* stream) {
+  RnbNet net;
+  if (nerf_make_net(&net, in_dims, out_dims, n_layers, (unsigned)skips, n, C,
+                    multires, multires_view))
+    return (int)cudaErrorInvalidValue;
+  const int smem = nerf_smem(net, C, multires, multires_view);
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
+  nerf_fwd_kernel<<<grid, RNB_NT, smem, (cudaStream_t)stream>>>(
+      pts, views, n, C, w, b, net, (unsigned)skips, multires, multires_view,
+      bf, alpha, rgb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
+                            int C, const float* w, const float* wt,
+                            const float* b, const int* in_dims,
+                            const int* out_dims, int n_layers, int skips,
+                            int multires, int multires_view, int bf,
+                            const float* calpha, const float* crgb, float* rec,
+                            int rec_ld, float* abuf, float* bbuf,
+                            float* partial, int splits, float* dw, float* db,
+                            void* stream) {
+  RnbNet net;
+  if (nerf_make_net(&net, in_dims, out_dims, n_layers, (unsigned)skips, n, C,
+                    multires, multires_view))
+    return (int)cudaErrorInvalidValue;
+  const int smem = nerf_smem(net, C, multires, multires_view);
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
+  nerf_bwd_kernel<<<grid, RNB_NT, smem, st>>>(
+      pts, views, n, C, w, wt, b, net, (unsigned)skips, multires,
+      multires_view, bf, calpha, crgb, rec, rec_ld, abuf, bbuf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  for (int l = 0; l < n_layers; ++l) {
+    err = rnb_reduce_layer(abuf + net.a_off[l], bbuf + net.bb_off[l], n, n,
+                           in_dims[l], out_dims[l], bf, splits, partial,
+                           dw + net.w_off[l], db + net.b_off[l], st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}

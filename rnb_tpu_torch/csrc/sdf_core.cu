@@ -3,7 +3,8 @@
 // in one backward sweep followed by the deterministic dW/db reduction.
 //
 // Replaces rnb_tpu/ops/pallas_sdf_core.py: _fwd_kernel (:169) and
-// _bwd_kernel (:232). Same algorithm:
+// _bwd_kernel (:232), and the forward's ablation variants of
+// tools/ablate_kernel.py (make_kernel, :62). Same algorithm:
 //   forward   PE(u = pts*scale) by the double-angle recurrence; L linear
 //             layers with softplus(100·)/100, the skip input [h, e]/√2 in the
 //             op dtype; then one reverse sweep seeded with W_last[:, 0] gives
@@ -30,10 +31,21 @@
 // kernels of common.cuh reduce them across points.
 #include "common.cuh"
 
+// Ablation variants of the forward kernel (counterparts of the variants in
+// tools/ablate_kernel.py:62; for timing only, their numerics are wrong by
+// design). Each strips one part and keeps the rest of the production kernel:
+//   SDF_NO_PE        every PE channel holds the raw first coordinate; the
+//                    tangent basis is the same broadcast (grad_d = Σ bar_e·e)
+//   SDF_NO_ACT       softplus pair -> h = zb/4 forward, s = zb/2 in the sweep
+//   SDF_PRIMAL_ONLY  no reverse sweep and no pre-activation record; grad = 0
+// SDF_FULL is the production kernel: `if constexpr` keeps its code as it was.
+enum SdfMode { SDF_FULL = 0, SDF_NO_PE = 1, SDF_NO_ACT = 2, SDF_PRIMAL_ONLY = 3 };
+
 // Two blocks an SM: left free, ptxas gives this kernel 190 registers and one
 // 256-thread block an SM; capped at 128 (a 72-byte spill) it ran 13.79 ->
 // 11.73 ms at 65,536 points on an H100 (700 W). The other sweep kernels fit
 // two or three blocks already and got slower under the same cap.
+template <int MODE>
 static __global__ void __launch_bounds__(RNB_NT, 2)
 sdf_fwd_kernel(const float* __restrict__ pts, long long n,
                const float* __restrict__ w, const float* __restrict__ wt,
@@ -56,20 +68,28 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
   const int L = net.n_layers;
   const float inv_sqrt2 = 0.70710678118654752f;
 
-  for (int idx = tid; idx < P * 3; idx += blockDim.x) {
-    const int p = idx / 3, d = idx % 3;
-    const long long row = n0 + p;
-    const float u = row < n ? pts[row * 3 + d] * scale : 0.0f;
-    float* e = sE + p * LDE;
-    e[d] = u;
-    float s = sinf(u), c = cosf(u);
-    for (int k = 0; k < multires; ++k) {
-      e[3 + 6 * k + d] = s;
-      e[6 + 6 * k + d] = c;
-      if (k + 1 < multires) {
-        const float s2 = 2.0f * s * c;
-        c = 1.0f - 2.0f * s * s;
-        s = s2;
+  if constexpr (MODE == SDF_NO_PE) {
+    for (int idx = tid; idx < P * E; idx += blockDim.x) {
+      const int p = idx / E, c = idx % E;
+      const long long row = n0 + p;
+      sE[p * LDE + c] = row < n ? pts[row * 3] : 0.0f;
+    }
+  } else {
+    for (int idx = tid; idx < P * 3; idx += blockDim.x) {
+      const int p = idx / 3, d = idx % 3;
+      const long long row = n0 + p;
+      const float u = row < n ? pts[row * 3 + d] * scale : 0.0f;
+      float* e = sE + p * LDE;
+      e[d] = u;
+      float s = sinf(u), c = cosf(u);
+      for (int k = 0; k < multires; ++k) {
+        e[3 + 6 * k + d] = s;
+        e[6 + 6 * k + d] = c;
+        if (k + 1 < multires) {
+          const float s2 = 2.0f * s * c;
+          c = 1.0f - 2.0f * s * s;
+          s = s2;
+        }
       }
     }
   }
@@ -109,10 +129,15 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
         const long long row = n0 + p;
         const float zb = acc[p] + bc;
         if (l < L - 1) {
-          if (row < n) rec[((long long)l * n + row) * rec_ld + c] = zb;
-          float s, h;
-          rnb_softplus100_pair(zb, &s, &h);
-          dst[p * LD + c] = rnb_rnd(h, bf);
+          if (MODE != SDF_PRIMAL_ONLY && row < n)
+            rec[((long long)l * n + row) * rec_ld + c] = zb;
+          if constexpr (MODE == SDF_NO_ACT) {
+            dst[p * LD + c] = rnb_rnd(zb * 0.25f, bf);
+          } else {
+            float s, h;
+            rnb_softplus100_pair(zb, &s, &h);
+            dst[p * LD + c] = rnb_rnd(h, bf);
+          }
         } else if (row < n) {
           if (c == 0) sdf[row] = zb / scale;
           else feat[row * (out - 1) + c - 1] = zb;
@@ -123,6 +148,14 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
     hin = dst;
     ldin = LD;
     float* t = cur; cur = spare; spare = t;
+  }
+
+  if constexpr (MODE == SDF_PRIMAL_ONLY) {
+    for (int idx = tid; idx < P * 3; idx += blockDim.x) {
+      const long long row = n0 + idx / 3;
+      if (row < n) grad[row * 3 + idx % 3] = 0.0f;
+    }
+    return;
   }
 
   // --- reverse sweep for ∇SDF; `cur` holds bar_h of the layer above ---
@@ -149,7 +182,8 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
       const long long row = n0 + p;
       const float zb = row < n ? rec[((long long)l * n + row) * rec_ld + j] : 0.0f;
       float s, h;
-      rnb_softplus100_pair(zb, &s, &h);
+      if constexpr (MODE == SDF_NO_ACT) s = zb * 0.5f;
+      else rnb_softplus100_pair(zb, &s, &h);
       spare[p * LD + j] = rnb_rnd(cur[p * LD + j] * s, bf);
     }
     __syncthreads();
@@ -176,12 +210,18 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
     if (row >= n) continue;
     const float* e = sE + p * LDE;
     const float* be = sBarE + p * LDE;
-    float g = be[d];
-    float f = 1.0f;
-    for (int k = 0; k < multires; ++k) {
-      g += be[3 + 6 * k + d] * (f * e[6 + 6 * k + d]);
-      g += be[6 + 6 * k + d] * (-f * e[3 + 6 * k + d]);
-      f *= 2.0f;
+    float g;
+    if constexpr (MODE == SDF_NO_PE) {
+      g = 0.0f;
+      for (int c = 0; c < E; ++c) g += be[c] * e[c];
+    } else {
+      g = be[d];
+      float f = 1.0f;
+      for (int k = 0; k < multires; ++k) {
+        g += be[3 + 6 * k + d] * (f * e[6 + 6 * k + d]);
+        g += be[6 + 6 * k + d] * (-f * e[3 + 6 * k + d]);
+        f *= 2.0f;
+      }
     }
     grad[row * 3 + d] = g;
   }
@@ -354,6 +394,28 @@ sdf_bwd_kernel(const float* __restrict__ pts, long long n,
   }
 }
 
+template <int MODE>
+static int sdf_fwd_launch(const float* pts, long long n, const float* w,
+                          const float* wt, const float* b, const int* in_dims,
+                          const int* out_dims, const int* skip, int n_layers,
+                          int multires, float scale, int bf, float c16,
+                          float* rec, int rec_ld, float* sdf, float* feat,
+                          float* grad, void* stream) {
+  RnbNet net;
+  if (rnb_make_net(&net, in_dims, out_dims, skip, n_layers, n, 2))
+    return (int)cudaErrorInvalidValue;
+  const int LDE = (in_dims[0] + 3) & ~3;
+  const int smem = (int)sizeof(float) * (3 * RNB_P * LDE + 2 * RNB_P * net.ld);
+  cudaError_t err = cudaFuncSetAttribute(
+      sdf_fwd_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
+  sdf_fwd_kernel<MODE><<<grid, RNB_NT, smem, (cudaStream_t)stream>>>(
+      pts, n, w, wt, b, net, multires, scale, bf, c16, rec, rec_ld, sdf, feat,
+      grad);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rnb_sdf_fwd(const float* pts, long long n, const float* w,
                            const float* wt, const float* b,
                            const int* in_dims, const int* out_dims,
@@ -361,19 +423,33 @@ extern "C" int rnb_sdf_fwd(const float* pts, long long n, const float* w,
                            float scale, int bf, float c16, float* rec,
                            int rec_ld, float* sdf, float* feat, float* grad,
                            void* stream) {
-  RnbNet net;
-  if (rnb_make_net(&net, in_dims, out_dims, skip, n_layers, n, 2))
-    return (int)cudaErrorInvalidValue;
-  const int LDE = (in_dims[0] + 3) & ~3;
-  const int smem = (int)sizeof(float) * (3 * RNB_P * LDE + 2 * RNB_P * net.ld);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
-  sdf_fwd_kernel<<<grid, RNB_NT, smem, (cudaStream_t)stream>>>(
-      pts, n, w, wt, b, net, multires, scale, bf, c16, rec, rec_ld, sdf, feat,
-      grad);
-  return (int)cudaGetLastError();
+  return sdf_fwd_launch<SDF_FULL>(pts, n, w, wt, b, in_dims, out_dims, skip,
+                                  n_layers, multires, scale, bf, c16, rec,
+                                  rec_ld, sdf, feat, grad, stream);
+}
+
+// The forward kernel in ablation mode `mode` (an SdfMode); SDF_FULL is the
+// production kernel itself.
+extern "C" int rnb_sdf_fwd_ablate(int mode, const float* pts, long long n,
+                                  const float* w, const float* wt,
+                                  const float* b, const int* in_dims,
+                                  const int* out_dims, const int* skip,
+                                  int n_layers, int multires, float scale,
+                                  int bf, float c16, float* rec, int rec_ld,
+                                  float* sdf, float* feat, float* grad,
+                                  void* stream) {
+#define RNB_SDF_FWD_ARGS                                                      \
+  pts, n, w, wt, b, in_dims, out_dims, skip, n_layers, multires, scale, bf,  \
+      c16, rec, rec_ld, sdf, feat, grad, stream
+  switch (mode) {
+    case SDF_FULL: return sdf_fwd_launch<SDF_FULL>(RNB_SDF_FWD_ARGS);
+    case SDF_NO_PE: return sdf_fwd_launch<SDF_NO_PE>(RNB_SDF_FWD_ARGS);
+    case SDF_NO_ACT: return sdf_fwd_launch<SDF_NO_ACT>(RNB_SDF_FWD_ARGS);
+    case SDF_PRIMAL_ONLY:
+      return sdf_fwd_launch<SDF_PRIMAL_ONLY>(RNB_SDF_FWD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RNB_SDF_FWD_ARGS
 }
 
 extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,

@@ -12,14 +12,18 @@ same weights to both packages (``rnb_tpu_torch.utils.bridge``).
     output ``[sdf/scale, feature]``.
   * Rendering (albedo) network: PE of points and normals, ReLU hidden
     layers, sigmoid squeeze.
-  * Background NeRF: only its parameters, so that the bundle and the Adam
-    state match the JAX package's; it is evaluated only when n_outside > 0,
-    which this port does not run yet.
+  * Background NeRF (NeRF++ inverted-sphere net, evaluated only when
+    n_outside > 0): PE of the 4-d point and of the view direction, a ReLU
+    trunk whose skip after layer i concatenates ``[PE, h]`` (PE first,
+    unscaled), alpha and feature heads, a views layer and an rgb head; raw
+    outputs (softplus and sigmoid stay in the renderer).
   * Single-variance network: ``inv_s = exp(10 v)``.
 
 The training path takes ∇SDF from the fused kernel op
-(``rnb_tpu_torch.ops.sdf_core``); ``sdf_value_feat_grad`` here is the plain
-autograd form, differentiable again through ``create_graph=True``.
+(``rnb_tpu_torch.ops.sdf_core``) and the background NeRF from
+``rnb_tpu_torch.ops.nerf``; ``sdf_value_feat_grad`` and ``nerf_apply`` here
+are the plain autograd forms (the first differentiable again through
+``create_graph=True``).
 """
 
 from __future__ import annotations
@@ -52,12 +56,16 @@ def linear_apply(layer: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tenso
     return x @ fold_weight_norm(layer) + layer["b"]
 
 
-def softplus100(x: torch.Tensor) -> torch.Tensor:
-    """Softplus with beta=100 in the stable form ``max(z,0) + log1p(e^-|z|)``
-    (the form jax.nn.softplus uses; torch's own switches to linear above a
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """Softplus in the stable form ``max(x,0) + log1p(e^-|x|)`` (the form
+    jax.nn.softplus uses; torch's own switches to linear above a
     threshold)."""
-    z = x * 100.0
-    return (torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-z.abs()))) / 100.0
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def softplus100(x: torch.Tensor) -> torch.Tensor:
+    """Softplus with beta=100: ``softplus(100 x) / 100``."""
+    return softplus(x * 100.0) / 100.0
 
 
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -292,7 +300,7 @@ def rendering_apply(cfg: RenderingConfig, params, points, normals, view_dirs,
 
 
 # ---------------------------------------------------------------------------
-# Background NeRF (parameters only in this port so far)
+# Background NeRF (inverted-sphere coords; only evaluated when n_outside>0)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -330,6 +338,37 @@ def init_nerf(gen: torch.Generator, cfg: NeRFConfig, device="cpu") -> Dict[str, 
         "alpha_layer": _torch_default_linear(gen, cfg.W, 1, device),
         "rgb_layer": _torch_default_linear(gen, cfg.W // 2, 3, device),
     }
+
+
+def nerf_apply(cfg: NeRFConfig, params, input_pts, input_views):
+    """(density_raw [N,1], rgb_raw [N,3]). A skip at the final pts layer
+    would feed W+input_ch channels into the heads, so it is refused here,
+    when the net is evaluated, and not at init: a conf whose background net
+    is never evaluated (n_outside = 0) still trains."""
+    if cfg.skips and max(cfg.skips) >= cfg.D - 1:
+        raise ValueError(
+            f"nerf skips {cfg.skips} must be < D-1 = {cfg.D - 1} (a skip at "
+            "the final pts layer breaks the alpha/feature head widths)")
+    if not cfg.use_viewdirs:
+        raise ValueError("the background NeRF needs use_viewdirs=True")
+    if cfg.multires > 0:
+        embed_fn, _ = make_embedder(cfg.multires, cfg.d_in)
+        input_pts = embed_fn(input_pts)
+    if cfg.multires_view > 0:
+        embed_fn_view, _ = make_embedder(cfg.multires_view, cfg.d_in_view)
+        input_views = embed_fn_view(input_views)
+
+    h = input_pts
+    for i, layer in enumerate(params["pts_layers"]):
+        h = torch.relu(linear_apply(layer, h))
+        if i in cfg.skips:
+            h = torch.cat([input_pts, h], dim=-1)
+    alpha = linear_apply(params["alpha_layer"], h)
+    feature = linear_apply(params["feature_layer"], h)
+    h = torch.relu(linear_apply(params["views_layer"],
+                                torch.cat([feature, input_views], dim=-1)))
+    rgb = linear_apply(params["rgb_layer"], h)
+    return alpha, rgb
 
 
 # ---------------------------------------------------------------------------

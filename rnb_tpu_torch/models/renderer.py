@@ -9,20 +9,25 @@ Counterpart of ``rnb_tpu/models/renderer.py`` for the training path:
     hierarchical up-sampling, 4 rounds at inv_s = 64·2^i. The merge of the
     sorted z list with the new one is a *stable* sort of cat([z, new]), so
     ties keep z entries first.
+  * ``render_core_outside``: the NeRF++ inverted-sphere background
+    (``n_outside > 0``, the womask confs): the background NeRF on
+    ``[x/r, 1/r]`` with r = |x| clipped to [1, 1e10], from the fused NeRF op
+    (``ops.nerf``), softplus density and sigmoid colour.
   * ``render_core_mvps``: sigmoid-SDF alpha, cos annealing, transmittance,
-    the eikonal error over the relaxed sphere. SDF value, feature and ∇SDF
-    come from the fused kernel op (``ops.sdf_core``), the albedo from the
-    fused albedo op (``ops.albedo``).
-  * ``render_rnb``: per-light Lambertian compositing; ReLU on the shading in
-    warm-up only.
+    the eikonal error over the relaxed sphere; outside the unit sphere the
+    background alpha takes the place of the SDF alpha. SDF value, feature
+    and ∇SDF come from the fused kernel op (``ops.sdf_core``), the albedo
+    from the fused albedo op (``ops.albedo``).
+  * ``render_rnb``: per-light Lambertian compositing of the first
+    ``n_samples`` weights; ReLU on the shading in warm-up only.
 
-The stratified perturbation ``t_rand`` is an input ([B,1], uniform − 0.5),
-so the tests can feed the JAX package's draws. Parity epsilons kept: alpha
+The stratified perturbations are inputs, so the tests can feed the JAX
+package's draws: ``t_rand`` [B,1] (uniform − 0.5) and, with a background,
+``t_out`` [B,n_outside] (uniform in [0,1)). Parity epsilons kept: alpha
 guards 1e-5, cumprod 1e-7, sample_pdf weight floor 1e-5 and denominator
 floor 1e-5, cos clip [-1e3, 0], inv_s clip [1e-6, 1e6].
 
-Not ported yet: the background NeRF (``n_outside > 0``), ``render`` for
-novel views and the mesh-extraction grid.
+Not ported yet: ``render`` for novel views and the mesh-extraction grid.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from rnb_tpu_torch.models import fields
 from rnb_tpu_torch.models.fields import ModelStatics
 from rnb_tpu_torch.ops import albedo as albedo_op
+from rnb_tpu_torch.ops import nerf as nerf_op
 from rnb_tpu_torch.ops import sdf_core
 
 _KERNEL_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -46,8 +52,8 @@ class RendererConfig:
 
       upsample_prec   'bf16' | 'f32': matmul operands of the no-grad
                       up-sampling SDF sweeps (sample placement only)
-      kernel_prec     'bf16' | 'f32': op dtype of the fused SDF-core and
-                      albedo kernels (bf16 operands with f32 accumulation
+      kernel_prec     'bf16' | 'f32': op dtype of the fused SDF-core,
+                      albedo and background-NeRF kernels (bf16 operands with f32 accumulation
                       on the main path; f32 to compare against a reference)
     """
     n_samples: int = 64
@@ -192,14 +198,50 @@ def upsampled_z_vals(statics: ModelStatics, rcfg: RendererConfig, params,
 
 
 # ---------------------------------------------------------------------------
-# core integrator
+# core integrators
 # ---------------------------------------------------------------------------
 
+def render_core_outside(statics: ModelStatics, rcfg: RendererConfig, params,
+                        rays_o, rays_d, z_vals,
+                        sample_dist) -> Dict[str, torch.Tensor]:
+    """NeRF++ inverted-sphere background over z_vals [B,S]."""
+    batch_size, n_samples = z_vals.shape
+    dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
+                       torch.full_like(z_vals[:, :1], sample_dist)], dim=-1)
+    mid_z = z_vals + dists * 0.5
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., :, None]
+
+    dis_to_center = torch.clamp(
+        torch.linalg.vector_norm(pts, dim=-1, keepdim=True), 1.0, 1e10)
+    pts4 = torch.cat([pts / dis_to_center, 1.0 / dis_to_center], dim=-1)
+    dirs = rays_d[:, None, :].expand(batch_size, n_samples, 3)
+
+    d_in = 3 + int(rcfg.n_outside > 0)
+    pts_in, dirs_in = pts4.reshape(-1, 4)[:, :d_in], dirs.reshape(-1, 3)
+    if nerf_op.supported(statics.nerf):
+        density, color_raw = nerf_op.nerf_apply_fused(
+            statics.nerf, params["nerf"], pts_in, dirs_in,
+            _KERNEL_DTYPES[rcfg.kernel_prec])
+    else:
+        density, color_raw = fields.nerf_apply(statics.nerf, params["nerf"],
+                                               pts_in, dirs_in)
+    sampled_color = torch.sigmoid(color_raw).reshape(batch_size, n_samples, 3)
+    alpha = 1.0 - torch.exp(
+        -fields.softplus(density.reshape(batch_size, n_samples)) * dists)
+    weights = _exclusive_cumprod_transmittance(alpha)
+    color = (weights[:, :, None] * sampled_color).sum(dim=1)
+    return {"color": color, "sampled_color": sampled_color, "alpha": alpha,
+            "weights": weights}
+
+
 def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
-                     sample_dist, cos_anneal_ratio, need_albedo: bool = True,
+                     sample_dist, cos_anneal_ratio, background_alpha=None,
+                     need_albedo: bool = True,
                      kernel_prec: str = "bf16") -> Dict[str, torch.Tensor]:
     """The training integrator. Returns per-sample albedo and normals for
-    the light compositing."""
+    the light compositing. ``background_alpha`` [B,S+n_outside] (from
+    ``render_core_outside``) replaces the alpha outside the unit sphere and
+    appends the outside samples; ``alpha_raw`` is the SDF alpha before."""
     batch_size, n_samples = z_vals.shape
     dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
                        torch.full_like(z_vals[:, :1], sample_dist)], dim=-1)
@@ -250,6 +292,12 @@ def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
     inside_sphere = (pts_norm < 1.0).float()
     relax_inside_sphere = (pts_norm < 1.2).float()
 
+    alpha_raw = alpha
+    if background_alpha is not None:
+        alpha = (alpha * inside_sphere
+                 + background_alpha[:, :n_samples] * (1.0 - inside_sphere))
+        alpha = torch.cat([alpha, background_alpha[:, n_samples:]], dim=-1)
+
     weights = _exclusive_cumprod_transmittance(alpha)
     sampled_normals = gradients.reshape(batch_size, n_samples, 3)
 
@@ -264,7 +312,7 @@ def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
         "gradients": sampled_normals,
         "s_val": (1.0 / inv_s).expand(batch_size, n_samples),
         "mid_z_vals": mid_z,
-        "alpha_raw": alpha,
+        "alpha_raw": alpha_raw,
         "weights": weights,
         "cdf": prev_cdf.reshape(batch_size, n_samples),
         "gradient_error": gradient_error,
@@ -290,25 +338,48 @@ def init_z_vals(rcfg: RendererConfig, near, far, t_rand=None):
     return z_vals
 
 
+def _outside_z_vals(rcfg: RendererConfig, far, t_out=None):
+    """The n_outside background depths beyond ``far``: stratified by
+    ``t_out`` [B,n_outside] (uniform in [0,1); ignored when perturb is 0),
+    inverted and shifted by one sample spacing."""
+    n = rcfg.n_outside
+    z_out = torch.linspace(1e-3, 1.0 - 1.0 / (n + 1.0), n, device=far.device)
+    if rcfg.perturb > 0:
+        mids = 0.5 * (z_out[1:] + z_out[:-1])
+        upper = torch.cat([mids, z_out[-1:]])
+        lower = torch.cat([z_out[:1], mids])
+        z_out = lower[None, :] + (upper - lower)[None, :] * t_out
+    else:
+        z_out = z_out.expand(far.shape[0], n)
+    return far / torch.flip(z_out, dims=[-1]) + 1.0 / rcfg.n_samples
+
+
 def render_rnb(statics: ModelStatics, rcfg: RendererConfig, params,
-               rays_o, rays_d, near, far, lights_dir, t_rand,
+               rays_o, rays_d, near, far, lights_dir, t_rand, t_out=None,
                cos_anneal_ratio=1.0, no_albedo: bool = False,
                warmup: bool = False) -> Dict[str, torch.Tensor]:
     """RNb rendering. lights_dir broadcasts against [n_lights, batch,
     n_samples, 3]: [L,1,1,3] in warm-up (fixed per-view world lights),
     [L,B,1,3] in the main phase (per-pixel world lights). warmup=True
     applies ReLU to the shading; the main phase does not, because the
-    per-pixel lights keep n·l > 0 on valid pixels."""
-    if rcfg.n_outside > 0:
-        raise NotImplementedError("n_outside > 0 (the background NeRF) is "
-                                  "not ported yet")
+    per-pixel lights keep n·l > 0 on valid pixels. With ``n_outside > 0``
+    the background NeRF fills the alpha outside the unit sphere; only the
+    first ``n_samples`` weights are composited."""
     sample_dist = 2.0 / rcfg.n_samples
     z_vals = init_z_vals(rcfg, near, far, t_rand)
     z_vals = upsampled_z_vals(statics, rcfg, params, rays_o, rays_d, z_vals)
     n_samples = rcfg.total_samples if rcfg.n_importance > 0 else rcfg.n_samples
 
+    background_alpha = None
+    if rcfg.n_outside > 0:
+        z_out = _outside_z_vals(rcfg, far, t_out)
+        z_feed, _ = torch.sort(torch.cat([z_vals, z_out], dim=-1), dim=-1)
+        background_alpha = render_core_outside(
+            statics, rcfg, params, rays_o, rays_d, z_feed, sample_dist)["alpha"]
+
     ret = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
                            sample_dist, cos_anneal_ratio,
+                           background_alpha=background_alpha,
                            need_albedo=not no_albedo,
                            kernel_prec=rcfg.kernel_prec)
     albedo = ret["sampled_albedo"]

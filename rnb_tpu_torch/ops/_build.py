@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
-            "albedo_fwd": 0, "albedo_bwd": 0}
+            "albedo_fwd": 0, "albedo_bwd": 0,
+            "nerf_fwd": 0, "nerf_bwd": 0, "sdf_fwd_ablate": 0}
 
 # filled by the first library() call of the process
 build_info = {"seconds": None, "path": None, "log": ""}
@@ -50,6 +51,9 @@ _SIGNATURES = {
     # bf, c16, rec, rec_ld, sdf, feat, grad, stream
     "rnb_sdf_fwd": (_P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F, _I, _F,
                     _P, _I, _P, _P, _P, _P),
+    # mode, then the arguments of rnb_sdf_fwd
+    "rnb_sdf_fwd_ablate": (_I, _P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F,
+                           _I, _F, _P, _I, _P, _P, _P, _P),
     # pts, n, w, wt, b, in_dims, out_dims, skip, n_layers, multires, scale,
     # bf, c16, csdf, cfeat, cgrad, rec_z, rec_t, rec_ld, abuf, bbuf, partial,
     # splits, dw, db, stream
@@ -64,6 +68,15 @@ _SIGNATURES = {
     # cfeat, stream
     "rnb_albedo_bwd": (_P, _P, _P, _LL, _I, _P, _P, _P, _IP, _IP, _I, _I, _I,
                        _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P),
+    # pts, views, n, C, w, b, in_dims, out_dims, n_layers, skips, multires,
+    # multires_view, bf, alpha, rgb, stream
+    "rnb_nerf_fwd": (_P, _P, _LL, _I, _P, _P, _IP, _IP, _I, _I, _I, _I, _I,
+                     _P, _P, _P),
+    # pts, views, n, C, w, wt, b, in_dims, out_dims, n_layers, skips,
+    # multires, multires_view, bf, calpha, crgb, rec, rec_ld, abuf, bbuf,
+    # partial, splits, dw, db, stream
+    "rnb_nerf_bwd": (_P, _P, _LL, _I, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _I,
+                     _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
 }
 
 

@@ -197,6 +197,16 @@ def sdf_core_fwd(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16):
     for a CPU tensor."""
     if not pts.is_cuda:
         return sdf_core_fwd_plain(cfg, pts, ws, bs, dtype)
+    out = launch_fwd(cfg, pts, ws, bs, dtype)
+    _build.launches["sdf_core_fwd"] += 1
+    return out
+
+
+def launch_fwd(cfg: SDFConfig, pts, ws, bs, dtype, entry="rnb_sdf_fwd",
+               lead=()):
+    """Check the CUDA tensors, allocate the outputs and the pre-activation
+    record, and launch the C entry ``entry`` with the arguments ``lead``
+    followed by ``rnb_sdf_fwd``'s. -> (sdf, feat, grad)."""
     _check_args(cfg, pts, ws, bs)
     bf = _build.bf16_flag(dtype)
     lib = _build.library()
@@ -211,15 +221,14 @@ def sdf_core_fwd(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16):
     grad = torch.empty(n, 3, device=dev)
     skip = [int(l in cfg.skip_in) for l in range(L)]
     with torch.cuda.device(dev):
-        rc = lib.rnb_sdf_fwd(
-            pts.data_ptr(), n, wflat.data_ptr(), wtflat.data_ptr(),
+        rc = getattr(lib, entry)(
+            *lead, pts.data_ptr(), n, wflat.data_ptr(), wtflat.data_ptr(),
             bflat.data_ptr(), _build.int_array(in_dims),
             _build.int_array(out_dims), _build.int_array(skip), L,
             cfg.multires, cfg.scale, bf, _c16(dtype), rec.data_ptr(), rec_ld,
             sdf.data_ptr(), feat.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rnb_sdf_fwd")
-    _build.launches["sdf_core_fwd"] += 1
+    _build.check(rc, entry)
     return sdf, feat, grad
 
 

@@ -5,6 +5,7 @@ two, as the JAX package does):
 
   pixel sampling + supervision synthesis (rnb_tpu_torch.data.dataset)
   -> z init + hierarchical up-sampling (no grad)
+  -> with n_outside > 0 (womask), the background NeRF (fused NeRF kernel)
   -> render_core_mvps (fused SDF-core kernel with ∇SDF, fused albedo kernel)
   -> per-light shading and compositing
   -> 3-term loss: L1 colour / (mask_sum * n_lights) + igr_weight * eikonal
@@ -15,8 +16,10 @@ two, as the JAX package does):
 ``torch.optim.Adam`` over the leaves of the whole bundle equals
 ``optax.adam``: betas (0.9, 0.999), eps 1e-8 outside the sqrt, the same bias
 correction, and the learning rate set to ``schedule(count)`` before each
-update. Leaves the loss does not reach (the background NeRF, the albedo net
-with no_albedo) get a zero gradient, as under optax, so their moments stay
+update. Leaves the loss does not reach (the background NeRF at
+n_outside = 0, and its feature, views and rgb heads always, since the RNb
+render uses the background alpha only; the albedo net with no_albedo) get a
+zero gradient, as under optax, so their moments stay
 zero and their step count advances with the others.
 
 The state is updated in place (parameters, moments, step); the step
@@ -92,7 +95,7 @@ def init_train_state(params) -> TrainState:
 
 def _loss_terms(statics: ModelStatics, rcfg: RendererConfig, tcfg: TrainConfig,
                 params, batch: ds.RayBatch, true_rgb, lights_dir, t_rand,
-                step: int, warmup: bool, no_albedo: bool):
+                t_out, step: int, warmup: bool, no_albedo: bool):
     if tcfg.mask_weight > 0.0:
         mask = (batch.mask > 0.5).float()
     else:
@@ -101,7 +104,7 @@ def _loss_terms(statics: ModelStatics, rcfg: RendererConfig, tcfg: TrainConfig,
 
     out = rnd.render_rnb(
         statics, rcfg, params, batch.rays_o, batch.rays_d, batch.near,
-        batch.far, lights_dir, t_rand,
+        batch.far, lights_dir, t_rand, t_out,
         cos_anneal_ratio=schedules.cos_anneal_ratio(step, tcfg.anneal_end),
         no_albedo=no_albedo, warmup=warmup)
 
@@ -138,23 +141,27 @@ def make_train_step(statics: ModelStatics, rcfg: RendererConfig,
                     tcfg: TrainConfig, warmup: bool, no_albedo: bool,
                     batch_size: int | None = None):
     """Build the step of one phase:
-    ``(state, arrays, view_idx, generator, px=None, py=None, t_rand=None)
-    -> (state, metrics)``. Draws come from ``generator`` (on the data's
-    device) unless given: pixel indices px, py [B] and the stratified shift
-    t_rand [B,1] (uniform − 0.5)."""
+    ``(state, arrays, view_idx, generator, px=None, py=None, t_rand=None,
+    t_out=None) -> (state, metrics)``. Draws come from ``generator`` (on the
+    data's device) unless given: pixel indices px, py [B], the stratified
+    shift t_rand [B,1] (uniform − 0.5) and, when n_outside > 0, the
+    background strata t_out [B,n_outside] (uniform in [0,1))."""
     sched = schedules.make_lr_schedule(tcfg.learning_rate, tcfg.warm_up_end,
                                        tcfg.end_iter, tcfg.learning_rate_alpha)
     bsz = batch_size or tcfg.batch_size
 
     def step_fn(state: TrainState, arrays: ds.DataArrays, view_idx: int,
                 generator: torch.Generator | None = None, px=None, py=None,
-                t_rand=None):
+                t_rand=None, t_out=None):
         _, H, W, _ = arrays.normals.shape
         if px is None or py is None:
             px, py = ds.draw_pixels(generator, bsz, H, W)
         if t_rand is None:
             t_rand = torch.rand((bsz, 1), generator=generator,
                                 device=generator.device) - 0.5
+        if t_out is None and rcfg.n_outside > 0:
+            t_out = torch.rand((bsz, rcfg.n_outside), generator=generator,
+                               device=generator.device)
         batch = ds.sample_rays_on_all_lights(arrays, view_idx, px, py)
         if warmup:
             true_rgb = batch.rgb_warmup
@@ -166,8 +173,8 @@ def make_train_step(statics: ModelStatics, rcfg: RendererConfig,
         opt = state.optimizer
         opt.zero_grad(set_to_none=False)
         loss, metrics = _loss_terms(statics, rcfg, tcfg, state.params, batch,
-                                    true_rgb, lights_dir, t_rand, state.step,
-                                    warmup, no_albedo)
+                                    true_rgb, lights_dir, t_rand, t_out,
+                                    state.step, warmup, no_albedo)
         loss.backward()
         for group in opt.param_groups:
             for p in group["params"]:

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never pulls in JAX or the JAX package, and
 chip_smoke.py refuses to run (non-zero exit, no result line) without a
-CUDA device or without the package beside it."""
+CUDA device or without the package beside it, as the kernel-ablation tool
+(rnb_tpu_torch.tools.ablate_kernel) does without a CUDA device."""
 
 import os
 import pkgutil
@@ -27,7 +28,9 @@ def _run(args, cwd, timeout=120):
 def test_port_imports_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         rnb_tpu_torch.__path__, prefix="rnb_tpu_torch."))
-    assert "rnb_tpu_torch.ops.sdf_core" in mods and "rnb_tpu_torch.train.step" in mods
+    for m in ("ops.sdf_core", "ops.nerf", "ops.sdf_ablate", "train.step",
+              "tools.ablate_kernel"):
+        assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"
             "    importlib.import_module(m)\n"
@@ -50,3 +53,10 @@ def test_chip_smoke_fails_alone(tmp_path):
     r = _run(["chip_smoke.py"], tmp_path)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_ablate_kernel_fails_without_cuda():
+    r = _run(["-m", "rnb_tpu_torch.tools.ablate_kernel", "--n", "64",
+              "--iters", "1"], ROOT)
+    assert r.returncode != 0
+    assert "kernel_ms" not in r.stdout and "no CUDA device" in r.stderr

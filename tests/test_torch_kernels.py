@@ -5,8 +5,9 @@ only the port is installed:  python -m pytest --noconftest
 tests/test_torch_kernels.py. Every test needs a CUDA device and skips
 without one (a CUDA kernel has no CPU mode).
 
-Full widths (8x256 SDF net, 310→256→256→3 albedo net) at a point count that
-is not a multiple of the 16-point tile. Tolerances, relative to the norm of
+Full widths (8x256 SDF net, 310→256→256→3 albedo net, the 8x256 background
+NeRF with its 84-wide PE, 340-wide skip input and 283-wide views layer) at a
+point count that is not a multiple of the 16-point tile. Tolerances, relative to the norm of
 the plain result: 1e-4 at f32 operands (summation order only), 1e-2 at bf16
 operands (a different summation order can flip the bf16 rounding of an
 activation, one bf16 ulp = 2^-8 relative).
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from rnb_tpu_torch.models import fields
-from rnb_tpu_torch.ops import _build, albedo, sdf_core
+from rnb_tpu_torch.ops import _build, albedo, nerf, sdf_ablate, sdf_core
 
 N = 1037
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -36,6 +37,16 @@ def _close(got, want, tol):
         assert a.shape == b.shape
         err = (a - b).norm().item()
         assert err <= tol * b.norm().item() + 1e-6, (err, b.norm().item())
+
+
+def _close_joint(got, want, tol):
+    """As _close, over the tensors taken together (the norm of all errors
+    against the norm of the whole result)."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+    err = sum((a - b).pow(2).sum().item() for a, b in zip(got, want)) ** 0.5
+    ref = sum(b.pow(2).sum().item() for b in want) ** 0.5
+    assert err <= tol * ref + 1e-6, (err, ref)
 
 
 def _sdf_setup(dev, n=N):
@@ -107,9 +118,82 @@ def test_albedo_kernels(cuda, dtype):
     _close(g[0] + g[1] + [g[2], g[3]], r[0] + r[1] + [r[2], r[3]], TOL[dtype])
 
 
+def _nerf_setup(dev, n=N):
+    """The shipped background NeRF on points drawn as render_core_outside
+    feeds them ([x/r, 1/r], |x| = 1, 1/r in (0.1, 1]), kept where every
+    ReLU pre-activation is at least 2e-5 from 0 (nerf.relu_margin: nearer,
+    the f32 summation noise of ~1e-6 can flip a mask between kernel and
+    plain version)."""
+    cfg = fields.NeRFConfig()
+    gen = torch.Generator().manual_seed(2)
+    ws, bs = nerf.flatten_params(fields.init_nerf(gen, cfg))
+    m = 3 * n
+    x = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1)
+    r = torch.rand(m, 1, generator=gen) * 0.9 + 0.1
+    pts = torch.cat([x, r], dim=-1)
+    views = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1)
+    keep = nerf.relu_margin(cfg, pts, views, ws, bs) >= 2e-5
+    assert keep.sum() >= n
+    pts, views = pts[keep][:n].to(dev), views[keep][:n].to(dev)
+    cots = (torch.randn(n, 1, generator=gen).to(dev),
+            torch.randn(n, 3, generator=gen).to(dev))
+    return cfg, [w.to(dev) for w in ws], [b.to(dev) for b in bs], pts, views, cots
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_kernels(cuda, dtype):
+    """At bf16 the backward is held to the norm of all its tensors together:
+    db of a trunk layer sums O(1) cotangents of random sign over the points
+    and cancels to a small norm, where a one-ulp bf16 flip of an activation
+    weighs ~1e-2 even between two plain versions (CPU and cuBLAS)."""
+    cfg, ws, bs, pts, views, cots = _nerf_setup(cuda)
+    n0 = dict(_build.launches)
+    _close(nerf.nerf_fwd(cfg, pts, views, ws, bs, dtype),
+           nerf.nerf_fwd_plain(cfg, pts, views, ws, bs, dtype), TOL[dtype])
+    gw, gb = nerf.nerf_bwd(cfg, pts, views, ws, bs, *cots, dtype)
+    rw, rb = nerf.nerf_bwd_plain(cfg, pts, views, ws, bs, *cots, dtype)
+    (_close if dtype == torch.float32 else _close_joint)(gw + gb, rw + rb,
+                                                         TOL[dtype])
+    torch.cuda.synchronize()
+    assert _build.launches["nerf_fwd"] == n0["nerf_fwd"] + 1
+    assert _build.launches["nerf_bwd"] == n0["nerf_bwd"] + 1
+
+
+def test_nerf_ragged_rows_add_nothing(cuda):
+    """dW over N points equals the sum of dW over two ragged parts."""
+    cfg, ws, bs, pts, views, cots = _nerf_setup(cuda)
+    k = 517
+    full = nerf.nerf_bwd(cfg, pts, views, ws, bs, *cots, torch.float32)
+    a = nerf.nerf_bwd(cfg, pts[:k], views[:k], ws, bs, *(c[:k] for c in cots),
+                      torch.float32)
+    b = nerf.nerf_bwd(cfg, pts[k:], views[k:], ws, bs, *(c[k:] for c in cots),
+                      torch.float32)
+    _close(full[0] + full[1], [x + y for x, y in zip(a[0] + a[1], b[0] + b[1])],
+           1e-5)
+
+
+@pytest.mark.parametrize("mode", sdf_ablate.MODES)
+def test_sdf_ablation_variants(cuda, mode):
+    cfg, ws, bs, pts, _ = _sdf_setup(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        n0 = _build.launches["sdf_fwd_ablate"]
+        got = sdf_ablate.sdf_fwd_ablate(mode, cfg, pts, ws, bs, dtype)
+        want = sdf_ablate.sdf_fwd_ablate_plain(mode, cfg, pts, ws, bs, dtype)
+        torch.cuda.synchronize()
+        assert _build.launches["sdf_fwd_ablate"] == n0 + 1
+        _close(got, want, TOL[dtype])
+
+
 def test_wrappers_reject_bad_input(cuda):
     cfg, ws, bs, pts, cots = _sdf_setup(cuda, n=32)
     with pytest.raises(ValueError):
         sdf_core.sdf_core_fwd(cfg, pts.double(), ws, bs)
     with pytest.raises(ValueError):
         sdf_core.sdf_core_fwd(cfg, pts[:, :2], ws, bs)
+    ncfg, nws, nbs, npts, views, _ = _nerf_setup(cuda, n=32)
+    with pytest.raises(ValueError):
+        nerf.nerf_fwd(ncfg, npts.double(), views, nws, nbs)
+    with pytest.raises(ValueError):
+        nerf.nerf_fwd(ncfg, npts[:, :3], views, nws, nbs)
+    with pytest.raises(ValueError):
+        nerf.nerf_fwd(ncfg, npts, views[:16], nws, nbs)
