@@ -3,24 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a),
-then:
+Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
   1. checks each kernel against its plain PyTorch version on the card, at
-     its main path's point count and at a ragged one: the SDF core and
-     albedo at 512 rays x 128 samples = 65,536 and 65,573, the background
-     NeRF at 512 x (128 + 4) = 67,584 and 67,617, the four SDF-forward
-     ablation variants at 65,536; f32 operands within 1e-4 and bf16
-     operands within 1e-2 of the plain result's norm; times kernel and
-     plain version with CUDA events;
+     its main path's point count and at a ragged one: the SDF core (both
+     routes: bf16 on the tensor cores, f32 on the CUDA cores) and albedo
+     at 512 rays x 128 samples = 65,536 and 65,573, the background NeRF at
+     512 x (128 + 4) = 67,584 and 67,617, the four SDF-forward ablation
+     variants of both routes at 65,536, the bf16 backward's dW product for
+     one 256x256 layer over 2 x 65,536 rows; f32 operands within 1e-4 and
+     bf16 operands within 1e-2 of the plain result's norm; times kernel and
+     plain version with CUDA events (and torch.matmul beside the dW
+     product, as its yardstick);
   2. drives the training step at full width (8x256 SDF net, 2x256 albedo
      net, batch 512, 64+64 samples, 3 lights) on the sphere fixture, for
      confs/wmask_rnb.conf and for confs/womask_rnb.conf with n_outside=4
      (the 8x256 background NeRF on 4 outside samples, mask_weight 0): 10
      warm-up and 10 main-phase steps each, every loss finite, each kernel
-     of the path launched (counts set to 0 before each path, read after);
+     of the path launched and the SDF core on its bf16 route only (counts
+     set to 0 before each path, read after);
   3. runs one main step of 64 rays on the CPU (plain versions) and on the
-     card (kernels, f32 operands) from the same params and draws, for each
-     of the two confs, and compares loss, gradients and updated params;
+     card (kernels, f32 operands: the SDF core's f32 route) from the same
+     params and draws, for each of the two confs, and compares loss,
+     gradients and updated params;
   4. trains 200 warm-up steps of each conf on a sphere of radius 0.35: the
      mean loss of the last 20 steps must be below that of the first 20;
   5. runs the kernel-ablation entry point
@@ -28,10 +32,17 @@ then:
      through the ablation kernel.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
-counts each kernel's launches on its path (the wmask step for the SDF core
-and albedo, the womask step for the NeRF, the ablation run for the ablation
-variants), and `ms` / `plain_ms` are at the main-path shape with bf16
-operands (for the ablation kernel: one launch of each of its four variants).
+counts each kernel's launches on its path (the wmask step for the SDF core's
+bf16 route, its dW product and albedo, the wmask parity step for the SDF
+core's f32 route, the womask step for the NeRF, the ablation run for the
+ablation variants), `ms` / `plain_ms` are at the main-path shape with the
+route's operands (bf16 unless named f32; for the ablation kernel: one
+launch of each of its four variants), `bound_ms` is the larger of the
+least bytes (inputs read once, outputs written once) over 3.35 TB/s and the
+least multiply-adds over the peak of their type (989 TFLOP/s bf16 on the
+tensor cores, 67 TFLOP/s f32 on the CUDA cores), from this run's shapes,
+and `library_ms` the time of torch.matmul on the dW product's operands
+(null where no single PyTorch call computes the kernel's function).
 Any failed check raises; there is no fallback: without a CUDA device it
 exits non-zero.
 """
@@ -52,14 +63,23 @@ MAIN_N, RAGGED_N = 512 * 128, 65573
 NERF_N, NERF_RAGGED_N = 512 * (128 + 4), 67617
 WMASK = ("confs/wmask_rnb.conf", ())
 WOMASK = ("confs/womask_rnb.conf", ("model.neus_renderer.n_outside=4",))
-WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "albedo_fwd", "albedo_bwd")
+WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "sdf_dw_gemm", "albedo_fwd",
+                 "albedo_bwd")
 WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd")
+F32_ROUTE = ("sdf_core_fwd_f32", "sdf_core_bwd_f32")
+PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12   # H100 SXM data sheet
 
 KERNELS = {
     "sdf_core_fwd": ("rnb_tpu_torch/csrc/sdf_core.cu",
                      "rnb_tpu/ops/pallas_sdf_core.py:169"),
     "sdf_core_bwd": ("rnb_tpu_torch/csrc/sdf_core.cu",
                      "rnb_tpu/ops/pallas_sdf_core.py:232"),
+    "sdf_dw_gemm": ("rnb_tpu_torch/csrc/sdf_core.cu",
+                    "rnb_tpu/ops/pallas_sdf_core.py:232"),
+    "sdf_core_fwd_f32": ("rnb_tpu_torch/csrc/sdf_core.cu",
+                         "rnb_tpu/ops/pallas_sdf_core.py:169"),
+    "sdf_core_bwd_f32": ("rnb_tpu_torch/csrc/sdf_core.cu",
+                         "rnb_tpu/ops/pallas_sdf_core.py:232"),
     "albedo_fwd": ("rnb_tpu_torch/csrc/albedo.cu",
                    "rnb_tpu/ops/pallas_albedo.py:85"),
     "albedo_bwd": ("rnb_tpu_torch/csrc/albedo.cu",
@@ -103,9 +123,38 @@ def load(conf_spec):
             renderer.renderer_conf(conf["model"]), steplib.train_conf(conf))
 
 
-def check_kernel(results, name, n, dtype, kern, plain, timed):
-    """Hold one kernel call against its plain version; time both when
-    ``timed``."""
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def chain_macs(ws):
+    """Multiply-adds per point of one pass through a chain of [in, out]
+    matrices."""
+    return sum(w.shape[0] * w.shape[1] for w in ws)
+
+
+def sdf_macs(cfg, ws, backward):
+    """Least multiply-adds per point of the SDF core: the forward runs the
+    primal chain and its reverse sweep (every layer but the last, which the
+    seed W_last[:, 0] replaces); the backward runs the primal and tangent
+    slabs through every layer but the last, both back through every layer
+    but the first (only the h part of a skip input), and dW over both rows
+    of every layer."""
+    L, E = len(ws), ws[0].shape[0]
+    io = [(w.shape[0], w.shape[1]) for w in ws]
+    if not backward:
+        return chain_macs(ws) + sum(i * o for i, o in io[:-1])
+    rev = sum((i - E if l in cfg.skip_in else i) * o
+              for l, (i, o) in enumerate(io) if l > 0)
+    return 2 * sum(i * o for i, o in io[:-1]) + 2 * rev + 2 * chain_macs(ws)
+
+
+def check_kernel(results, name, n, dtype, kern, plain, timed, ins=(),
+                 macs=0.0, library=None):
+    """Hold one kernel call against its plain version; when ``timed``, time
+    both (and ``library``, one PyTorch call of the same function) and
+    bound the kernel: ``ins`` its input tensors, ``macs`` its least
+    multiply-adds at the operand dtype's peak."""
     from rnb_tpu_torch.tools.ablate_kernel import cuda_ms
 
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
@@ -116,12 +165,20 @@ def check_kernel(results, name, n, dtype, kern, plain, timed):
     tag = f"{name} n={n} {str(dtype).split('.')[-1]}"
     log(f"[kernel] {tag}: max_abs_err={mx:.3e} rel_err={rel:.3e} (tol {tol:g})")
     assert rel <= tol, f"{tag}: rel err {rel} > {tol}"
-    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r = results.setdefault(name, {"max_abs_err": 0.0, "library_ms": None})
     r["max_abs_err"] = max(r["max_abs_err"], mx)
     if timed:
         k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        t_ops, t_bytes = 2 * macs / peak * 1e3, nbytes(list(ins) + list(got)) / HBM * 1e3
         r["ms"], r["plain_ms"] = r.get("ms", 0.0) + k_ms, r.get("plain_ms", 0.0) + p_ms
-        log(f"[time] {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        r["bound_ms"] = r.get("bound_ms", 0.0) + max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        if library is not None:
+            r["library_ms"] = cuda_ms(library)
+        log(f"[time] {tag}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            f"{max(t_ops, t_bytes):.3f} ms ({r['bound_by']})"
+            + (f", library {r['library_ms']:.3f} ms" if library is not None else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +203,8 @@ def kernel_checks(dev):
 
     results = {}
     dtypes = (torch.float32, torch.bfloat16)
+    sdf_w = [*sw, *sb]
+    alb_w = [*aw, *ab]
     for n in (MAIN_N, RAGGED_N):
         pts = (torch.rand(n, 3, generator=gen) * 1.6 - 0.8).to(dev)
         nrm = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
@@ -155,30 +214,50 @@ def kernel_checks(dev):
         cg = torch.randn(n, 3, generator=gen).to(dev)
         co = torch.randn(n, acfg.d_out, generator=gen).to(dev)
         for dtype in dtypes:
+            route = "" if dtype == torch.bfloat16 else "_f32"
             calls = {
-                "sdf_core_fwd": (
+                "sdf_core_fwd" + route: (
                     lambda: list(sdf_core.sdf_core_fwd(scfg, pts, sw, sb, dtype)),
-                    lambda: list(sdf_core.sdf_core_fwd_plain(scfg, pts, sw, sb, dtype))),
-                "sdf_core_bwd": (
+                    lambda: list(sdf_core.sdf_core_fwd_plain(scfg, pts, sw, sb, dtype)),
+                    [pts, *sdf_w], n * sdf_macs(scfg, sw, False)),
+                "sdf_core_bwd" + route: (
                     lambda: sum(sdf_core.sdf_core_bwd(scfg, pts, sw, sb, cs, cf, cg, dtype), []),
-                    lambda: sum(sdf_core.sdf_core_bwd_plain(scfg, pts, sw, sb, cs, cf, cg, dtype), [])),
+                    lambda: sum(sdf_core.sdf_core_bwd_plain(scfg, pts, sw, sb, cs, cf, cg, dtype), []),
+                    [pts, *sdf_w, cs, cf, cg], n * sdf_macs(scfg, sw, True)),
                 "albedo_fwd": (
                     lambda: [albedo.albedo_fwd(acfg, pts, nrm, feat, aw, ab, dtype)],
-                    lambda: [albedo.albedo_fwd_plain(acfg, pts, nrm, feat, aw, ab, dtype)]),
+                    lambda: [albedo.albedo_fwd_plain(acfg, pts, nrm, feat, aw, ab, dtype)],
+                    [pts, nrm, feat, *alb_w], n * chain_macs(aw)),
                 "albedo_bwd": (
                     lambda: _flat_alb(albedo.albedo_bwd(acfg, pts, nrm, feat, aw, ab, co, dtype)),
-                    lambda: _flat_alb(albedo.albedo_bwd_plain(acfg, pts, nrm, feat, aw, ab, co, dtype))),
+                    lambda: _flat_alb(albedo.albedo_bwd_plain(acfg, pts, nrm, feat, aw, ab, co, dtype)),
+                    [pts, nrm, feat, *alb_w, co], 3 * n * chain_macs(aw)),
             }
             if n == MAIN_N:   # the ablation variants at the main path's count
                 for mode in sdf_ablate.MODES:
+                    macs = n * (sdf_macs(scfg, sw, False) if mode != "primal_only"
+                                else chain_macs(sw))
                     calls[f"sdf_fwd_ablate:{mode}"] = (
                         lambda m=mode: list(sdf_ablate.sdf_fwd_ablate(m, scfg, pts, sw, sb, dtype)),
-                        lambda m=mode: list(sdf_ablate.sdf_fwd_ablate_plain(m, scfg, pts, sw, sb, dtype)))
-            for name, (kern, plain) in calls.items():
-                check_kernel(results, name.split(":")[0], n, dtype, kern, plain,
-                             n == MAIN_N and dtype == torch.bfloat16)
+                        lambda m=mode: list(sdf_ablate.sdf_fwd_ablate_plain(m, scfg, pts, sw, sb, dtype)),
+                        [pts, *sdf_w], macs)
+            for name, (kern, plain, ins, macs) in calls.items():
+                base = name.split(":")[0]
+                timed = n == MAIN_N and (dtype == torch.bfloat16 or base in F32_ROUTE)
+                check_kernel(results, base, n, dtype, kern, plain, timed, ins, macs)
         del pts, nrm, feat, cs, cf, cg, co
         torch.cuda.empty_cache()
+
+    # the bf16 backward's dW product for one 256x256 layer over both rows of
+    # the main path's points, beside torch.matmul on the same operands
+    k = 2 * MAIN_N
+    a = torch.randn(k, 256, generator=gen).to(dev, torch.bfloat16)
+    b = torch.randn(k, 256, generator=gen).to(dev, torch.bfloat16)
+    check_kernel(results, "sdf_dw_gemm", k, torch.bfloat16,
+                 lambda: [sdf_core.dw_gemm(a, b, 256, 256)],
+                 lambda: [sdf_core.dw_gemm_plain(a, b, 256, 256)], True,
+                 [a, b], 256 * 256 * k, library=lambda: torch.matmul(a.T, b))
+    del a, b
 
     for n in (NERF_N, NERF_RAGGED_N):
         # pts4 = [x/r, 1/r] with |x| > 1, as render_core_outside feeds it,
@@ -201,11 +280,11 @@ def kernel_checks(dev):
             check_kernel(results, "nerf_fwd", n, dtype,
                          lambda: list(nerf.nerf_fwd(ncfg, pts4, views, nw, nb, dtype)),
                          lambda: list(nerf.nerf_fwd_plain(ncfg, pts4, views, nw, nb, dtype)),
-                         timed)
+                         timed, [pts4, views, *nw, *nb], n * chain_macs(nw))
             check_kernel(results, "nerf_bwd", n, dtype,
                          lambda: sum(nerf.nerf_bwd(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
                          lambda: sum(nerf.nerf_bwd_plain(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
-                         timed)
+                         timed, [pts4, views, *nw, *nb, ca, cr], 3 * n * chain_macs(nw))
         del pts4, views, ca, cr
         torch.cuda.empty_cache()
     return results
@@ -259,6 +338,8 @@ def slice_run(dev, conf_spec, kernels):
     log(f"[slice] launches in the 20 steps: {counts}")
     for k in kernels:
         assert counts[k] > 0, f"kernel {k} was not launched by the main path"
+    for k in F32_ROUTE:   # the step runs bf16: the SDF core's tensor-core route
+        assert counts[k] == 0, f"the main path launched the f32 route ({k})"
     return phases, counts
 
 
@@ -269,6 +350,7 @@ def slice_run(dev, conf_spec, kernels):
 def slice_parity(dev, conf_spec):
     from rnb_tpu_torch.data import dataset as ds
     from rnb_tpu_torch.models import fields
+    from rnb_tpu_torch.ops import _build
     from rnb_tpu_torch.train import step as steplib
     from rnb_tpu_torch.utils import bridge
 
@@ -277,8 +359,8 @@ def slice_parity(dev, conf_spec):
     # warm_up_end=0: the first update already has the full LR
     tcfg = dataclasses.replace(tcfg, warm_up_end=0)
     B = 64
-    scene = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4)
-    params = fields.init_model_bundle(torch.Generator().manual_seed(1), statics)
+    scene = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4, device="cpu")
+    params = fields.init_model_bundle(torch.Generator().manual_seed(1), statics, "cpu")
     rng = np.random.default_rng(2)
     px = torch.tensor(rng.integers(0, 256, B))
     py = torch.tensor(rng.integers(0, 256, B))
@@ -286,6 +368,8 @@ def slice_parity(dev, conf_spec):
     t_out = torch.tensor(rng.uniform(size=(B, rcfg.n_outside)), dtype=torch.float32)
 
     out = {}
+    for k in _build.launches:
+        _build.launches[k] = 0
     for where in ("cpu", dev):
         p = bridge.params_from_numpy(bridge.params_to_numpy(params), where)
         arrays = ds.DataArrays(*(a.to(where) for a in scene.arrays))
@@ -297,6 +381,9 @@ def slice_parity(dev, conf_spec):
         leaves = bridge.tree_leaves(state.params)
         out[str(where)] = (m["loss"].item(), [x.grad.detach().cpu() for x in leaves],
                            [x.detach().cpu() for x in leaves])
+    counts = {k: _build.launches[k] for k in F32_ROUTE}
+    log(f"[parity] f32-route launches in the card step: {counts}")
+    assert all(counts.values()), "the f32 step did not run the f32 route"
     (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(dev)]
     lr = tcfg.learning_rate
     _, grad_rel = rel_err(gg, gc)
@@ -311,7 +398,7 @@ def slice_parity(dev, conf_spec):
     # Adam's first update is ≈ lr·sign(g): a near-zero gradient may flip it
     assert dparam <= 2 * lr + 1e-6, "updated params differ"
     return {"loss_cpu": lc, "loss_gpu": lg, "grad_rel_err": grad_rel,
-            "grad_worst_leaf_rel_err": worst, "max_param_diff": dparam}
+            "grad_worst_leaf_rel_err": worst, "max_param_diff": dparam}, counts
 
 
 # ---------------------------------------------------------------------------
@@ -378,6 +465,8 @@ def main():
     _build.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_build.build_info['path']})")
+    for name, rep in _build.ptxas_summary("sdf_", "dw_gemm").items():
+        log(f"[ptxas] {name}: {rep}")
 
     kern = kernel_checks(dev)
     summary = {"card": card}
@@ -386,7 +475,9 @@ def main():
                                  ("womask", WOMASK, WOMASK_KERNELS)):
         phases, run_counts = slice_run(dev, spec, kernels)
         counts.update({k: run_counts[k] for k in kernels if k not in counts})
-        summary[label] = {"slice": phases, "parity": slice_parity(dev, spec),
+        parity, f32_counts = slice_parity(dev, spec)
+        counts.update({k: v for k, v in f32_counts.items() if k not in counts})
+        summary[label] = {"slice": phases, "parity": parity,
                           "train": training_moves(dev, spec)}
     summary["ablation"], counts["sdf_fwd_ablate"] = ablation_run()
 
@@ -394,7 +485,9 @@ def main():
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[k], "max_abs_err": kern[k]["max_abs_err"],
-         "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"]}
+         "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
+         "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
+         "library_ms": kern[k]["library_ms"]}
         for k, (src, rep) in KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,7 +96,7 @@ class Dataset:
     """Owns the device tensors, the host camera matrices and the mesh bbox."""
 
     def __init__(self, normals_np, albedos_np, masks_np, world_mats, scale_mats,
-                 object_scale_mat=None, no_albedo: bool = False, device="cpu"):
+                 object_scale_mat=None, no_albedo: bool = False, device="cuda"):
         self.no_albedo = bool(no_albedo or albedos_np is None)
         self.n_images, self.H, self.W = masks_np.shape[:3]
         self.n_lights = lights.N_LIGHTS
@@ -193,7 +193,7 @@ def _torus_normal(p: np.ndarray, R: float = 0.5) -> np.ndarray:
 def make_torus_scene(n_views: int = 8, H: int = 128, W: int = 128,
                      R: float = 0.5, r: float = 0.22, cam_dist: float = 3.0,
                      albedo_rgb=(0.7, 0.55, 0.35),
-                     center=(0.0, 0.0, 0.0), device="cpu") -> Dataset:
+                     center=(0.0, 0.0, 0.0), device="cuda") -> Dataset:
     """Analytic torus scene rendered by sphere tracing: a non-convex,
     genus-1 fixture. ``center`` moves the torus off the origin while the
     cameras still ring the origin."""
@@ -247,7 +247,7 @@ def make_torus_scene(n_views: int = 8, H: int = 128, W: int = 128,
 def make_sphere_scene(n_views: int = 8, H: int = 64, W: int = 64,
                       radius: float = 0.5, cam_dist: float = 3.0,
                       albedo_rgb=(0.8, 0.5, 0.3),
-                      device="cpu") -> Dataset:
+                      device="cuda") -> Dataset:
     """Analytic textured sphere with known normals, albedo and masks."""
     focal = 1.2 * max(H, W)
     K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]])

@@ -119,7 +119,7 @@ def _to_weight_norm(layer):
 
 
 def init_sdf_network(gen: torch.Generator, cfg: SDFConfig,
-                     device="cpu") -> List[Dict[str, torch.Tensor]]:
+                     device="cuda") -> List[Dict[str, torch.Tensor]]:
     """Geometric init (matched to the JAX package in distribution; draws
     come from ``gen`` on the CPU and are moved to ``device``)."""
     dims = cfg.dims
@@ -252,7 +252,7 @@ class RenderingConfig:
 
 
 def init_rendering_network(gen: torch.Generator, cfg: RenderingConfig,
-                           device="cpu") -> List[Dict[str, torch.Tensor]]:
+                           device="cuda") -> List[Dict[str, torch.Tensor]]:
     dims = cfg.dims
     layers = []
     for l in range(len(dims) - 1):
@@ -325,7 +325,7 @@ class NeRFConfig:
                 if self.multires_view > 0 else self.d_in_view)
 
 
-def init_nerf(gen: torch.Generator, cfg: NeRFConfig, device="cpu") -> Dict[str, Any]:
+def init_nerf(gen: torch.Generator, cfg: NeRFConfig, device="cuda") -> Dict[str, Any]:
     pts_layers = [_torch_default_linear(gen, cfg.input_ch, cfg.W, device)]
     for i in range(cfg.D - 1):
         fan_in = cfg.W + cfg.input_ch if i in cfg.skips else cfg.W
@@ -375,7 +375,7 @@ def nerf_apply(cfg: NeRFConfig, params, input_pts, input_views):
 # Single-variance (deviation) network
 # ---------------------------------------------------------------------------
 
-def init_variance(init_val: float = 0.3, device="cpu") -> Dict[str, torch.Tensor]:
+def init_variance(init_val: float = 0.3, device="cuda") -> Dict[str, torch.Tensor]:
     return {"variance": torch.tensor(init_val, dtype=torch.float32, device=device)}
 
 
@@ -419,7 +419,7 @@ def statics_from_conf(conf_model) -> ModelStatics:
 
 
 def init_model_bundle(gen: torch.Generator, statics: ModelStatics,
-                      device="cpu") -> Dict[str, Any]:
+                      device="cuda") -> Dict[str, Any]:
     return {
         "nerf": init_nerf(gen, statics.nerf, device),
         "sdf": init_sdf_network(gen, statics.sdf, device),

@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,7 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# sdf_core_fwd / sdf_core_bwd count the bf16 route (tensor-core kernels),
+# the *_f32 keys the f32 route (CUDA-core kernels); sdf_dw_gemm counts the
+# bf16 backward's per-layer dW products.
 launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
+            "sdf_core_fwd_f32": 0, "sdf_core_bwd_f32": 0, "sdf_dw_gemm": 0,
             "albedo_fwd": 0, "albedo_bwd": 0,
             "nerf_fwd": 0, "nerf_bwd": 0, "sdf_fwd_ablate": 0}
 
@@ -45,6 +50,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 
 _SIGNATURES = {
     # pts, n, w, wt, b, in_dims, out_dims, skip, n_layers, multires, scale,
@@ -59,6 +65,18 @@ _SIGNATURES = {
     # splits, dw, db, stream
     "rnb_sdf_bwd": (_P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F, _I, _F,
                     _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
+    # mode, pts, n, w (bf16 image), b, in_dims, out_dims, skip, hd, w_off,
+    # n_layers, multires, scale, c16, rec, sdf, feat, grad, stream
+    "rnb_sdf_fwd_wg": (_I, _P, _LL, _P, _P, _IP, _IP, _IP, _IP, _LLP, _I, _I,
+                       _F, _F, _P, _P, _P, _P, _P),
+    # pts, n, w, b, in_dims, out_dims, skip, hd, w_off, a_off, bb_off,
+    # n_layers, multires, scale, c16, csdf, cfeat, cgrad, rec_z, rec_t, abuf,
+    # bbuf, dbp, db, stream
+    "rnb_sdf_bwd_wg": (_P, _LL, _P, _P, _IP, _IP, _IP, _IP, _LLP, _LLP, _LLP,
+                       _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P),
+    # a, lda, b, ldb, K, M, N, kchunk, splits, partial, dw, stream
+    "rnb_dw_gemm": (_P, _I, _P, _I, _LL, _I, _I, _LL, _I, _P, _P, _P),
     # pts, nrm, feat, n, F, w, b, in_dims, out_dims, n_layers, multires, bf,
     # out, stream
     "rnb_albedo_fwd": (_P, _P, _P, _LL, _I, _P, _P, _IP, _IP, _I, _I, _I,
@@ -136,6 +154,27 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+def ptxas_summary(*keys: str) -> dict:
+    """ptxas's report (``-Xptxas -v``) of this process's build, for each
+    kernel whose name holds one of ``keys``: {name: "R registers, S B spill
+    stores, L B spill loads"}. Empty when the library was already built."""
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(_Z(\d+)\w*)'(.*?)"
+                         r"(?=Compiling entry function|\Z)",
+                         build_info["log"], re.S):
+        mangled, n, body = m.group(1), int(m.group(2)), m.group(3)
+        head = len(m.group(2)) + 2
+        name = mangled[head:head + n]
+        mode = re.match(r"ILi(\d+)E", mangled[head + n:])
+        name += f"<{mode.group(1)}>" if mode else ""
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        if any(k in name for k in keys) and regs and spill:
+            out[name] = (f"{regs.group(1)} registers, {spill.group(1)} B spill "
+                         f"stores, {spill.group(2)} B spill loads")
+    return out
+
+
 def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().rnb_error_string(rc).decode()
@@ -145,6 +184,11 @@ def check(rc: int, what: str) -> None:
 def int_array(values) -> ctypes.Array:
     values = [int(v) for v in values]
     return (ctypes.c_int * len(values))(*values)
+
+
+def ll_array(values) -> ctypes.Array:
+    values = [int(v) for v in values]
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def splits_for(m: int, n: int, k: int) -> int:

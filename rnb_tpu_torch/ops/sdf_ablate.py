@@ -2,9 +2,10 @@
 
 Counterpart of the variants in ``tools/ablate_kernel.py`` (``make_kernel``
 :62), which time stripped copies of the TPU forward kernel to split its
-time. Here they are instantiations of the production CUDA kernel
-(``csrc/sdf_core.cu`` ``sdf_fwd_kernel<MODE>``), each stripping one part
-and keeping the rest:
+time. Here they are instantiations of the production CUDA kernel of the
+op dtype's route (``csrc/sdf_core.cu``: ``sdf_fwd_wg_kernel<MODE>``, the
+tensor-core kernel, at bf16; ``sdf_fwd_kernel<MODE>``, the CUDA-core
+kernel, at f32), each stripping one part and keeping the rest:
 
     full         the production kernel (``sdf_core.sdf_core_fwd``'s)
     no_pe        every PE channel holds the raw first coordinate, and the
@@ -29,7 +30,8 @@ import torch
 from rnb_tpu_torch.models.fields import SDFConfig, round_to
 from rnb_tpu_torch.ops import _build
 from rnb_tpu_torch.ops.sdf_core import (_c16, _pe_parts, _softplus100_pair,
-                                        launch_fwd, sdf_core_fwd_plain)
+                                        launch_fwd, launch_fwd_wg,
+                                        sdf_core_fwd_plain)
 
 MODES = ("full", "no_pe", "no_act", "primal_only")   # index = the C SdfMode
 
@@ -92,13 +94,17 @@ def sdf_fwd_ablate_plain(mode: str, cfg: SDFConfig, pts, ws, bs,
 
 def sdf_fwd_ablate(mode: str, cfg: SDFConfig, pts, ws, bs,
                    dtype=torch.bfloat16):
-    """The variant ``mode`` of the forward kernel (``rnb_sdf_fwd_ablate``)
-    for a CUDA tensor, its plain version for a CPU tensor."""
+    """The variant ``mode`` of the forward kernel of the dtype's route
+    (``rnb_sdf_fwd_wg`` at bf16, ``rnb_sdf_fwd_ablate`` at f32) for a CUDA
+    tensor, its plain version for a CPU tensor."""
     if not pts.is_cuda:
         return sdf_fwd_ablate_plain(mode, cfg, pts, ws, bs, dtype)
     if mode not in MODES:
         raise ValueError(f"ablation mode must be one of {MODES}, got {mode!r}")
-    out = launch_fwd(cfg, pts, ws, bs, dtype, entry="rnb_sdf_fwd_ablate",
-                     lead=(MODES.index(mode),))
+    if _build.bf16_flag(dtype):
+        out = launch_fwd_wg(cfg, pts, ws, bs, MODES.index(mode))
+    else:
+        out = launch_fwd(cfg, pts, ws, bs, entry="rnb_sdf_fwd_ablate",
+                         lead=(MODES.index(mode),))
     _build.launches["sdf_fwd_ablate"] += 1
     return out

@@ -29,8 +29,11 @@ Matmul operands are rounded to the op dtype (bf16 on the main path, f32 in
 the comparisons) with f32 accumulation. pts gets no gradient: sample points
 never require one in this framework.
 
-``sdf_core_fwd`` / ``sdf_core_bwd`` launch the kernel for a CUDA tensor (or
-raise) and run the plain PyTorch version, ``*_plain``, for a CPU tensor.
+``sdf_core_fwd`` / ``sdf_core_bwd`` launch the kernels for a CUDA tensor (or
+raise) and run the plain PyTorch version, ``*_plain``, for a CPU tensor. On
+the card the op dtype picks one of two routes, never by failure: bf16 (the
+training step's) runs the tensor-core kernels (wgmma; weights as a padded
+bf16 image, ``pack_weights`` / ``wg_layout``), f32 the CUDA-core kernels.
 """
 
 from __future__ import annotations
@@ -193,22 +196,26 @@ def _check_args(cfg: SDFConfig, pts, ws, bs):
 
 
 def sdf_core_fwd(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16):
-    """Forward kernel (``rnb_sdf_fwd``) for a CUDA tensor, plain version
-    for a CPU tensor."""
+    """Forward kernel for a CUDA tensor, plain version for a CPU tensor.
+    The op dtype names the route: bf16 launches the tensor-core kernel
+    (``rnb_sdf_fwd_wg``), f32 the CUDA-core kernel (``rnb_sdf_fwd``)."""
     if not pts.is_cuda:
         return sdf_core_fwd_plain(cfg, pts, ws, bs, dtype)
-    out = launch_fwd(cfg, pts, ws, bs, dtype)
-    _build.launches["sdf_core_fwd"] += 1
+    if _build.bf16_flag(dtype):
+        out = launch_fwd_wg(cfg, pts, ws, bs)
+        _build.launches["sdf_core_fwd"] += 1
+    else:
+        out = launch_fwd(cfg, pts, ws, bs)
+        _build.launches["sdf_core_fwd_f32"] += 1
     return out
 
 
-def launch_fwd(cfg: SDFConfig, pts, ws, bs, dtype, entry="rnb_sdf_fwd",
-               lead=()):
-    """Check the CUDA tensors, allocate the outputs and the pre-activation
-    record, and launch the C entry ``entry`` with the arguments ``lead``
-    followed by ``rnb_sdf_fwd``'s. -> (sdf, feat, grad)."""
+def launch_fwd(cfg: SDFConfig, pts, ws, bs, entry="rnb_sdf_fwd", lead=()):
+    """f32 route: check the CUDA tensors, allocate the outputs and the
+    pre-activation record, and launch the C entry ``entry`` with the
+    arguments ``lead`` followed by ``rnb_sdf_fwd``'s. -> (sdf, feat, grad)."""
     _check_args(cfg, pts, ws, bs)
-    bf = _build.bf16_flag(dtype)
+    dtype = torch.float32
     lib = _build.library()
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
@@ -225,30 +232,224 @@ def launch_fwd(cfg: SDFConfig, pts, ws, bs, dtype, entry="rnb_sdf_fwd",
             *lead, pts.data_ptr(), n, wflat.data_ptr(), wtflat.data_ptr(),
             bflat.data_ptr(), _build.int_array(in_dims),
             _build.int_array(out_dims), _build.int_array(skip), L,
-            cfg.multires, cfg.scale, bf, _c16(dtype), rec.data_ptr(), rec_ld,
+            cfg.multires, cfg.scale, 0, _c16(dtype), rec.data_ptr(), rec_ld,
             sdf.data_ptr(), feat.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry)
     return sdf, feat, grad
 
 
-def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
-                 dtype=torch.bfloat16):
-    """Backward kernel (``rnb_sdf_bwd``: sweep + dW/db reduction) for a
-    CUDA tensor, plain version for a CPU tensor. -> (dws, dbs)."""
-    if not pts.is_cuda:
-        return sdf_core_bwd_plain(cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
-                                  dtype)
+# ---------------------------------------------------------------------------
+# the bf16 route's operand layout (csrc/sdf_core.cu, "bf16 route")
+# ---------------------------------------------------------------------------
+
+TILE = 64            # points per block of the tensor-core kernels
+DW_ROWS = 64         # rows per stage of the dW product
+
+
+def _pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def wg_layout(cfg: SDFConfig, ws, n: int = 0) -> dict:
+    """Shapes and offsets the tensor-core kernels take, per layer l:
+    ``hd[l]`` the input column where the skip layer's e starts (in_l for a
+    layer without skip), ``w_off[l]`` the bf16 weight image's tile
+    ([pad16(in), pad16(out)]), ``a_off[l]`` / ``bb_off[l]`` the layer's A rows
+    ([2n, pad16(in)]) and B rows ([2n, pad16(out)]) in the bf16 dW scratch."""
+    in_dims = [int(w.shape[0]) for w in ws]
+    out_dims = [int(w.shape[1]) for w in ws]
+    L, E = len(ws), in_dims[0]
+    skip = [int(l in cfg.skip_in) for l in range(L)]
+    hd = [i - E if s else i for i, s in zip(in_dims, skip)]
+    kp, np_ = [_pad16(i) for i in in_dims], [_pad16(o) for o in out_dims]
+    w_off, a_off, bb_off = [0], [0], [0]
+    for l in range(L - 1):
+        w_off.append(w_off[-1] + kp[l] * np_[l])
+        a_off.append(a_off[-1] + 2 * n * kp[l])
+        bb_off.append(bb_off[-1] + 2 * n * np_[l])
+    return dict(in_dims=in_dims, out_dims=out_dims, skip=skip, hd=hd, kp=kp,
+                np=np_, w_off=w_off, a_off=a_off, bb_off=bb_off,
+                w_len=w_off[-1] + kp[-1] * np_[-1],
+                a_len=a_off[-1] + 2 * n * kp[-1],
+                b_len=bb_off[-1] + 2 * n * np_[-1])
+
+
+def pack_weights(ws, lay: dict) -> torch.Tensor:
+    """The bf16 weight image: W_l rounded to bf16, zero-padded to
+    [pad16(in), pad16(out)] and stored as 8x8 cores, core (i/8, o/8) at
+    lay["w_off"][l] + ((i/8)·pad16(out)/8 + o/8)·64, 8 consecutive o a row."""
+    parts = []
+    for w, kp, np_ in zip(ws, lay["kp"], lay["np"]):
+        pad = torch.zeros(kp, np_, dtype=torch.bfloat16, device=w.device)
+        pad[:w.shape[0], :w.shape[1]] = w.detach().to(torch.bfloat16)
+        parts.append(pad.reshape(kp // 8, 8, np_ // 8, 8).permute(0, 2, 1, 3)
+                     .reshape(-1))
+    return torch.cat(parts)
+
+
+def _check_wg(lay: dict):
+    L, ins, outs = len(lay["in_dims"]), lay["in_dims"], lay["out_dims"]
+    if (L < 2 or ins[0] > 48 or lay["skip"][-1] or max(ins) > 256
+            or max(outs[:-1]) > 256 or outs[-1] > 264):
+        raise ValueError(
+            "the bf16 sdf core kernels take 2-16 layers, <= 48 PE channels, "
+            "inputs and hidden outputs <= 256 wide, a last layer <= 264 wide "
+            f"and no skip at the last layer; got in {ins}, out {outs}")
+
+
+def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0):
+    """bf16 route: launch ``rnb_sdf_fwd_wg`` (``mode``: the C SdfMode, 0 =
+    the production kernel). -> (sdf, feat, grad)."""
     _check_args(cfg, pts, ws, bs)
-    bf = _build.bf16_flag(dtype)
+    lay = wg_layout(cfg, ws)
+    _check_wg(lay)
     lib = _build.library()
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
-    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
+    dev = pts.device
+    image = pack_weights(ws, lay)
+    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+    tiles = -(-n // TILE)
+    rec = torch.empty(tiles * (L - 1) * TILE * 256, device=dev)
+    sdf = torch.empty(n, device=dev)
+    feat = torch.empty(n, lay["out_dims"][-1] - 1, device=dev)
+    grad = torch.empty(n, 3, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.rnb_sdf_fwd_wg(
+            mode, pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
+            _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
+            _build.int_array(lay["skip"]), _build.int_array(lay["hd"]),
+            _build.ll_array(lay["w_off"]), L, cfg.multires, cfg.scale,
+            _c16(torch.bfloat16), rec.data_ptr(), sdf.data_ptr(),
+            feat.data_ptr(), grad.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rnb_sdf_fwd_wg")
+    return sdf, feat, grad
+
+
+def dw_gemm_plain(a, b, m: int, n: int):
+    """dW = a[:, :m]ᵀ · b[:, :n] in f32 over all rows (bf16 operands)."""
+    return a[:, :m].float().T @ b[:, :n].float()
+
+
+def dw_gemm_splits(m: int, n: int, k: int):
+    """(splits, rows per split) of the dW product: about two blocks an SM on
+    the card's 132 SMs, each split a multiple of 64 rows."""
+    tiles = -(-m // 128) * -(-n // 128)
+    splits = max(1, min(-(-264 // tiles), -(-k // (8 * DW_ROWS))))
+    chunk = -(-k // splits)
+    chunk = -(-chunk // DW_ROWS) * DW_ROWS
+    return -(-k // chunk), chunk
+
+
+def dw_gemm(a, b, m: int, n: int, partial=None):
+    """dW [m, n] = a[:, :m]ᵀ · b[:, :n] summed over the rows of the [K, lda]
+    and [K, ldb] bf16 operands (lda, ldb multiples of 8): the tensor-core
+    split-K kernel (``rnb_dw_gemm``) for CUDA tensors, deterministic;
+    ``dw_gemm_plain`` for CPU tensors. ``partial`` is an optional f32
+    scratch of at least splits·m·n floats."""
+    if not a.is_cuda:
+        return dw_gemm_plain(a, b, m, n)
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2
+            or b.dim() != 2 or a.shape[0] != b.shape[0] or a.shape[1] % 8
+            or b.shape[1] % 8 or m > a.shape[1] or n > b.shape[1]
+            or not a.is_contiguous() or not b.is_contiguous()):
+        raise ValueError("dw_gemm takes two contiguous [K, 8j] bf16 matrices "
+                         "of the same row count")
+    k = a.shape[0]
+    splits, chunk = dw_gemm_splits(m, n, k)
+    if partial is None or partial.numel() < splits * m * n:
+        partial = torch.empty(splits * m * n, device=a.device)
+    dw = torch.empty(m, n, device=a.device)
+    with torch.cuda.device(a.device):
+        rc = _build.library().rnb_dw_gemm(
+            a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1], k, m, n, chunk,
+            splits, partial.data_ptr(), dw.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "rnb_dw_gemm")
+    _build.launches["sdf_dw_gemm"] += 1
+    return dw
+
+
+def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
+                 dtype=torch.bfloat16):
+    """Backward kernels for a CUDA tensor, plain version for a CPU tensor.
+    -> (dws, dbs). bf16: the tensor-core sweep (``rnb_sdf_bwd_wg``) and one
+    ``dw_gemm`` per layer; f32: the CUDA-core sweep and split-K reduction
+    (``rnb_sdf_bwd``)."""
+    if not pts.is_cuda:
+        return sdf_core_bwd_plain(cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
+                                  dtype)
+    if _build.bf16_flag(dtype):
+        out = _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad)
+        _build.launches["sdf_core_bwd"] += 1
+    else:
+        out = _bwd_f32(cfg, pts, ws, bs, c_sdf, c_feat, c_grad)
+        _build.launches["sdf_core_bwd_f32"] += 1
+    return out
+
+
+def _cotangents(pts, c_sdf, c_feat, c_grad, d_feat):
+    n = pts.shape[0]
     cots = [t.detach().float().contiguous() for t in (c_sdf, c_feat, c_grad)]
-    if (cots[0].shape != (n,) or cots[1].shape != (n, out_dims[-1] - 1)
+    if (cots[0].shape != (n,) or cots[1].shape != (n, d_feat)
             or cots[2].shape != (n, 3)):
         raise ValueError("sdf core backward: cotangent shapes do not match")
+    return cots
+
+
+def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
+    _check_args(cfg, pts, ws, bs)
+    pts = pts.detach().contiguous()
+    n, L = pts.shape[0], len(ws)
+    lay = wg_layout(cfg, ws, n)
+    _check_wg(lay)
+    lib = _build.library()
+    cots = _cotangents(pts, c_sdf, c_feat, c_grad, lay["out_dims"][-1] - 1)
+    dev = pts.device
+    image = pack_weights(ws, lay)
+    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+    tiles = -(-n // TILE)
+    rec_z = torch.empty(tiles * (L - 1) * TILE * 256, device=dev)
+    rec_t = torch.empty_like(rec_z)
+    abuf = torch.empty(lay["a_len"], dtype=torch.bfloat16, device=dev)
+    bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
+    dbp = torch.empty(tiles * bflat.numel(), device=dev)
+    db = torch.empty(bflat.numel(), device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.rnb_sdf_bwd_wg(
+            pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
+            _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
+            _build.int_array(lay["skip"]), _build.int_array(lay["hd"]),
+            _build.ll_array(lay["w_off"]), _build.ll_array(lay["a_off"]),
+            _build.ll_array(lay["bb_off"]), L, cfg.multires, cfg.scale,
+            _c16(torch.bfloat16), cots[0].data_ptr(), cots[1].data_ptr(),
+            cots[2].data_ptr(), rec_z.data_ptr(), rec_t.data_ptr(),
+            abuf.data_ptr(), bbuf.data_ptr(), dbp.data_ptr(), db.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rnb_sdf_bwd_wg")
+    del rec_z, rec_t
+    partial = torch.empty(max(dw_gemm_splits(i, o, 2 * n)[0] * i * o
+                              for i, o in zip(lay["in_dims"], lay["out_dims"])),
+                          device=dev)
+    dws = []
+    for l in range(L):
+        kp, np_ = lay["kp"][l], lay["np"][l]
+        a = abuf[lay["a_off"][l]:lay["a_off"][l] + 2 * n * kp].view(2 * n, kp)
+        b = bbuf[lay["bb_off"][l]:lay["bb_off"][l] + 2 * n * np_].view(2 * n, np_)
+        dws.append(dw_gemm(a, b, lay["in_dims"][l], lay["out_dims"][l], partial))
+    return dws, _build.unflat(db, [tuple(b.shape) for b in bs])
+
+
+def _bwd_f32(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
+    _check_args(cfg, pts, ws, bs)
+    lib = _build.library()
+    pts = pts.detach().contiguous()
+    n, L = pts.shape[0], len(ws)
+    dtype = torch.float32
+    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
+    cots = _cotangents(pts, c_sdf, c_feat, c_grad, out_dims[-1] - 1)
     rec_ld = max(out_dims[:-1], default=1)
     dev = pts.device
     rec_z = torch.empty(max(L - 1, 1) * n * rec_ld, device=dev)
@@ -266,13 +467,12 @@ def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
             pts.data_ptr(), n, wflat.data_ptr(), wtflat.data_ptr(),
             bflat.data_ptr(), _build.int_array(in_dims),
             _build.int_array(out_dims), _build.int_array(skip), L,
-            cfg.multires, cfg.scale, bf, _c16(dtype), cots[0].data_ptr(),
+            cfg.multires, cfg.scale, 0, _c16(dtype), cots[0].data_ptr(),
             cots[1].data_ptr(), cots[2].data_ptr(), rec_z.data_ptr(),
             rec_t.data_ptr(), rec_ld, abuf.data_ptr(), bbuf.data_ptr(),
             partial.data_ptr(), splits, dw.data_ptr(), db.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_sdf_bwd")
-    _build.launches["sdf_core_bwd"] += 1
     return (_build.unflat(dw, [tuple(w.shape) for w in ws]),
             _build.unflat(db, [tuple(b.shape) for b in bs]))
 

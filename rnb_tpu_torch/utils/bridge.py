@@ -31,7 +31,7 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+def params_from_numpy(tree: Any, device="cuda") -> Any:
     """JAX params pytree (numpy or array-like leaves) -> the port's params:
     float32 leaf tensors on ``device`` that require grad."""
     return tree_map(

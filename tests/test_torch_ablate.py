@@ -28,7 +28,7 @@ CFG = fields.SDFConfig(d_out=17, d_hidden=32, n_layers=4, skip_in=(2,),
 
 def _setup(n=133):
     gen = torch.Generator().manual_seed(5)
-    params = fields.init_sdf_network(gen, CFG)
+    params = fields.init_sdf_network(gen, CFG, device="cpu")
     for layer in params:
         layer["v"] = layer["v"] + 0.05 * torch.randn(layer["v"].shape, generator=gen)
     ws = [fields.fold_weight_norm(l).detach() for l in params]

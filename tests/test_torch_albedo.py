@@ -70,7 +70,7 @@ def test_forward_matches_pallas(n_layers):
     jcfg, tcfg, params, pts, nrm, feat = _setup(n_layers=n_layers)
     oj = jalb.albedo_apply_fused(jcfg, params, pts, nrm, feat, interpret=True,
                                  dtype=jnp.float32)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     ot = albedo.albedo_apply_fused(tcfg, tp, torch.tensor(pts),
                                    torch.tensor(nrm), torch.tensor(feat),
                                    dtype=torch.float32)
@@ -92,7 +92,7 @@ def test_backward_params_normals_feat(n):
     lj, (gpj, gnj, gfj) = jax.value_and_grad(fj, argnums=(0, 1, 2))(
         params, nrm, feat)
 
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     tn = torch.tensor(nrm, requires_grad=True)
     tf = torch.tensor(feat, requires_grad=True)
     out = albedo.albedo_apply_fused(tcfg, tp, torch.tensor(pts), tn, tf,
@@ -111,7 +111,7 @@ def test_backward_params_normals_feat(n):
 def test_plain_matches_rendering_apply():
     """The op's forward equals the field's plain rendering_apply."""
     _, tcfg, params, pts, nrm, feat = _setup()
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     a = albedo.albedo_apply_fused(tcfg, tp, torch.tensor(pts),
                                   torch.tensor(nrm), torch.tensor(feat),
                                   dtype=torch.float32)

@@ -41,7 +41,7 @@ def _sdf_setup(**over):
     kw = {**SDF, **over}
     jcfg, tcfg = jfields.SDFConfig(**kw), tfields.SDFConfig(**kw)
     params = jfields.init_sdf_network(jax.random.PRNGKey(1), jcfg)
-    return jcfg, tcfg, params, bridge.params_from_numpy(jax.device_get(params))
+    return jcfg, tcfg, params, bridge.params_from_numpy(jax.device_get(params), device="cpu")
 
 
 @pytest.mark.parametrize("scale", [1.0, 2.0])
@@ -91,7 +91,7 @@ def test_rendering_apply(mode):
               d_in=9 if mode == "idr" else 6)
     jcfg, tcfg = jfields.RenderingConfig(**kw), tfields.RenderingConfig(**kw)
     jp = jfields.init_rendering_network(jax.random.PRNGKey(2), jcfg)
-    tp = bridge.params_from_numpy(jax.device_get(jp))
+    tp = bridge.params_from_numpy(jax.device_get(jp), device="cpu")
     rng = np.random.default_rng(3)
     p, n, v = (rng.normal(size=(100, 3)).astype(np.float32) for _ in range(3))
     f = rng.normal(size=(100, 32)).astype(np.float32)
@@ -114,7 +114,7 @@ def test_bundle_structure_matches_jax():
     assert tstatics.color.__dict__ == jstatics.color.__dict__
     shapes_j = jax.tree_util.tree_map(lambda a: a.shape, jax.eval_shape(
         lambda k: jfields.init_model_bundle(k, jstatics), jax.random.PRNGKey(0)))
-    tp = tfields.init_model_bundle(torch.Generator().manual_seed(0), tstatics)
+    tp = tfields.init_model_bundle(torch.Generator().manual_seed(0), tstatics, device="cpu")
     assert [tuple(t.shape) for t in bridge.tree_leaves(tp)] == [
         tuple(s) for s in jax.tree_util.tree_leaves(
             shapes_j, is_leaf=lambda s: isinstance(s, tuple))]

@@ -3,6 +3,7 @@ chip_smoke.py refuses to run (non-zero exit, no result line) without a
 CUDA device or without the package beside it, as the kernel-ablation tool
 (rnb_tpu_torch.tools.ablate_kernel) does without a CUDA device."""
 
+import inspect
 import os
 import pkgutil
 import shutil
@@ -10,9 +11,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 import rnb_tpu_torch
+from rnb_tpu_torch.data import dataset
+from rnb_tpu_torch.models import fields
+from rnb_tpu_torch.utils import bridge
 
 torch.set_num_threads(1)
 
@@ -40,6 +45,17 @@ def test_port_imports_no_jax():
             "print('clean')\n")
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0 and "clean" in r.stdout, r.stderr
+
+
+@pytest.mark.parametrize("fn", [
+    fields.init_sdf_network, fields.init_rendering_network, fields.init_nerf,
+    fields.init_variance, fields.init_model_bundle, dataset.Dataset,
+    dataset.make_torus_scene, dataset.make_sphere_scene,
+    bridge.params_from_numpy], ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(fn):
+    """The public constructors run on the card unless the caller asks for
+    the CPU (the CPU tests pass device="cpu")."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_chip_smoke_fails_without_cuda():

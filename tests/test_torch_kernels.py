@@ -7,7 +7,9 @@ without one (a CUDA kernel has no CPU mode).
 
 Full widths (8x256 SDF net, 310→256→256→3 albedo net, the 8x256 background
 NeRF with its 84-wide PE, 340-wide skip input and 283-wide views layer) at a
-point count that is not a multiple of the 16-point tile. Tolerances, relative to the norm of
+point count that is not a multiple of the 16-point tile of the CUDA-core
+kernels nor of the 64-point tile of the tensor-core ones. The SDF core runs
+both of its routes: bf16 on the tensor cores, f32 on the CUDA cores. Tolerances, relative to the norm of
 the plain result: 1e-4 at f32 operands (summation order only), 1e-2 at bf16
 operands (a different summation order can flip the bf16 rounding of an
 activation, one bf16 ulp = 2^-8 relative).
@@ -66,9 +68,20 @@ def _sdf_setup(dev, n=N):
     return cfg, ws, bs, pts, cots
 
 
+# the counters of each route: bf16 runs the tensor-core kernels (and one
+# dW product per layer), f32 the CUDA-core kernels
+ROUTE = {torch.bfloat16: {"sdf_core_fwd": 1, "sdf_core_bwd": 1,
+                          "sdf_dw_gemm": 9},
+         torch.float32: {"sdf_core_fwd_f32": 1, "sdf_core_bwd_f32": 1}}
+
+
+@pytest.mark.parametrize("n", [N, 37])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sdf_core_kernels(cuda, dtype):
-    cfg, ws, bs, pts, cots = _sdf_setup(cuda)
+def test_sdf_core_kernels(cuda, dtype, n):
+    """Both routes against the plain version, at a ragged count and at one
+    tile of 64 points that is mostly padding; the launch counters show
+    which route ran."""
+    cfg, ws, bs, pts, cots = _sdf_setup(cuda, n)
     n0 = dict(_build.launches)
     _close(sdf_core.sdf_core_fwd(cfg, pts, ws, bs, dtype),
            sdf_core.sdf_core_fwd_plain(cfg, pts, ws, bs, dtype), TOL[dtype])
@@ -76,21 +89,36 @@ def test_sdf_core_kernels(cuda, dtype):
     rw, rb = sdf_core.sdf_core_bwd_plain(cfg, pts, ws, bs, *cots, dtype)
     _close(gw + gb, rw + rb, TOL[dtype])
     torch.cuda.synchronize()
-    assert _build.launches["sdf_core_fwd"] == n0["sdf_core_fwd"] + 1
-    assert _build.launches["sdf_core_bwd"] == n0["sdf_core_bwd"] + 1
+    moved = {k: _build.launches[k] - n0[k] for k in _build.launches
+             if _build.launches[k] != n0[k]}
+    assert moved == ROUTE[dtype]
 
 
-def test_sdf_core_ragged_rows_add_nothing(cuda):
-    """dW over N points equals the sum of dW over two ragged parts."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sdf_core_ragged_rows_add_nothing(cuda, dtype):
+    """dW over N points equals the sum of dW over two ragged parts (517 and
+    520 points: neither a multiple of the 16- or the 64-point tile)."""
     cfg, ws, bs, pts, cots = _sdf_setup(cuda)
     k = 517
-    full = sdf_core.sdf_core_bwd(cfg, pts, ws, bs, *cots, torch.float32)
+    full = sdf_core.sdf_core_bwd(cfg, pts, ws, bs, *cots, dtype)
     a = sdf_core.sdf_core_bwd(cfg, pts[:k], ws, bs, *(c[:k] for c in cots),
-                              torch.float32)
+                              dtype)
     b = sdf_core.sdf_core_bwd(cfg, pts[k:], ws, bs, *(c[k:] for c in cots),
-                              torch.float32)
+                              dtype)
     _close(full[0] + full[1], [x + y for x, y in zip(a[0] + a[1], b[0] + b[1])],
            1e-5)
+
+
+def test_dw_gemm_matches_plain(cuda):
+    """The tensor-core dW product at the ragged widths of the net (39 -> 48
+    inputs, 257 -> 272 outputs) over a row count that is not a multiple of
+    its 64-row stage; deterministic from call to call."""
+    gen = torch.Generator().manual_seed(4)
+    a = torch.randn(1037, 48, generator=gen).to(torch.bfloat16).to(cuda)
+    b = torch.randn(1037, 272, generator=gen).to(torch.bfloat16).to(cuda)
+    got = sdf_core.dw_gemm(a, b, 39, 257)
+    _close([got], [sdf_core.dw_gemm_plain(a, b, 39, 257)], 1e-5)
+    assert torch.equal(got, sdf_core.dw_gemm(a, b, 39, 257))
 
 
 def _albedo_setup(dev, n=N):
@@ -126,7 +154,7 @@ def _nerf_setup(dev, n=N):
     plain version)."""
     cfg = fields.NeRFConfig()
     gen = torch.Generator().manual_seed(2)
-    ws, bs = nerf.flatten_params(fields.init_nerf(gen, cfg))
+    ws, bs = nerf.flatten_params(fields.init_nerf(gen, cfg, device="cpu"))
     m = 3 * n
     x = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1)
     r = torch.rand(m, 1, generator=gen) * 0.9 + 0.1
@@ -182,6 +210,15 @@ def test_sdf_ablation_variants(cuda, mode):
         torch.cuda.synchronize()
         assert _build.launches["sdf_fwd_ablate"] == n0 + 1
         _close(got, want, TOL[dtype])
+
+
+def test_ablation_full_is_the_production_kernel(cuda):
+    """At bf16 the ablation tool's full mode is the tensor-core forward of
+    the main path, bit for bit."""
+    cfg, ws, bs, pts, _ = _sdf_setup(cuda)
+    got = sdf_ablate.sdf_fwd_ablate("full", cfg, pts, ws, bs, torch.bfloat16)
+    want = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_wrappers_reject_bad_input(cuda):

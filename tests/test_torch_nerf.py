@@ -82,7 +82,7 @@ def _pallas(cfg, params, pts, views):
 
 def _wb(params):
     """(ws, bs) tensors in the kernels' order, outside autograd."""
-    ws, bs = tnerf.flatten_params(bridge.params_from_numpy(params))
+    ws, bs = tnerf.flatten_params(bridge.params_from_numpy(params, device="cpu"))
     return [w.detach() for w in ws], [b.detach() for b in bs]
 
 
@@ -96,7 +96,7 @@ CASES = {"skip": dict(), "no_skip": dict(D=3, skips=())}
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_matches_jax(case):
     jcfg, tcfg, params, pts, views, _ = _setup(**CASES[case])
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     ws, bs = _wb(params)
     x, v = torch.tensor(pts), torch.tensor(views)
     ports = {
@@ -145,7 +145,7 @@ def test_backward_through_autograd_matches_jax(case):
     """d loss / d params through the render-style output activations, the
     port's fused op against the Pallas op and against XLA autodiff."""
     jcfg, tcfg, params, pts, views, _ = _setup(**CASES[case])
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     val = _loss_t(*tnerf.nerf_apply_fused(tcfg, tp, torch.tensor(pts),
                                           torch.tensor(views), torch.float32))
     val.backward()
@@ -193,7 +193,7 @@ def test_supported_and_skip_refusal():
     assert not tnerf.supported(tfields.NeRFConfig(skips=(7,)))
     cfg = tfields.NeRFConfig(D=3, W=16, skips=(2,))
     params = tfields.init_nerf(torch.Generator().manual_seed(0),
-                               tfields.NeRFConfig(D=3, W=16, skips=(1,)))
+                               tfields.NeRFConfig(D=3, W=16, skips=(1,)), device="cpu")
     with pytest.raises(ValueError, match="D-1"):
         tfields.nerf_apply(cfg, params, torch.zeros(4, 4), torch.zeros(4, 3))
 

@@ -53,7 +53,7 @@ def test_lights():
 @pytest.fixture(scope="module")
 def scenes():
     kw = dict(n_views=3, H=40, W=48, radius=0.4)
-    return jds.make_sphere_scene(**kw), tds.make_sphere_scene(**kw)
+    return jds.make_sphere_scene(**kw), tds.make_sphere_scene(**kw, device="cpu")
 
 
 def test_cameras_and_torus_fixture():
@@ -61,7 +61,7 @@ def test_cameras_and_torus_fixture():
     for a, b in zip(tcam.decompose_projection(P), jcam.decompose_projection(P)):
         np.testing.assert_allclose(a, b, atol=1e-6)
     jt = jds.make_torus_scene(n_views=2, H=24, W=24, center=(0.1, 0, 0))
-    tt = tds.make_torus_scene(n_views=2, H=24, W=24, center=(0.1, 0, 0))
+    tt = tds.make_torus_scene(n_views=2, H=24, W=24, center=(0.1, 0, 0), device="cpu")
     for a, b in zip(tt.arrays, jt.arrays):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
 
@@ -135,7 +135,7 @@ def test_render_rnb(scenes, warmup):
     kw_r = dict(n_samples=16, n_importance=16, up_sample_steps=4,
                 upsample_prec="f32")
     params = jfields.init_model_bundle(jax.random.PRNGKey(0), jstatics)
-    tp = bridge.params_from_numpy(jax.device_get(params))
+    tp = bridge.params_from_numpy(jax.device_get(params), device="cpu")
 
     jb = jds.sample_rays_on_all_lights(jscene.arrays, 0, jax.random.PRNGKey(1), 96)
     tb = tds.sample_rays_on_all_lights(

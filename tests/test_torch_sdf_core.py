@@ -34,7 +34,7 @@ def _setup(n=200, seed=3, **over):
 
 
 def _port(tcfg, params, pts):
-    tp = bridge.params_from_numpy(jax.device_get(params))
+    tp = bridge.params_from_numpy(jax.device_get(params), device="cpu")
     return tp, sdf_core.sdf_value_feat_grad_fused(
         tcfg, tp, torch.tensor(pts), dtype=torch.float32)
 
@@ -105,7 +105,7 @@ def test_plain_matches_port_autograd():
     """The plain kernel algorithm at f32 equals plain autograd of the field
     (sdf_apply + create_graph ∇SDF) — the port's own two paths agree."""
     _, tcfg, params, pts = _setup()
-    tp = bridge.params_from_numpy(jax.device_get(params))
+    tp = bridge.params_from_numpy(jax.device_get(params), device="cpu")
     x = torch.tensor(pts)
     s1, f1, g1 = sdf_core.sdf_value_feat_grad_fused(tcfg, tp, x, torch.float32)
     s2, f2, g2 = tfields.sdf_value_feat_grad(tcfg, tp, x)

@@ -57,7 +57,7 @@ def jax_draws(base_key, step, H, W):
 @pytest.fixture(scope="module")
 def scenes():
     kw = dict(n_views=3, H=32, W=32, radius=0.4)
-    return jds.make_sphere_scene(**kw), tds.make_sphere_scene(**kw)
+    return jds.make_sphere_scene(**kw), tds.make_sphere_scene(**kw, device="cpu")
 
 
 @pytest.mark.parametrize("warmup", [True, False])
@@ -74,7 +74,7 @@ def test_two_steps_match_jax(scenes, warmup):
     jfn = jstep.make_train_step(jstatics, JRendererConfig(**RENDER), jtcfg,
                                 warmup=warmup, no_albedo=False, donate=False)
 
-    tstate = tstep.init_train_state(bridge.params_from_numpy(jax.device_get(params)))
+    tstate = tstep.init_train_state(bridge.params_from_numpy(jax.device_get(params), device="cpu"))
     tfn = tstep.make_train_step(tstatics, TRendererConfig(**RENDER, kernel_prec="f32"),
                                 ttcfg, warmup=warmup, no_albedo=False)
 

@@ -61,7 +61,7 @@ def jax_draws(base_key, step, H, W):
 @pytest.fixture(scope="module")
 def scenes():
     kw = dict(n_views=3, H=32, W=32, radius=0.4)
-    return jds.make_sphere_scene(**kw), tds.make_sphere_scene(**kw)
+    return jds.make_sphere_scene(**kw), tds.make_sphere_scene(**kw, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +102,7 @@ def test_render_core_outside(scenes, model):
                                   params, jb.rays_o, jb.rays_d, z, 2.0 / 12)
     to = trnd.render_core_outside(
         tstatics, trnd.RendererConfig(**RENDER, kernel_prec="f32"),
-        bridge.params_from_numpy(params), tb.rays_o, tb.rays_d,
+        bridge.params_from_numpy(params, device="cpu"), tb.rays_o, tb.rays_d,
         torch.tensor(z), 2.0 / 12)
     for k in ("color", "sampled_color", "alpha", "weights"):
         np.testing.assert_allclose(to[k].detach().numpy(), np.asarray(jo[k]),
@@ -134,7 +134,7 @@ def test_render_rnb_with_background(scenes, model, warmup):
         jstatics, jrnd.RendererConfig(**kw_r), *a, warmup=warmup))
     jo = jrender(params, jb.rays_o, jb.rays_d, jb.near, jb.far, jl, key)
     to = trnd.render_rnb(tstatics, trnd.RendererConfig(**kw_r, kernel_prec="f32"),
-                         bridge.params_from_numpy(params), tb.rays_o, tb.rays_d,
+                         bridge.params_from_numpy(params, device="cpu"), tb.rays_o, tb.rays_d,
                          tb.near, tb.far, tl, t_rand, t_out, warmup=warmup)
     assert to["weights"].shape == (n, 32 + 4)
     for k in ("color_fine", "weights", "weight_sum", "weight_max", "cdf_fine",
@@ -150,7 +150,7 @@ def _step_pair(scenes, model, warmup, n_steps, check):
     jstate = jstep.init_train_state(params, jtcfg)
     jfn = jstep.make_train_step(jstatics, jrnd.RendererConfig(**RENDER), jtcfg,
                                 warmup=warmup, no_albedo=False, donate=False)
-    tstate = tstep.init_train_state(bridge.params_from_numpy(params))
+    tstate = tstep.init_train_state(bridge.params_from_numpy(params, device="cpu"))
     tfn = tstep.make_train_step(tstatics, trnd.RendererConfig(**RENDER, kernel_prec="f32"),
                                 ttcfg, warmup=warmup, no_albedo=False)
     base_key = jax.random.PRNGKey(42)
