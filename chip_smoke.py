@@ -5,10 +5,11 @@
 
 Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
   1. checks each kernel against its plain PyTorch version on the card, at
-     its main path's point count and at a ragged one: the SDF core (both
-     routes: bf16 on the tensor cores, f32 on the CUDA cores) and albedo
-     at 512 rays x 128 samples = 65,536 and 65,573, the background NeRF at
-     512 x (128 + 4) = 67,584 and 67,617, the four SDF-forward ablation
+     its main path's point count and at a ragged one: the SDF core and
+     albedo at 512 rays x 128 samples = 65,536 and 65,573, the background
+     NeRF at 512 x (128 + 4) = 67,584 and 67,617 (the SDF core and the
+     albedo and NeRF backwards on both routes: bf16 on the tensor cores,
+     f32 on the CUDA cores), the four SDF-forward ablation
      variants of both routes at 65,536, the bf16 backward's dW product for
      one 256x256 layer over 2 x 65,536 rows; f32 operands within 1e-4 and
      bf16 operands within 1e-2 of the plain result's norm; times kernel and
@@ -19,12 +20,13 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      confs/wmask_rnb.conf and for confs/womask_rnb.conf with n_outside=4
      (the 8x256 background NeRF on 4 outside samples, mask_weight 0): 10
      warm-up and 10 main-phase steps each, every loss finite, each kernel
-     of the path launched and the SDF core on its bf16 route only (counts
-     set to 0 before each path, read after);
+     of the path launched, every op with two routes on its bf16
+     (tensor-core) kernels only (counts set to 0 before each path, read
+     after);
   3. runs one main step of 64 rays on the CPU (plain versions) and on the
-     card (kernels, f32 operands: the SDF core's f32 route) from the same
-     params and draws, for each of the two confs, and compares loss,
-     gradients and updated params;
+     card (kernels, f32 operands: the f32 routes) from the same params and
+     draws, for each of the two confs, and compares loss, gradients and
+     updated params;
   4. trains 200 warm-up steps of each conf on a sphere of radius 0.35: the
      mean loss of the last 20 steps must be below that of the first 20;
   5. runs the kernel-ablation entry point
@@ -33,9 +35,10 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
-bf16 route, its dW product and albedo, the wmask parity step for the SDF
-core's f32 route, the womask step for the NeRF, the ablation run for the
-ablation variants), `ms` / `plain_ms` are at the main-path shape with the
+bf16 route, its dW product and albedo, the wmask parity step for the f32
+routes of the SDF core and albedo, the womask step for the NeRF and the
+womask parity step for its f32 route, the ablation run for the ablation
+variants), `ms` / `plain_ms` are at the main-path shape with the
 route's operands (bf16 unless named f32; for the ablation kernel: one
 launch of each of its four variants), `bound_ms` is the larger of the
 least bytes (inputs read once, outputs written once) over 3.35 TB/s and the
@@ -64,9 +67,13 @@ NERF_N, NERF_RAGGED_N = 512 * (128 + 4), 67617
 WMASK = ("confs/wmask_rnb.conf", ())
 WOMASK = ("confs/womask_rnb.conf", ("model.neus_renderer.n_outside=4",))
 WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "sdf_dw_gemm", "albedo_fwd",
-                 "albedo_bwd")
-WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd")
-F32_ROUTE = ("sdf_core_fwd_f32", "sdf_core_bwd_f32")
+                 "albedo_bwd", "albedo_dw_gemm")
+WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd", "nerf_dw_gemm")
+# the f32 routes' kernels (CUDA cores): launched by the f32 parity step of
+# each conf, never by the bf16 training step
+WMASK_F32 = ("sdf_core_fwd_f32", "sdf_core_bwd_f32", "albedo_bwd_f32")
+WOMASK_F32 = WMASK_F32 + ("nerf_bwd_f32",)
+F32_ROUTE = WOMASK_F32
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12   # H100 SXM data sheet
 
 KERNELS = {
@@ -84,10 +91,14 @@ KERNELS = {
                    "rnb_tpu/ops/pallas_albedo.py:85"),
     "albedo_bwd": ("rnb_tpu_torch/csrc/albedo.cu",
                    "rnb_tpu/ops/pallas_albedo.py:101"),
+    "albedo_bwd_f32": ("rnb_tpu_torch/csrc/albedo.cu",
+                       "rnb_tpu/ops/pallas_albedo.py:101"),
     "nerf_fwd": ("rnb_tpu_torch/csrc/nerf.cu",
                  "rnb_tpu/ops/pallas_nerf.py:105"),
     "nerf_bwd": ("rnb_tpu_torch/csrc/nerf.cu",
                  "rnb_tpu/ops/pallas_nerf.py:122"),
+    "nerf_bwd_f32": ("rnb_tpu_torch/csrc/nerf.cu",
+                     "rnb_tpu/ops/pallas_nerf.py:122"),
     "sdf_fwd_ablate": ("rnb_tpu_torch/csrc/sdf_core.cu",
                        "tools/ablate_kernel.py:62"),
 }
@@ -147,6 +158,33 @@ def sdf_macs(cfg, ws, backward):
     rev = sum((i - E if l in cfg.skip_in else i) * o
               for l, (i, o) in enumerate(io) if l > 0)
     return 2 * sum(i * o for i, o in io[:-1]) + 2 * rev + 2 * chain_macs(ws)
+
+
+def albedo_bwd_macs(cfg, ws):
+    """Least multiply-adds per point of the albedo backward: the forward
+    (the head too: its sigmoid feeds bar_z), the reverse through every
+    layer, layer 0's only to its PE(n) and feat rows (pts gets no
+    cotangent), and dW over every layer."""
+    E = 3 * (1 + 2 * cfg.multires_view)
+    rev = (ws[0].shape[0] - E) * ws[0].shape[1] + chain_macs(ws[1:])
+    return 2 * chain_macs(ws) + rev
+
+
+def nerf_bwd_macs(cfg, ws):
+    """Least multiply-adds per point of the NeRF backward: the forward
+    without the alpha and rgb heads (their outputs are not needed), the
+    reverse through the rgb, views (to its feature rows), alpha, feature
+    and trunk layers but layer 0 (a skip layer only to its h rows), and dW
+    over all layers."""
+    D, E = cfg.D, ws[0].shape[0]
+    io = [(w.shape[0], w.shape[1]) for w in ws]
+    trunk = sum(i * o for i, o in io[:D])
+    fwd = trunk + chain_macs([ws[D + 1], ws[D + 2]])
+    rev = (chain_macs([ws[D], ws[D + 1], ws[D + 3]])
+           + io[D + 1][1] * io[D + 2][1]
+           + sum((i - E if l - 1 in cfg.skips else i) * o
+                 for l, (i, o) in enumerate(io[:D]) if l > 0))
+    return fwd + rev + chain_macs(ws)
 
 
 def check_kernel(results, name, n, dtype, kern, plain, timed, ins=(),
@@ -228,10 +266,10 @@ def kernel_checks(dev):
                     lambda: [albedo.albedo_fwd(acfg, pts, nrm, feat, aw, ab, dtype)],
                     lambda: [albedo.albedo_fwd_plain(acfg, pts, nrm, feat, aw, ab, dtype)],
                     [pts, nrm, feat, *alb_w], n * chain_macs(aw)),
-                "albedo_bwd": (
+                "albedo_bwd" + route: (
                     lambda: _flat_alb(albedo.albedo_bwd(acfg, pts, nrm, feat, aw, ab, co, dtype)),
                     lambda: _flat_alb(albedo.albedo_bwd_plain(acfg, pts, nrm, feat, aw, ab, co, dtype)),
-                    [pts, nrm, feat, *alb_w, co], 3 * n * chain_macs(aw)),
+                    [pts, nrm, feat, *alb_w, co], n * albedo_bwd_macs(acfg, aw)),
             }
             if n == MAIN_N:   # the ablation variants at the main path's count
                 for mode in sdf_ablate.MODES:
@@ -261,15 +299,17 @@ def kernel_checks(dev):
 
     for n in (NERF_N, NERF_RAGGED_N):
         # pts4 = [x/r, 1/r] with |x| > 1, as render_core_outside feeds it,
-        # kept where every ReLU pre-activation lies at least 2e-5 from 0:
-        # nearer, f32 summation noise flips a mask between the two versions
-        # (nerf.relu_margin)
-        m = 2 * n
+        # kept where every ReLU pre-activation lies at least 2e-5 from 0 at
+        # both op dtypes: nearer, summation noise flips a mask between the
+        # two versions (nerf.relu_margin); about half the points pass both
+        m = 3 * n
         x = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1)
         inv_r = torch.rand(m, 1, generator=gen) * 0.9 + 0.1
         pts4 = torch.cat([x, inv_r], dim=-1).to(dev)
         views = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1).to(dev)
-        keep = torch.nonzero(nerf.relu_margin(ncfg, pts4, views, nw, nb) >= 2e-5)[:, 0]
+        margin = torch.minimum(
+            *(nerf.relu_margin(ncfg, pts4, views, nw, nb, dt) for dt in dtypes))
+        keep = torch.nonzero(margin >= 2e-5)[:, 0]
         assert keep.numel() >= n, f"only {keep.numel()} of {m} points off the ReLU boundary"
         log(f"[kernel] nerf: {keep.numel()} of {m} drawn points lie off the ReLU boundary")
         pts4, views = pts4[keep[:n]], views[keep[:n]]
@@ -277,14 +317,16 @@ def kernel_checks(dev):
         cr = torch.randn(n, 3, generator=gen).to(dev)
         for dtype in dtypes:
             timed = n == NERF_N and dtype == torch.bfloat16
+            route = "" if dtype == torch.bfloat16 else "_f32"
             check_kernel(results, "nerf_fwd", n, dtype,
                          lambda: list(nerf.nerf_fwd(ncfg, pts4, views, nw, nb, dtype)),
                          lambda: list(nerf.nerf_fwd_plain(ncfg, pts4, views, nw, nb, dtype)),
                          timed, [pts4, views, *nw, *nb], n * chain_macs(nw))
-            check_kernel(results, "nerf_bwd", n, dtype,
+            check_kernel(results, "nerf_bwd" + route, n, dtype,
                          lambda: sum(nerf.nerf_bwd(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
                          lambda: sum(nerf.nerf_bwd_plain(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
-                         timed, [pts4, views, *nw, *nb, ca, cr], 3 * n * chain_macs(nw))
+                         n == NERF_N, [pts4, views, *nw, *nb, ca, cr],
+                         n * nerf_bwd_macs(ncfg, nw))
         del pts4, views, ca, cr
         torch.cuda.empty_cache()
     return results
@@ -338,7 +380,7 @@ def slice_run(dev, conf_spec, kernels):
     log(f"[slice] launches in the 20 steps: {counts}")
     for k in kernels:
         assert counts[k] > 0, f"kernel {k} was not launched by the main path"
-    for k in F32_ROUTE:   # the step runs bf16: the SDF core's tensor-core route
+    for k in F32_ROUTE:   # the step runs bf16: the tensor-core routes only
         assert counts[k] == 0, f"the main path launched the f32 route ({k})"
     return phases, counts
 
@@ -347,7 +389,7 @@ def slice_run(dev, conf_spec, kernels):
 # phase 3: one step on the CPU (plain versions) vs on the card (kernels)
 # ---------------------------------------------------------------------------
 
-def slice_parity(dev, conf_spec):
+def slice_parity(dev, conf_spec, f32_kernels):
     from rnb_tpu_torch.data import dataset as ds
     from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.ops import _build
@@ -381,9 +423,9 @@ def slice_parity(dev, conf_spec):
         leaves = bridge.tree_leaves(state.params)
         out[str(where)] = (m["loss"].item(), [x.grad.detach().cpu() for x in leaves],
                            [x.detach().cpu() for x in leaves])
-    counts = {k: _build.launches[k] for k in F32_ROUTE}
+    counts = {k: _build.launches[k] for k in f32_kernels}
     log(f"[parity] f32-route launches in the card step: {counts}")
-    assert all(counts.values()), "the f32 step did not run the f32 route"
+    assert all(counts.values()), "the f32 step did not run the f32 routes"
     (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(dev)]
     lr = tcfg.learning_rate
     _, grad_rel = rel_err(gg, gc)
@@ -465,17 +507,19 @@ def main():
     _build.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_build.build_info['path']})")
-    for name, rep in _build.ptxas_summary("sdf_", "dw_gemm").items():
+    for name, rep in _build.ptxas_summary("sdf_", "dw_gemm", "albedo_bwd",
+                                          "nerf_bwd").items():
         log(f"[ptxas] {name}: {rep}")
 
     kern = kernel_checks(dev)
     summary = {"card": card}
     counts = {}
-    for label, spec, kernels in (("wmask", WMASK, WMASK_KERNELS),
-                                 ("womask", WOMASK, WOMASK_KERNELS)):
+    for label, spec, kernels, f32_kernels in (
+            ("wmask", WMASK, WMASK_KERNELS, WMASK_F32),
+            ("womask", WOMASK, WOMASK_KERNELS, WOMASK_F32)):
         phases, run_counts = slice_run(dev, spec, kernels)
         counts.update({k: run_counts[k] for k in kernels if k not in counts})
-        parity, f32_counts = slice_parity(dev, spec)
+        parity, f32_counts = slice_parity(dev, spec, f32_kernels)
         counts.update({k: v for k, v in f32_counts.items() if k not in counts})
         summary[label] = {"slice": phases, "parity": parity,
                           "train": training_moves(dev, spec)}

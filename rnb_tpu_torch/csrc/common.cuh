@@ -1,6 +1,7 @@
 // Shared pieces of the Hopper kernels (sdf_core.cu, albedo.cu, nerf.cu).
 //
-// Conventions of every kernel in this directory:
+// Conventions of the CUDA-core kernels in this directory (the tensor-core
+// kernels of the bf16 routes build on wg_pipe.cuh instead):
 //   * fp32 tensors, row-major, contiguous; weights W_l are [in, out] and
 //     arrive already rounded to the op dtype by the Python wrapper, which
 //     also passes W_l^T ([out, in]) for the reverse products. Both are the

@@ -23,13 +23,17 @@
 // ~0.60 M multiply-adds forward (8x256 trunk with an 84-wide PE and a
 // 340-wide skip input, 256+1 heads, 283→128→3 views/rgb); the backward
 // recomputes the forward, runs the reverse products (~0.55 M) and the dW
-// reduction (~0.60 M). This first version runs them on the CUDA cores in
-// fp32 (bf16-rounded operands on the main path), one thread per output
-// column as the other sweep kernels do; the 1- and 3-wide heads leave most
-// threads of their pass idle. The backward records the layer inputs (A
-// rows), the pre-activation cotangents (B rows) and the ReLU pre-activations
-// in global scratch written and read by the same block; the split-K kernels
-// of common.cuh reduce dW and db across points.
+// reduction (~0.60 M). The forward and the f32 route of the backward run
+// on the CUDA cores in fp32, one thread per output column as the other
+// CUDA-core sweep kernels do; the 1- and 3-wide heads leave most threads of
+// their pass idle. That backward records the layer inputs (A rows), the
+// pre-activation cotangents (B rows) and the ReLU pre-activations in global
+// scratch written and read by the same block; the split-K kernels of
+// common.cuh reduce dW and db across points.
+//
+// Two routes for the backward, chosen by the op dtype (ops/nerf.py), never
+// by failure: bf16 (the training step's) nerf_bwd_wg_kernel on the tensor
+// cores, designed below; f32 (the f32 comparisons) nerf_bwd_kernel.
 #include "common.cuh"
 
 // [x, sin(f0 x), cos(f0 x), ...] of channel d of a C-channel input, by the
@@ -379,11 +383,12 @@ extern "C" int rnb_nerf_fwd(const float* pts, const float* views, long long n,
   return (int)cudaGetLastError();
 }
 
+// The f32 route's backward (f32 operands: the sweep runs with bf = 0).
 extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
                             int C, const float* w, const float* wt,
                             const float* b, const int* in_dims,
                             const int* out_dims, int n_layers, int skips,
-                            int multires, int multires_view, int bf,
+                            int multires, int multires_view,
                             const float* calpha, const float* crgb, float* rec,
                             int rec_ld, float* abuf, float* bbuf,
                             float* partial, int splits, float* dw, float* db,
@@ -400,14 +405,313 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
   const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
   nerf_bwd_kernel<<<grid, RNB_NT, smem, st>>>(
       pts, views, n, C, w, wt, b, net, (unsigned)skips, multires,
-      multires_view, bf, calpha, crgb, rec, rec_ld, abuf, bbuf);
+      multires_view, 0, calpha, crgb, rec, rec_ld, abuf, bbuf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < n_layers; ++l) {
     err = rnb_reduce_layer(abuf + net.a_off[l], bbuf + net.bb_off[l], n, n,
-                           in_dims[l], out_dims[l], bf, splits, partial,
+                           in_dims[l], out_dims[l], 0, splits, partial,
                            dw + net.w_off[l], db + net.b_off[l], st);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// ===========================================================================
+// bf16 route: the backward on the tensor cores (wgmma, sm_90a)
+// ===========================================================================
+//
+// nerf_bwd_wg_kernel replaces the same TPU kernel (pallas_nerf.py
+// _bwd_kernel :122, the heads at :159-183, the trunk at :185-196) at bf16
+// operands; nerf_bwd_kernel above stays as the f32 route. What bounds it on
+// the H100: arithmetic, at least 1.77 M multiply-adds a point at the womask
+// conf (recompute without the alpha and rgb heads 603,520; reverse without
+// layer 0 and the PE rows 557,696; dW 604,160), 0.241 ms at the bf16 peak
+// for 67,584 points; the CUDA-core route reaches ~1% of it, leaves
+// most threads idle in the 1- and 3-wide heads and moves ~2 GB of f32
+// scratch (the pre-activation record and the operand rows).
+//
+// What the design does about it: a block of four warpgroups owns a tile of
+// 64 points, every product runs on wgmma from the bf16 A tile in shared
+// memory and the weight image streamed through the cp.async ring of
+// wg_pipe.cuh. The wrapper lays the image out in the order the products
+// want (ops/nerf.py wg_weights):
+//   * a skip layer's input [e, h] is held as [h, e] (its weight rows
+//     permuted alike), so its reverse product is the N = 256 block of the h
+//     rows and the PE slice is never computed;
+//   * the alpha and feature heads read the same h: one [W_f | W_a] tile of
+//     256 x 257, whose forward needs only the N = 256 feature block and
+//     whose reverse [bar_feat | c_alpha] [W_f | W_a]ᵀ is one K = 272
+//     product; its dW is one product too, split by the wrapper;
+//   * the views layer's input [feat, v] keeps the feature rows first, so
+//     its reverse is the N = 256 block of those rows.
+// Recompute: trunk N = 256 (4 x 64), head N = 256, views N = 128 (4 x 32);
+// the nine ReLU masks (eight trunk layers and the views layer) are kept as
+// one bit a fragment register in shared memory, set from the f32
+// pre-activation (z > 0), and read back by the reverse epilogue that owns
+// the same fragment. The A rows x_l and B rows rnd(bar_z_l) go out as bf16
+// rows (5.3 + 4.9 KB a point, written and read once); db comes from
+// per-tile column sums of the unrounded bar_z, summed in a fixed order;
+// dW is one rnb_dw_gemm product per image layer (11). No f32 record leaves
+// the block.
+
+#include "wg_pipe.cuh"
+
+#define NRF_NT 512    // four warpgroups of 64 columns
+#define NRF_KW 352    // widest A tile: the skip input [h, e] (256 + 84 -> 352)
+#define NRF_STG 4096  // ring stage: 2 x 32 cores
+#define NRF_EW 96     // PE(pts) channels held per point (E <= 96)
+#define NRF_VW 32     // PE(views) channels held per point (V <= 32)
+
+// Image layers (net): 0..D-1 the trunk (skip[l]: input [h, e]), D the fused
+// head [W_f | W_a] (feature columns 0..of-1), D+1 views, D+2 rgb; b and db
+// in the same order.
+static __global__ void __launch_bounds__(NRF_NT, 1)
+nerf_bwd_wg_kernel(const float* __restrict__ pts,
+                   const float* __restrict__ views, long long n, int C,
+                   const rnb_bf16* __restrict__ w, const float* __restrict__ b,
+                   RnbWgNet net, int of, int multires, int multires_view,
+                   const float* __restrict__ calpha,
+                   const float* __restrict__ crgb, rnb_bf16* __restrict__ abuf,
+                   rnb_bf16* __restrict__ bbuf, float* __restrict__ dbp,
+                   int db_len) {
+  constexpr int RS = WG_RS;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][352]
+  rnb_bf16* ring = X + WG_M * NRF_KW;
+  rnb_bf16* e16 = ring + RS * NRF_STG;  // [64][96] PE(pts)
+  rnb_bf16* v16 = e16 + WG_M * NRF_EW;  // [64][32] PE(views)
+  float* red = reinterpret_cast<float*>(v16 + WG_M * NRF_VW);    // [4][256]
+  uint32_t* mbits = reinterpret_cast<uint32_t*>(red + 4 * 256);  // [D+1][512]
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long tile = blockIdx.x, n0 = tile * WG_M;
+  const int D = net.n_layers - 3, lh = D, lv = D + 1, lr = D + 2;
+  const int E = net.E, V = 3 * (1 + 2 * multires_view);
+  float* dbt = dbp + tile * db_len;
+
+  // --- PE(pts) and PE(views) in bf16 (rows past n from 0), pads zero ---
+  for (int idx = tid; idx < WG_M * (NRF_EW + NRF_VW); idx += NRF_NT)
+    e16[idx] = wg_bf(0.0f);  // e16 and v16 are adjacent
+  __syncthreads();
+  for (int idx = tid; idx < WG_M * (C + 3); idx += NRF_NT) {
+    const int p = idx / (C + 3), d = idx % (C + 3);
+    const long long row = n0 + p;
+    const bool isv = d >= C;
+    const int ch = isv ? 3 : C, dd = isv ? d - C : d;
+    const int mr = isv ? multires_view : multires;
+    rnb_bf16* e = isv ? v16 + p * NRF_VW : e16 + p * NRF_EW;
+    const float x =
+        row < n ? (isv ? views[row * 3 + dd] : pts[row * C + dd]) : 0.0f;
+    e[dd] = wg_bf(x);
+    float s = sinf(x), c = cosf(x);
+    for (int k = 0; k < mr; ++k) {
+      e[ch * (1 + 2 * k) + dd] = wg_bf(s);
+      e[ch * (2 + 2 * k) + dd] = wg_bf(c);
+      if (k + 1 < mr) {
+        const float s2 = 2.0f * s * c;
+        c = 1.0f - 2.0f * s * s;
+        s = s2;
+      }
+    }
+  }
+  __syncthreads();
+  const int kp0 = rnb_pad16(E);
+  for (int idx = tid; idx < WG_M * kp0; idx += NRF_NT) {
+    const int p = idx / kp0, c = idx - p * kp0;
+    X[wg_tidx(p, c)] = e16[p * NRF_EW + c];
+  }
+  __syncthreads();
+  wg_tile_out(X, kp0, n0, n, abuf + net.a_off[0]);
+
+  WgProduct prod;
+  float acc[32];
+  prod.set(w, net, 0, 0, 256);
+  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
+
+  // --- recompute: the trunk (ReLU, masks as bits), then the feature head;
+  // each epilogue writes the next A tile [h or rnd(feat), appended slice] ---
+  for (int l = 0; l <= D; ++l) {
+    pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                          rnb_desc(st + wg * 8 * 64, 32 * 128, 128), t > 0);
+    });
+    if (l < D) prod.set(w, net, l + 1, 0, 256);
+    else prod.set(w, net, lv, 0, 128);
+    pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
+    // trunk and feature head are 256 wide (the wrapper holds them to it):
+    // the epilogue fills columns 0..255, then the slice appended after
+    // them: e before a skip layer (held as [h, e]), v before the views
+    // layer, else none
+    const bool head = l == D;
+    const uint32_t bits =
+        wg_relu_put<8>(acc, b + net.b_off[l], 256, X, wg * 64, !head);
+    if (!head) mbits[l * NRF_NT + tid] = bits;
+    const rnb_bf16* ex = head ? v16 : (net.skip[l + 1] ? e16 : nullptr);
+    const int exld = head ? NRF_VW : NRF_EW, exw = head ? V : E;
+    const int kn = rnb_pad16(net.in_dim[l + 1]);
+    for (int idx = tid; idx < WG_M * (kn - 256); idx += NRF_NT) {
+      const int p = idx / (kn - 256), cc = idx % (kn - 256);
+      X[wg_tidx(p, 256 + cc)] =
+          ex != nullptr && cc < exw ? ex[p * exld + cc] : wg_bf(0.0f);
+    }
+    __syncthreads();
+    wg_tile_out(X, kn, n0, n, abuf + net.a_off[l + 1]);
+  }
+
+  // --- views layer (N = 128 as 4 x 32): its mask, the rgb head's A rows ---
+  float acc16[16];
+  pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n32<0, 1>(acc16, rnb_desc(X + t * 1024, 1024, 128),
+                        rnb_desc(st + wg * 4 * 64, 16 * 128, 128), t > 0);
+  });
+  prod.set(w, net, lr, 1, 128);
+  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
+  mbits[D * NRF_NT + tid] = wg_relu_put<4>(acc16, b + net.b_off[lv],
+                                           net.out_dim[lv], X, wg * 32);
+  __syncthreads();
+  wg_tile_out(X, rnb_pad16(net.out_dim[lv]), n0, n, abuf + net.a_off[lr]);
+  __syncthreads();
+
+  // --- rgb head: bar_z = c_rgb; then bar_z_v = (c_rgb W_rgbᵀ) ⊙ mask ---
+  {
+    const int orr = net.out_dim[lr];
+    for (int idx = tid; idx < WG_M * 16; idx += NRF_NT) {
+      const int p = idx >> 4, j = idx & 15;
+      const long long row = n0 + p;
+      X[wg_tidx(p, j)] = wg_bf(row < n && j < orr ? crgb[row * orr + j] : 0.0f);
+    }
+    if (tid < orr) {
+      float s = 0.0f;
+      for (int p = 0; p < WG_M && n0 + p < n; ++p) s += crgb[(n0 + p) * orr + tid];
+      dbt[net.b_off[lr] + tid] = s;
+    }
+    __syncthreads();
+    wg_tile_out(X, 16, n0, n, bbuf + net.bb_off[lr]);
+  }
+  pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n32<0, 0>(acc16, rnb_desc(X + t * 1024, 1024, 128),
+                        rnb_desc(st + wg * 4 * 128, 128, 256), t > 0);
+  });
+  prod.set(w, net, lv, 1, 256);
+  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
+  {
+    const int out = net.out_dim[lv];
+    wg_mask_put<4>(acc16, mbits[D * NRF_NT + tid], X, red, wg * 32, n0, n);
+    __syncthreads();
+    if (tid < out) dbt[net.b_off[lv] + tid] = wg_colsum_get(red, tid);
+    wg_tile_out(X, rnb_pad16(out), n0, n, bbuf + net.bb_off[lv]);
+  }
+
+  // --- bar_feat = (bar_z_v W_vᵀ)[:, :of]; the head's B rows
+  // [rnd(bar_feat) | rnd(c_alpha)] become the next A tile (K = 272) ---
+  pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n64<0, 0>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                        rnb_desc(st + wg * 8 * 128, 128, 256), t > 0);
+  });
+  prod.set(w, net, lh, 1, 256);
+  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
+  {
+    // the N = 256 block is the feature rows of W_v (of == 256): no mask
+    wg_mask_put<8>(acc, 0xffffffffu, X, red, wg * 64, n0, n);
+    __syncthreads();
+    const int oa = net.out_dim[lh] - of, kh = rnb_pad16(net.out_dim[lh]);
+    if (tid < of) dbt[net.b_off[lh] + tid] = wg_colsum_get(red, tid);
+    for (int idx = tid; idx < WG_M * (kh - of); idx += NRF_NT) {
+      const int p = idx / (kh - of), a = idx % (kh - of);
+      const long long row = n0 + p;
+      X[wg_tidx(p, of + a)] =
+          wg_bf(a < oa && row < n ? calpha[row * oa + a] : 0.0f);
+    }
+    if (tid < oa) {
+      float s = 0.0f;
+      for (int p = 0; p < WG_M && n0 + p < n; ++p) s += calpha[(n0 + p) * oa + tid];
+      dbt[net.b_off[lh] + of + tid] = s;
+    }
+    __syncthreads();
+    wg_tile_out(X, kh, n0, n, bbuf + net.bb_off[lh]);
+  }
+
+  // --- the head's reverse, then the trunk's: bar_z_{l-1} = (bar_z_l W_lᵀ)
+  // [the h rows] ⊙ mask_{l-1}; layer 0 has no reverse ---
+  for (int l = lh; l >= 1; --l) {
+    pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n64<0, 0>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                          rnb_desc(st + wg * 8 * 128, 128, 256), t > 0);
+    });
+    if (l > 1) {
+      prod.set(w, net, l - 1, 1, 256);
+      pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
+    }
+    const int out = net.out_dim[l - 1];
+    wg_mask_put<8>(acc, mbits[(l - 1) * NRF_NT + tid], X, red, wg * 64, n0, n);
+    __syncthreads();
+    if (tid < out) dbt[net.b_off[l - 1] + tid] = wg_colsum_get(red, tid);
+    wg_tile_out(X, rnb_pad16(out), n0, n, bbuf + net.bb_off[l - 1]);
+  }
+}
+
+// The bf16 backward sweep over the image layers (see nerf_bwd_wg_kernel):
+// fills the bf16 dW scratch (A rows at a_off, B rows at bb_off, n rows of
+// pad16(width) each) and writes db in image order; the wrapper then runs
+// rnb_dw_gemm per image layer and splits the head. dbp holds
+// ceil(n/64)·Σ out floats.
+extern "C" int rnb_nerf_bwd_wg(const float* pts, const float* views,
+                               long long n, int C, const void* w,
+                               const float* b, const int* in_dims,
+                               const int* out_dims, const int* skip,
+                               const long long* w_off, const long long* a_off,
+                               const long long* bb_off, int n_layers, int of,
+                               int multires, int multires_view,
+                               const float* calpha, const float* crgb,
+                               void* abuf, void* bbuf, float* dbp, float* db,
+                               void* stream) {
+  const int D = n_layers - 3;
+  const int E = C * (1 + 2 * multires), V = 3 * (1 + 2 * multires_view);
+  if (D < 1 || n_layers > RNB_MAXL || C < 1 || E > NRF_EW || V > NRF_VW)
+    return (int)cudaErrorInvalidValue;
+  RnbWgNet net;
+  net.n_layers = n_layers;
+  net.E = E;
+  int db_len = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    net.in_dim[l] = in_dims[l];
+    net.out_dim[l] = out_dims[l];
+    net.skip[l] = l < D ? skip[l] : 0;
+    net.hd[l] = net.skip[l] ? out_dims[l - 1] : in_dims[l];
+    net.w_off[l] = w_off[l];
+    net.a_off[l] = a_off[l];
+    net.bb_off[l] = bb_off[l];
+    net.b_off[l] = db_len;
+    db_len += out_dims[l];
+    if (w_off[l] % 8) return (int)cudaErrorInvalidValue;
+  }
+  bool ok = skip[0] == 0;
+  for (int l = 0; l < D; ++l) {
+    const int want = l == 0 ? E : out_dims[l - 1] + (net.skip[l] ? E : 0);
+    ok = ok && in_dims[l] == want && rnb_pad16(in_dims[l]) <= NRF_KW &&
+         out_dims[l] == 256;
+  }
+  ok = ok && in_dims[D] == out_dims[D - 1] && of == 256 && out_dims[D] > of &&
+       rnb_pad16(out_dims[D]) <= 272 && in_dims[D + 1] == of + V &&
+       rnb_pad16(in_dims[D + 1]) <= NRF_KW && out_dims[D + 1] <= 128 &&
+       in_dims[D + 2] == out_dims[D + 1] && out_dims[D + 2] <= 16;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int smem =
+      (int)(sizeof(rnb_bf16) * (WG_M * (NRF_KW + NRF_EW + NRF_VW) +
+                                WG_RS * NRF_STG) +
+            sizeof(float) * 4 * 256 + sizeof(uint32_t) * (D + 1) * NRF_NT);
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_bwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long tiles = (n + WG_M - 1) / WG_M;
+  nerf_bwd_wg_kernel<<<(unsigned)tiles, NRF_NT, smem, st>>>(
+      pts, views, n, C, static_cast<const rnb_bf16*>(w), b, net, of,
+      multires, multires_view, calpha, crgb, static_cast<rnb_bf16*>(abuf),
+      static_cast<rnb_bf16*>(bbuf), dbp, db_len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rnb_sum_splits_kernel<<<(unsigned)((db_len + 255) / 256), 256, 0, st>>>(
+      dbp, (int)tiles, db_len, db);
+  return (int)cudaGetLastError();
 }

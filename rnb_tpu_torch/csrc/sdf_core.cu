@@ -548,33 +548,15 @@ extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,
 // reads it back in the reverse sweep (both split N the same way), and the
 // 128 threads of a warpgroup touch 512 consecutive bytes per register.
 
-#include "wgmma.cuh"
+#include "wg_pipe.cuh"
 
-#define WG_M 64       // points per tile (the M of wgmma)
-#define WG_NT 256     // threads per block of the forward: two warpgroups
+#define WG_NT 256    // threads per block of the forward: two warpgroups
 #define WG_BWG 4      // warpgroups per block of the backward (N = 256 / 4)
 #define WG_TW 272     // widest A tile: K of the last layer's reverse product
 #define WG_EP 48      // PE channels held per point (E <= 48)
 #define WG_STG 4224   // bf16 elements of one ring stage (a K-step of 16):
                       // 2 x 33 weight cores
 #define WG_REC (WG_M * 256)  // record floats per tile and layer
-
-typedef __nv_bfloat16 rnb_bf16;
-
-struct RnbWgNet {
-  int n_layers, E;
-  int in_dim[RNB_MAXL], out_dim[RNB_MAXL];
-  int skip[RNB_MAXL];
-  int hd[RNB_MAXL];            // skip layer: the input column where e starts
-  long long w_off[RNB_MAXL];   // layer l's tile in the bf16 weight image
-  long long a_off[RNB_MAXL];   // layer l's A rows in the bf16 dW scratch
-  long long bb_off[RNB_MAXL];  // layer l's B rows in the bf16 dW scratch
-  int b_off[RNB_MAXL];         // offset of b_l (and of db_l)
-};
-
-__host__ __device__ __forceinline__ int rnb_pad16(int x) {
-  return (x + 15) & ~15;
-}
 
 // sigmoid(100 z) and softplus(100 z)/100 of the bf16 route, from the fast
 // intrinsics (ex2 / lg2 approximations and an approximate division): several
@@ -603,107 +585,6 @@ __device__ __forceinline__ float wg_softplus100(float z) {
   wg_softplus100_pair(z, &s, &h);  // s unused: its division is not computed
   return h;
 }
-
-// Element (p, k) of a K-major A tile: core (k/8, p/8) of 64 elements at
-// ((k/8)·8 + p/8)·64, 16-byte rows of 8 k. LBO (along K) 1024 B, SBO 128 B.
-__device__ __forceinline__ int wg_tidx(int p, int k) {
-  return (((k >> 3) << 3) + (p >> 3)) * 64 + ((p & 7) << 3) + (k & 7);
-}
-
-__device__ __forceinline__ rnb_bf16 wg_bf(float x) {
-  return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float wg_f(rnb_bf16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void wg_put2(rnb_bf16* tile, int p, int k, float a,
-                                        float b) {
-  *reinterpret_cast<__nv_bfloat162*>(tile + wg_tidx(p, k)) =
-      __halves2bfloat162(wg_bf(a), wg_bf(b));
-}
-
-// The weight image (built by ops/sdf_core.py pack_weights): layer l is a
-// [pad16(in), pad16(out)] bf16 tile of 8x8 cores, core (i/8, o/8) at
-// ((i/8)·(pad16(out)/8) + o/8)·64, rows of 8 consecutive o; pads are zero.
-//
-// Forward K-step t (rows 16t..16t+15) into a stage as MN-major B: core
-// (kb, ob) at (kb·nb + ob)·64; LBO = nb·128 B, SBO = 128 B. Cores past the
-// layer's width are zero-filled (nb = 32, or 33 for the N = 8 tail).
-__device__ __forceinline__ void wg_copy_fwd(rnb_bf16* st, const rnb_bf16* w,
-                                            int npc, int nb, int t) {
-  const int total = 2 * nb * 8;
-  for (int q = threadIdx.x; q < total; q += blockDim.x) {
-    const int kb = q / (nb * 8), rem = q - kb * nb * 8;
-    const int ob = rem >> 3, r = rem & 7;
-    const bool ok = ob < npc;
-    const rnb_bf16* src =
-        ok ? w + ((long long)(2 * t + kb) * npc + ob) * 64 + r * 8 : w;
-    rnb_cp_async16(st + (kb * nb + ob) * 64 + r * 8, src, ok);
-  }
-}
-
-// Reverse K-step t (output columns 16t..16t+15 of W, i.e. rows of Wᵀ) into a
-// stage as K-major B over N = the layer's inputs: core (ib, kb) at
-// (ib·2 + kb)·64; LBO = 128 B, SBO = 256 B. Input blocks past kpc are zero.
-__device__ __forceinline__ void wg_copy_rev(rnb_bf16* st, const rnb_bf16* w,
-                                            int npc, int kpc, int ibn, int t) {
-  const int total = ibn * 16;
-  for (int q = threadIdx.x; q < total; q += blockDim.x) {
-    const int ib = q >> 4, kb = (q >> 3) & 1, r = q & 7;
-    const bool ok = ib < kpc;
-    const rnb_bf16* src =
-        ok ? w + ((long long)ib * npc + 2 * t + kb) * 64 + r * 8 : w;
-    rnb_cp_async16(st + (ib * 2 + kb) * 64 + r * 8, src, ok);
-  }
-}
-
-// The K loop of one product over ns K-steps, one a stage of a ring of RS
-// (>= 3).
-// pipe_prologue starts the copies of the first RS-2 stages (it may run
-// before the epilogue of the product before, whose closing barrier freed
-// the ring). pipe_run, per stage t: waits for its copy, starts the copy of
-// stage t+RS-2 into the buffer of stage t-2, issues t's wgmmas and waits
-// only for those of t-1, so two stages' products are in flight; the
-// barrier at the top of a stage thus also frees the buffer of t-2. It ends
-// with a barrier: the ring and the A tiles are then free. One commit group
-// per stage (empty ones too) keeps the wait count fixed.
-template <int RS, int STG, class Copy>
-__device__ __forceinline__ void pipe_prologue(rnb_bf16* ring, int ns,
-                                              Copy copy) {
-#pragma unroll
-  for (int s = 0; s < RS - 2; ++s) {
-    if (s < ns) copy(s, ring + s * STG);
-    rnb_cp_async_commit();
-  }
-}
-
-template <int RS, int STG, class Copy, class Mma>
-__device__ __forceinline__ void pipe_run(rnb_bf16* ring, int ns, Copy copy,
-                                         Mma mma) {
-  for (int t = 0; t < ns; ++t) {
-    rnb_cp_async_wait<RS - 3>();
-    rnb_fence_proxy_async();
-    __syncthreads();
-    if (t + RS - 2 < ns) copy(t + RS - 2, ring + ((t + RS - 2) % RS) * STG);
-    rnb_cp_async_commit();
-    rnb_wgmma_fence();
-    mma(t, ring + (t % RS) * STG);
-    rnb_wgmma_commit();
-    rnb_wgmma_wait<1>();
-  }
-  rnb_wgmma_wait<0>();
-  __syncthreads();
-}
-
-// Ring stages of the sweep kernels (each one K-step of 16). Four ran
-// fastest of the shapes tried (PERF.md).
-#define WG_RS 4
-
-// Accumulator fragment of an N-wide wgmma at warpgroup column base c0:
-// register 4j + 2h + v holds row r0 + 8h, column c0 + 8j + cq + v.
-#define WG_FRAG_ROWS                                                         \
-  const int lt = threadIdx.x & 127, wg = threadIdx.x >> 7;                   \
-  const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2);                        \
-  const int cq = 2 * (lt & 3)
 
 template <int MODE>
 static __global__ void __launch_bounds__(WG_NT, 2)

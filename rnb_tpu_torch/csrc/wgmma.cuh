@@ -1,6 +1,7 @@
-// Hopper tensor-core building blocks for the bf16 route of the SDF-core
-// kernels (sdf_core.cu): shared-memory matrix descriptors, the warpgroup
-// matrix multiply (wgmma) at the widths the kernels use, and cp.async.
+// Hopper tensor-core building blocks for the bf16 routes of the sweep
+// kernels (sdf_core.cu, albedo.cu, nerf.cu): shared-memory matrix
+// descriptors, the warpgroup matrix multiply (wgmma) at the widths the
+// kernels use, and cp.async.
 //
 // Operand layout (no swizzle): every operand tile in shared memory is a grid
 // of 8x8 "core matrices" of bf16, each 128 contiguous bytes (8 rows of 16
@@ -96,6 +97,23 @@ __device__ __forceinline__ void rnb_wgmma_n24(float (&d)[12], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d[16] (+)= A[64x16] * B[16x32], bf16 operands from shared memory, f32 sum.
+template <int TA, int TB>
+__device__ __forceinline__ void rnb_wgmma_n32(float (&d)[16], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d[32] (+)= A[64x16] * B[16x64], bf16 operands from shared memory, f32 sum.
 template <int TA, int TB>
 __device__ __forceinline__ void rnb_wgmma_n64(float (&d)[32], uint64_t da,
@@ -115,6 +133,30 @@ __device__ __forceinline__ void rnb_wgmma_n64(float (&d)[32], uint64_t da,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[40] (+)= A[64x16] * B[16x80], bf16 operands from shared memory, f32 sum.
+template <int TA, int TB>
+__device__ __forceinline__ void rnb_wgmma_n80(float (&d)[40], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, %43, %44;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

@@ -2,7 +2,9 @@
 ``torch.autograd.Function`` around a CUDA kernel pair.
 
 Replaces ``rnb_tpu/ops/pallas_albedo.py`` (``_fwd_kernel`` :85,
-``_bwd_kernel`` :101); the kernels are in ``csrc/albedo.cu``.
+``_bwd_kernel`` :101); the kernels are in ``csrc/albedo.cu``. The backward
+has two routes by op dtype: bf16 (the training step's) on the tensor cores
+(``albedo_bwd_wg_kernel`` + ``wg.dw_gemm``), f32 on the CUDA cores.
 
     forward:   x0 = [PE(p), PE(n), feat];  z_l = x_l @ W_l + b_l;
                x_{l+1} = relu(z_l);  out = sigmoid(z_last)
@@ -29,7 +31,7 @@ from torch.autograd.function import once_differentiable
 
 from rnb_tpu_torch.models.fields import (RenderingConfig, fold_weight_norm,
                                          round_to)
-from rnb_tpu_torch.ops import _build
+from rnb_tpu_torch.ops import _build, wg
 
 
 def supported(cfg: RenderingConfig) -> bool:
@@ -162,20 +164,85 @@ def albedo_fwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs,
 
 def albedo_bwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs, c_out,
                dtype=torch.bfloat16):
-    """Backward kernel (``rnb_albedo_bwd``: sweep + dW/db reduction) for
-    CUDA tensors, plain version for CPU tensors.
-    -> (dws, dbs, c_normals, c_feat)."""
+    """Backward kernels for CUDA tensors, plain version for CPU tensors.
+    -> (dws, dbs, c_normals, c_feat). The op dtype names the route, never a
+    failure: bf16 runs the tensor-core sweep (``rnb_albedo_bwd_wg``) and one
+    ``wg.dw_gemm`` per layer, f32 the CUDA-core sweep and split-K reduction
+    (``rnb_albedo_bwd``)."""
     if not pts.is_cuda:
         return albedo_bwd_plain(cfg, pts, nrm, feat, ws, bs, c_out, dtype)
+    if _build.bf16_flag(dtype):
+        out = _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out)
+        _build.launches["albedo_bwd"] += 1
+    else:
+        out = _bwd_f32(cfg, pts, nrm, feat, ws, bs, c_out)
+        _build.launches["albedo_bwd_f32"] += 1
+    return out
+
+
+def _cotangent(c_out, n, d_out):
+    c_out = c_out.detach().float().contiguous()
+    if c_out.shape != (n, d_out):
+        raise ValueError("albedo backward: cotangent shape does not match")
+    return c_out
+
+
+def wg_layout(ws, n: int = 0) -> dict:
+    """The tensor-core route's weight image and dW row offsets
+    (``wg.offsets``, n rows a layer)."""
+    return wg.offsets([w.shape[0] for w in ws], [w.shape[1] for w in ws], n)
+
+
+def _check_wg(lay: dict):
+    ins, outs = lay["in_dims"], lay["out_dims"]
+    if (len(ins) < 2 or lay["kp"][0] > 320 or max(outs[:-1]) > 256
+            or outs[-1] > 8):
+        raise ValueError(
+            "the bf16 albedo kernel takes 2-16 layers, an input <= 320 wide "
+            "after padding, hidden layers <= 256 wide and a head <= 8 wide; "
+            f"got in {ins}, out {outs}")
+
+
+def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out):
     _check_args(cfg, pts, nrm, feat, ws, bs)
-    bf = _build.bf16_flag(dtype)
+    pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
+    n, L, F = pts.shape[0], len(ws), feat.shape[1]
+    lay = wg_layout(ws, n)
+    _check_wg(lay)
+    c_out = _cotangent(c_out, n, lay["out_dims"][-1])
+    lib = _build.library()
+    dev = pts.device
+    image = wg.pack_weights(ws, lay)
+    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+    abuf = torch.empty(lay["a_len"], dtype=torch.bfloat16, device=dev)
+    bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
+    dbp = torch.empty(-(-n // wg.TILE) * bflat.numel(), device=dev)
+    db = torch.empty(bflat.numel(), device=dev)
+    cnrm = torch.empty(n, 3, device=dev)
+    cfeat = torch.empty(n, F, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.rnb_albedo_bwd_wg(
+            pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n, F,
+            image.data_ptr(), bflat.data_ptr(),
+            _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
+            _build.ll_array(lay["w_off"]), _build.ll_array(lay["a_off"]),
+            _build.ll_array(lay["bb_off"]), L, cfg.multires_view,
+            c_out.data_ptr(), abuf.data_ptr(), bbuf.data_ptr(), dbp.data_ptr(),
+            db.data_ptr(), cnrm.data_ptr(), cfeat.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rnb_albedo_bwd_wg")
+    dws = wg.dw_products(abuf, bbuf, lay, n, "albedo_dw_gemm")
+    return dws, _build.unflat(db, [tuple(b.shape) for b in bs]), cnrm, cfeat
+
+
+def _bwd_f32(cfg, pts, nrm, feat, ws, bs, c_out):
+    _check_args(cfg, pts, nrm, feat, ws, bs)
     lib = _build.library()
     pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
     n, L, F = pts.shape[0], len(ws), feat.shape[1]
-    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
-    c_out = c_out.detach().float().contiguous()
-    if c_out.shape != (n, out_dims[-1]):
-        raise ValueError("albedo backward: cotangent shape does not match")
+    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(
+        ws, bs, torch.float32)
+    c_out = _cotangent(c_out, n, out_dims[-1])
     dev = pts.device
     rec_ld = max(out_dims[:-1], default=1)
     rec = torch.empty(max(L - 1, 1) * n * rec_ld, device=dev)
@@ -193,12 +260,11 @@ def albedo_bwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs, c_out,
             pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n, F,
             wflat.data_ptr(), wtflat.data_ptr(), bflat.data_ptr(),
             _build.int_array(in_dims), _build.int_array(out_dims), L,
-            cfg.multires_view, bf, c_out.data_ptr(), rec.data_ptr(), rec_ld,
+            cfg.multires_view, c_out.data_ptr(), rec.data_ptr(), rec_ld,
             abuf.data_ptr(), bbuf.data_ptr(), partial.data_ptr(), splits,
             dw.data_ptr(), db.data_ptr(), cnrm.data_ptr(), cfeat.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_albedo_bwd")
-    _build.launches["albedo_bwd"] += 1
     return (_build.unflat(dw, [tuple(w.shape) for w in ws]),
             _build.unflat(db, [tuple(b.shape) for b in bs]), cnrm, cfeat)
 

@@ -3,8 +3,11 @@ hand-derived VJP over the parameters, as a ``torch.autograd.Function``
 around a CUDA kernel pair.
 
 Replaces ``rnb_tpu/ops/pallas_nerf.py`` (``_fwd_kernel`` :105,
-``_bwd_kernel`` :122); the kernels are in ``csrc/nerf.cu``, whose header
-says what bounds them on the H100.
+``_bwd_kernel`` :122); the kernels are in ``csrc/nerf.cu``, whose notes
+say what bounds them on the H100. The backward has two routes by op dtype:
+bf16 (the training step's) on the tensor cores (``nerf_bwd_wg_kernel`` over
+the image layers of ``wg_weights``, + ``wg.dw_gemm``), f32 on the CUDA
+cores.
 
     forward:   e = PE(pts), v = PE(views) (double-angle recurrence);
                trunk z_i = x_i @ W_i + b_i, h_i = relu(z_i),
@@ -36,7 +39,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from rnb_tpu_torch.models.fields import NeRFConfig, round_to
-from rnb_tpu_torch.ops import _build
+from rnb_tpu_torch.ops import _build, wg
 from rnb_tpu_torch.ops.albedo import _pe
 
 _HEADS = ("alpha_layer", "feature_layer", "views_layer", "rgb_layer")
@@ -224,19 +227,131 @@ def nerf_fwd(cfg: NeRFConfig, pts, views, ws, bs, dtype=torch.bfloat16):
 
 def nerf_bwd(cfg: NeRFConfig, pts, views, ws, bs, c_alpha, c_rgb,
              dtype=torch.bfloat16):
-    """Backward kernel (``rnb_nerf_bwd``: sweep + dW/db reduction) for CUDA
-    tensors, plain version for CPU tensors. -> (dws, dbs)."""
+    """Backward kernels for CUDA tensors, plain version for CPU tensors.
+    -> (dws, dbs). The op dtype names the route, never a failure: bf16 runs
+    the tensor-core sweep (``rnb_nerf_bwd_wg``) and one ``wg.dw_gemm`` per
+    image layer, f32 the CUDA-core sweep and split-K reduction
+    (``rnb_nerf_bwd``)."""
     if not pts.is_cuda:
         return nerf_bwd_plain(cfg, pts, views, ws, bs, c_alpha, c_rgb, dtype)
+    if _build.bf16_flag(dtype):
+        out = _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb)
+        _build.launches["nerf_bwd"] += 1
+    else:
+        out = _bwd_f32(cfg, pts, views, ws, bs, c_alpha, c_rgb)
+        _build.launches["nerf_bwd_f32"] += 1
+    return out
+
+
+def _cotangents(c_alpha, c_rgb, n, oa, orr):
+    c_alpha, c_rgb = (t.detach().float().contiguous() for t in (c_alpha, c_rgb))
+    if c_alpha.shape != (n, oa) or c_rgb.shape != (n, orr):
+        raise ValueError("nerf backward: cotangent shapes do not match")
+    return c_alpha, c_rgb
+
+
+# ---------------------------------------------------------------------------
+# the bf16 route's image layers (csrc/nerf.cu, "bf16 route")
+# ---------------------------------------------------------------------------
+
+def _skip_input(cfg: NeRFConfig, i: int) -> bool:
+    """Trunk layer i takes the skip concat [e, h] as its input."""
+    return i < cfg.D and i - 1 in cfg.skips
+
+
+def wg_weights(cfg: NeRFConfig, ws, bs):
+    """The image layers of the tensor-core kernel, as (ws, bs): the trunk
+    with a skip layer's rows [e; h] held as [h; e], the fused head
+    [W_f | W_a] (bias [b_f, b_a]), the views and rgb layers."""
+    D, E = cfg.D, ws[0].shape[0]
+    iw = [torch.cat([w[E:], w[:E]]) if _skip_input(cfg, i) else w
+          for i, w in enumerate(ws[:D])]
+    iw += [torch.cat([ws[D + 1], ws[D]], dim=1), ws[D + 2], ws[D + 3]]
+    ib = list(bs[:D]) + [torch.cat([bs[D + 1], bs[D]]), bs[D + 2], bs[D + 3]]
+    return iw, ib
+
+
+def from_image(cfg: NeRFConfig, dws, dbs, E: int, of: int):
+    """The image layers' (dW, db) -> the 12 layers' in the kernels' order:
+    a skip layer's rows back to [e; h], the fused head split into alpha
+    and feature."""
+    D = cfg.D
+    out_w = [torch.cat([d[d.shape[0] - E:], d[:d.shape[0] - E]])
+             if _skip_input(cfg, i) else d for i, d in enumerate(dws[:D])]
+    out_w += [dws[D][:, of:], dws[D][:, :of], dws[D + 1], dws[D + 2]]
+    out_b = list(dbs[:D]) + [dbs[D][of:], dbs[D][:of], dbs[D + 1], dbs[D + 2]]
+    return out_w, out_b
+
+
+def wg_layout(cfg: NeRFConfig, ws, n: int = 0) -> dict:
+    """Shapes and offsets of the image layers (``wg.offsets``, n rows a
+    layer), with ``skip[l]`` (trunk layer l takes [h, e]), ``E`` the PE
+    width and ``of`` the feature head's width (the fused head's alpha
+    columns start there)."""
+    D = cfg.D
+    ins = [w.shape[0] for w in ws[:D]] + [ws[D].shape[0], ws[D + 2].shape[0],
+                                          ws[D + 3].shape[0]]
+    outs = [w.shape[1] for w in ws[:D]] + [ws[D + 1].shape[1] + ws[D].shape[1],
+                                           ws[D + 2].shape[1], ws[D + 3].shape[1]]
+    return dict(wg.offsets(ins, outs, n),
+                skip=[int(_skip_input(cfg, i)) for i in range(D + 3)],
+                E=int(ws[0].shape[0]), of=int(ws[D + 1].shape[1]))
+
+
+def _check_wg(cfg: NeRFConfig, lay: dict):
+    D, ins, outs, kp = cfg.D, lay["in_dims"], lay["out_dims"], lay["kp"]
+    if (lay["E"] > 96 or max(kp[:D]) > 352 or set(outs[:D]) != {256}
+            or lay["of"] != 256 or lay["np"][D] > 272 or kp[D + 1] > 352
+            or outs[D + 1] > 128 or outs[D + 2] > 16
+            or 3 * (1 + 2 * cfg.multires_view) > 32):
+        raise ValueError(
+            "the bf16 nerf kernel takes a PE <= 96 wide, trunk layers and a "
+            "feature head of exactly 256 (skip inputs <= 352 after padding), "
+            "an alpha head <= 16 wide, a views PE <= 32, a views layer "
+            f"<= 128 wide and an rgb head <= 16 wide; got in {ins}, out {outs}")
+
+
+def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb):
     _check_args(cfg, pts, views, ws, bs)
-    bf = _build.bf16_flag(dtype)
+    pts, views = (t.detach().contiguous() for t in (pts, views))
+    n, D, dev = pts.shape[0], cfg.D, pts.device
+    lay = wg_layout(cfg, ws, n)
+    _check_wg(cfg, lay)
+    c_alpha, c_rgb = _cotangents(c_alpha, c_rgb, n, ws[D].shape[1],
+                                 ws[-1].shape[1])
+    lib = _build.library()
+    iw, ib = wg_weights(cfg, [w.detach() for w in ws], [b.detach() for b in bs])
+    image = wg.pack_weights(iw, lay)
+    bflat = torch.cat([b.reshape(-1) for b in ib]).contiguous()
+    abuf = torch.empty(lay["a_len"], dtype=torch.bfloat16, device=dev)
+    bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
+    dbp = torch.empty(-(-n // wg.TILE) * bflat.numel(), device=dev)
+    db = torch.empty(bflat.numel(), device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.rnb_nerf_bwd_wg(
+            pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
+            image.data_ptr(), bflat.data_ptr(),
+            _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
+            _build.int_array(lay["skip"]), _build.ll_array(lay["w_off"]),
+            _build.ll_array(lay["a_off"]), _build.ll_array(lay["bb_off"]),
+            len(iw), lay["of"], cfg.multires, cfg.multires_view,
+            c_alpha.data_ptr(), c_rgb.data_ptr(), abuf.data_ptr(),
+            bbuf.data_ptr(), dbp.data_ptr(), db.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rnb_nerf_bwd_wg")
+    dws = wg.dw_products(abuf, bbuf, lay, n, "nerf_dw_gemm")
+    dbs = _build.unflat(db, [(o,) for o in lay["out_dims"]])
+    return from_image(cfg, dws, dbs, lay["E"], lay["of"])
+
+
+def _bwd_f32(cfg, pts, views, ws, bs, c_alpha, c_rgb):
+    _check_args(cfg, pts, views, ws, bs)
     lib = _build.library()
     pts, views = (t.detach().contiguous() for t in (pts, views))
     n, L, dev, D = pts.shape[0], len(ws), pts.device, cfg.D
-    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
-    c_alpha, c_rgb = (t.detach().float().contiguous() for t in (c_alpha, c_rgb))
-    if c_alpha.shape != (n, out_dims[D]) or c_rgb.shape != (n, out_dims[-1]):
-        raise ValueError("nerf backward: cotangent shapes do not match")
+    wflat, wtflat, bflat, in_dims, out_dims = _build.flat_params(
+        ws, bs, torch.float32)
+    c_alpha, c_rgb = _cotangents(c_alpha, c_rgb, n, out_dims[D], out_dims[-1])
     # ReLU pre-activations of the trunk layers and of the views layer
     rec_ld = max(out_dims[:D] + [out_dims[D + 2]])
     rec = torch.empty((D + 1) * n * rec_ld, device=dev)
@@ -252,13 +367,12 @@ def nerf_bwd(cfg: NeRFConfig, pts, views, ws, bs, c_alpha, c_rgb,
             pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
             wflat.data_ptr(), wtflat.data_ptr(), bflat.data_ptr(),
             _build.int_array(in_dims), _build.int_array(out_dims), L,
-            _skip_mask(cfg), cfg.multires, cfg.multires_view, bf,
+            _skip_mask(cfg), cfg.multires, cfg.multires_view,
             c_alpha.data_ptr(), c_rgb.data_ptr(), rec.data_ptr(), rec_ld,
             abuf.data_ptr(), bbuf.data_ptr(), partial.data_ptr(), splits,
             dw.data_ptr(), db.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_nerf_bwd")
-    _build.launches["nerf_bwd"] += 1
     return (_build.unflat(dw, [tuple(w.shape) for w in ws]),
             _build.unflat(db, [tuple(b.shape) for b in bs]))
 

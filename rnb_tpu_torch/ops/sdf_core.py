@@ -38,6 +38,7 @@ bf16 image, ``pack_weights`` / ``wg_layout``), f32 the CUDA-core kernels.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Sequence
 
@@ -45,7 +46,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from rnb_tpu_torch.models.fields import SDFConfig, fold_weight_norm, round_to
-from rnb_tpu_torch.ops import _build
+from rnb_tpu_torch.ops import _build, wg
 
 
 def supported(cfg: SDFConfig) -> bool:
@@ -240,15 +241,14 @@ def launch_fwd(cfg: SDFConfig, pts, ws, bs, entry="rnb_sdf_fwd", lead=()):
 
 
 # ---------------------------------------------------------------------------
-# the bf16 route's operand layout (csrc/sdf_core.cu, "bf16 route")
+# the bf16 route's operand layout (csrc/sdf_core.cu, "bf16 route"; the
+# shared pieces in ops/wg.py)
 # ---------------------------------------------------------------------------
 
-TILE = 64            # points per block of the tensor-core kernels
-DW_ROWS = 64         # rows per stage of the dW product
-
-
-def _pad16(x: int) -> int:
-    return -(-x // 16) * 16
+TILE, pack_weights = wg.TILE, wg.pack_weights
+dw_gemm_plain, dw_gemm_splits = wg.dw_gemm_plain, wg.dw_gemm_splits
+# the SDF core's dW products count under sdf_dw_gemm
+dw_gemm = functools.partial(wg.dw_gemm, counter="sdf_dw_gemm")
 
 
 def wg_layout(cfg: SDFConfig, ws, n: int = 0) -> dict:
@@ -262,30 +262,7 @@ def wg_layout(cfg: SDFConfig, ws, n: int = 0) -> dict:
     L, E = len(ws), in_dims[0]
     skip = [int(l in cfg.skip_in) for l in range(L)]
     hd = [i - E if s else i for i, s in zip(in_dims, skip)]
-    kp, np_ = [_pad16(i) for i in in_dims], [_pad16(o) for o in out_dims]
-    w_off, a_off, bb_off = [0], [0], [0]
-    for l in range(L - 1):
-        w_off.append(w_off[-1] + kp[l] * np_[l])
-        a_off.append(a_off[-1] + 2 * n * kp[l])
-        bb_off.append(bb_off[-1] + 2 * n * np_[l])
-    return dict(in_dims=in_dims, out_dims=out_dims, skip=skip, hd=hd, kp=kp,
-                np=np_, w_off=w_off, a_off=a_off, bb_off=bb_off,
-                w_len=w_off[-1] + kp[-1] * np_[-1],
-                a_len=a_off[-1] + 2 * n * kp[-1],
-                b_len=bb_off[-1] + 2 * n * np_[-1])
-
-
-def pack_weights(ws, lay: dict) -> torch.Tensor:
-    """The bf16 weight image: W_l rounded to bf16, zero-padded to
-    [pad16(in), pad16(out)] and stored as 8x8 cores, core (i/8, o/8) at
-    lay["w_off"][l] + ((i/8)·pad16(out)/8 + o/8)·64, 8 consecutive o a row."""
-    parts = []
-    for w, kp, np_ in zip(ws, lay["kp"], lay["np"]):
-        pad = torch.zeros(kp, np_, dtype=torch.bfloat16, device=w.device)
-        pad[:w.shape[0], :w.shape[1]] = w.detach().to(torch.bfloat16)
-        parts.append(pad.reshape(kp // 8, 8, np_ // 8, 8).permute(0, 2, 1, 3)
-                     .reshape(-1))
-    return torch.cat(parts)
+    return dict(wg.offsets(in_dims, out_dims, 2 * n), skip=skip, hd=hd)
 
 
 def _check_wg(lay: dict):
@@ -326,50 +303,6 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_sdf_fwd_wg")
     return sdf, feat, grad
-
-
-def dw_gemm_plain(a, b, m: int, n: int):
-    """dW = a[:, :m]ᵀ · b[:, :n] in f32 over all rows (bf16 operands)."""
-    return a[:, :m].float().T @ b[:, :n].float()
-
-
-def dw_gemm_splits(m: int, n: int, k: int):
-    """(splits, rows per split) of the dW product: about two blocks an SM on
-    the card's 132 SMs, each split a multiple of 64 rows."""
-    tiles = -(-m // 128) * -(-n // 128)
-    splits = max(1, min(-(-264 // tiles), -(-k // (8 * DW_ROWS))))
-    chunk = -(-k // splits)
-    chunk = -(-chunk // DW_ROWS) * DW_ROWS
-    return -(-k // chunk), chunk
-
-
-def dw_gemm(a, b, m: int, n: int, partial=None):
-    """dW [m, n] = a[:, :m]ᵀ · b[:, :n] summed over the rows of the [K, lda]
-    and [K, ldb] bf16 operands (lda, ldb multiples of 8): the tensor-core
-    split-K kernel (``rnb_dw_gemm``) for CUDA tensors, deterministic;
-    ``dw_gemm_plain`` for CPU tensors. ``partial`` is an optional f32
-    scratch of at least splits·m·n floats."""
-    if not a.is_cuda:
-        return dw_gemm_plain(a, b, m, n)
-    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2
-            or b.dim() != 2 or a.shape[0] != b.shape[0] or a.shape[1] % 8
-            or b.shape[1] % 8 or m > a.shape[1] or n > b.shape[1]
-            or not a.is_contiguous() or not b.is_contiguous()):
-        raise ValueError("dw_gemm takes two contiguous [K, 8j] bf16 matrices "
-                         "of the same row count")
-    k = a.shape[0]
-    splits, chunk = dw_gemm_splits(m, n, k)
-    if partial is None or partial.numel() < splits * m * n:
-        partial = torch.empty(splits * m * n, device=a.device)
-    dw = torch.empty(m, n, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = _build.library().rnb_dw_gemm(
-            a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1], k, m, n, chunk,
-            splits, partial.data_ptr(), dw.data_ptr(),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "rnb_dw_gemm")
-    _build.launches["sdf_dw_gemm"] += 1
-    return dw
 
 
 def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
@@ -430,15 +363,7 @@ def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_sdf_bwd_wg")
     del rec_z, rec_t
-    partial = torch.empty(max(dw_gemm_splits(i, o, 2 * n)[0] * i * o
-                              for i, o in zip(lay["in_dims"], lay["out_dims"])),
-                          device=dev)
-    dws = []
-    for l in range(L):
-        kp, np_ = lay["kp"][l], lay["np"][l]
-        a = abuf[lay["a_off"][l]:lay["a_off"][l] + 2 * n * kp].view(2 * n, kp)
-        b = bbuf[lay["bb_off"][l]:lay["bb_off"][l] + 2 * n * np_].view(2 * n, np_)
-        dws.append(dw_gemm(a, b, lay["in_dims"][l], lay["out_dims"][l], partial))
+    dws = wg.dw_products(abuf, bbuf, lay, 2 * n, "sdf_dw_gemm")
     return dws, _build.unflat(db, [tuple(b.shape) for b in bs])
 
 

@@ -3,6 +3,7 @@ chip_smoke.py refuses to run (non-zero exit, no result line) without a
 CUDA device or without the package beside it, as the kernel-ablation tool
 (rnb_tpu_torch.tools.ablate_kernel) does without a CUDA device."""
 
+import importlib.util
 import inspect
 import os
 import pkgutil
@@ -17,6 +18,7 @@ import torch
 import rnb_tpu_torch
 from rnb_tpu_torch.data import dataset
 from rnb_tpu_torch.models import fields
+from rnb_tpu_torch.ops import nerf
 from rnb_tpu_torch.utils import bridge
 
 torch.set_num_threads(1)
@@ -76,3 +78,21 @@ def test_ablate_kernel_fails_without_cuda():
               "--iters", "1"], ROOT)
     assert r.returncode != 0
     assert "kernel_ms" not in r.stdout and "no CUDA device" in r.stderr
+
+
+def test_chip_smoke_bounds_count_least_work():
+    """The bound of each ReLU backward counts only the multiply-adds its
+    function needs, at the shipped widths: NeRF forward without the alpha
+    and rgb heads 603,520, reverse without layer 0 and the PE rows 557,696,
+    dW 604,160; albedo forward 145,664, reverse with layer 0 over its
+    PE(n) and feat rows only 138,752, dW 145,664."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator().manual_seed(0)
+    acfg, ncfg = fields.RenderingConfig(), fields.NeRFConfig()
+    aw = [l["v"] for l in fields.init_rendering_network(gen, acfg, "cpu")]
+    nw = nerf.flatten_params(fields.init_nerf(gen, ncfg, "cpu"))[0]
+    assert smoke.albedo_bwd_macs(acfg, aw) == 145_664 + 138_752 + 145_664
+    assert smoke.nerf_bwd_macs(ncfg, nw) == 603_520 + 557_696 + 604_160

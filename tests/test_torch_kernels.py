@@ -8,8 +8,9 @@ without one (a CUDA kernel has no CPU mode).
 Full widths (8x256 SDF net, 310→256→256→3 albedo net, the 8x256 background
 NeRF with its 84-wide PE, 340-wide skip input and 283-wide views layer) at a
 point count that is not a multiple of the 16-point tile of the CUDA-core
-kernels nor of the 64-point tile of the tensor-core ones. The SDF core runs
-both of its routes: bf16 on the tensor cores, f32 on the CUDA cores. Tolerances, relative to the norm of
+kernels nor of the 64-point tile of the tensor-core ones. The SDF core and
+the albedo and NeRF backwards run both of their routes: bf16 on the tensor
+cores, f32 on the CUDA cores. Tolerances, relative to the norm of
 the plain result: 1e-4 at f32 operands (summation order only), 1e-2 at bf16
 operands (a different summation order can flip the bf16 rounding of an
 activation, one bf16 ulp = 2^-8 relative).
@@ -32,6 +33,12 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _moved(before):
+    """The launch counters that moved since ``before``, by how much."""
+    return {k: _build.launches[k] - before[k] for k in _build.launches
+            if _build.launches[k] != before[k]}
 
 
 def _close(got, want, tol):
@@ -89,9 +96,7 @@ def test_sdf_core_kernels(cuda, dtype, n):
     rw, rb = sdf_core.sdf_core_bwd_plain(cfg, pts, ws, bs, *cots, dtype)
     _close(gw + gb, rw + rb, TOL[dtype])
     torch.cuda.synchronize()
-    moved = {k: _build.launches[k] - n0[k] for k in _build.launches
-             if _build.launches[k] != n0[k]}
-    assert moved == ROUTE[dtype]
+    assert _moved(n0) == ROUTE[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -135,23 +140,54 @@ def _albedo_setup(dev, n=N):
     return cfg, ws, bs, pts, nrm, feat, c_out
 
 
+# the albedo and NeRF counters of each route (the forwards have one route)
+ALB_ROUTE = {torch.bfloat16: {"albedo_fwd": 1, "albedo_bwd": 1,
+                              "albedo_dw_gemm": 3},
+             torch.float32: {"albedo_fwd": 1, "albedo_bwd_f32": 1}}
+NERF_ROUTE = {torch.bfloat16: {"nerf_fwd": 1, "nerf_bwd": 1,
+                               "nerf_dw_gemm": 11},
+              torch.float32: {"nerf_fwd": 1, "nerf_bwd_f32": 1}}
+
+
+@pytest.mark.parametrize("n", [N, 37])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_albedo_kernels(cuda, dtype):
-    cfg, ws, bs, pts, nrm, feat, c_out = _albedo_setup(cuda)
+def test_albedo_kernels(cuda, dtype, n):
+    """Both backward routes against the plain version, at a ragged count
+    and at one mostly padded tile; the counters show which route ran."""
+    cfg, ws, bs, pts, nrm, feat, c_out = _albedo_setup(cuda, n)
+    n0 = dict(_build.launches)
     _close([albedo.albedo_fwd(cfg, pts, nrm, feat, ws, bs, dtype)],
            [albedo.albedo_fwd_plain(cfg, pts, nrm, feat, ws, bs, dtype)],
            TOL[dtype])
     g = albedo.albedo_bwd(cfg, pts, nrm, feat, ws, bs, c_out, dtype)
     r = albedo.albedo_bwd_plain(cfg, pts, nrm, feat, ws, bs, c_out, dtype)
     _close(g[0] + g[1] + [g[2], g[3]], r[0] + r[1] + [r[2], r[3]], TOL[dtype])
+    torch.cuda.synchronize()
+    assert _moved(n0) == ALB_ROUTE[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_albedo_ragged_rows_add_nothing(cuda, dtype):
+    """dW, db over N points equal the sums over two ragged parts (517 and
+    520 points), and the per-point cotangents are the parts' rows."""
+    cfg, ws, bs, pts, nrm, feat, c_out = _albedo_setup(cuda)
+    k = 517
+    full = albedo.albedo_bwd(cfg, pts, nrm, feat, ws, bs, c_out, dtype)
+    a = albedo.albedo_bwd(cfg, pts[:k], nrm[:k], feat[:k], ws, bs, c_out[:k],
+                          dtype)
+    b = albedo.albedo_bwd(cfg, pts[k:], nrm[k:], feat[k:], ws, bs, c_out[k:],
+                          dtype)
+    _close(full[0] + full[1],
+           [x + y for x, y in zip(a[0] + a[1], b[0] + b[1])], 1e-5)
+    _close(full[2:], [torch.cat([x, y]) for x, y in zip(a[2:], b[2:])], 1e-6)
 
 
 def _nerf_setup(dev, n=N):
     """The shipped background NeRF on points drawn as render_core_outside
     feeds them ([x/r, 1/r], |x| = 1, 1/r in (0.1, 1]), kept where every
-    ReLU pre-activation is at least 2e-5 from 0 (nerf.relu_margin: nearer,
-    the f32 summation noise of ~1e-6 can flip a mask between kernel and
-    plain version)."""
+    ReLU pre-activation is at least 2e-5 from 0 at both op dtypes
+    (nerf.relu_margin: nearer, the summation noise of ~1e-6 can flip a mask
+    between kernel and plain version)."""
     cfg = fields.NeRFConfig()
     gen = torch.Generator().manual_seed(2)
     ws, bs = nerf.flatten_params(fields.init_nerf(gen, cfg, device="cpu"))
@@ -160,7 +196,8 @@ def _nerf_setup(dev, n=N):
     r = torch.rand(m, 1, generator=gen) * 0.9 + 0.1
     pts = torch.cat([x, r], dim=-1)
     views = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=-1)
-    keep = nerf.relu_margin(cfg, pts, views, ws, bs) >= 2e-5
+    keep = ((nerf.relu_margin(cfg, pts, views, ws, bs) >= 2e-5)
+            & (nerf.relu_margin(cfg, pts, views, ws, bs, torch.bfloat16) >= 2e-5))
     assert keep.sum() >= n
     pts, views = pts[keep][:n].to(dev), views[keep][:n].to(dev)
     cots = (torch.randn(n, 1, generator=gen).to(dev),
@@ -168,13 +205,15 @@ def _nerf_setup(dev, n=N):
     return cfg, [w.to(dev) for w in ws], [b.to(dev) for b in bs], pts, views, cots
 
 
+@pytest.mark.parametrize("n", [N, 37])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_nerf_kernels(cuda, dtype):
+def test_nerf_kernels(cuda, dtype, n):
     """At bf16 the backward is held to the norm of all its tensors together:
     db of a trunk layer sums O(1) cotangents of random sign over the points
     and cancels to a small norm, where a one-ulp bf16 flip of an activation
-    weighs ~1e-2 even between two plain versions (CPU and cuBLAS)."""
-    cfg, ws, bs, pts, views, cots = _nerf_setup(cuda)
+    weighs ~1e-2 even between two plain versions (CPU and cuBLAS). The
+    counters show which backward route ran."""
+    cfg, ws, bs, pts, views, cots = _nerf_setup(cuda, n)
     n0 = dict(_build.launches)
     _close(nerf.nerf_fwd(cfg, pts, views, ws, bs, dtype),
            nerf.nerf_fwd_plain(cfg, pts, views, ws, bs, dtype), TOL[dtype])
@@ -183,19 +222,19 @@ def test_nerf_kernels(cuda, dtype):
     (_close if dtype == torch.float32 else _close_joint)(gw + gb, rw + rb,
                                                          TOL[dtype])
     torch.cuda.synchronize()
-    assert _build.launches["nerf_fwd"] == n0["nerf_fwd"] + 1
-    assert _build.launches["nerf_bwd"] == n0["nerf_bwd"] + 1
+    assert _moved(n0) == NERF_ROUTE[dtype]
 
 
-def test_nerf_ragged_rows_add_nothing(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_ragged_rows_add_nothing(cuda, dtype):
     """dW over N points equals the sum of dW over two ragged parts."""
     cfg, ws, bs, pts, views, cots = _nerf_setup(cuda)
     k = 517
-    full = nerf.nerf_bwd(cfg, pts, views, ws, bs, *cots, torch.float32)
+    full = nerf.nerf_bwd(cfg, pts, views, ws, bs, *cots, dtype)
     a = nerf.nerf_bwd(cfg, pts[:k], views[:k], ws, bs, *(c[:k] for c in cots),
-                      torch.float32)
+                      dtype)
     b = nerf.nerf_bwd(cfg, pts[k:], views[k:], ws, bs, *(c[k:] for c in cots),
-                      torch.float32)
+                      dtype)
     _close(full[0] + full[1], [x + y for x, y in zip(a[0] + a[1], b[0] + b[1])],
            1e-5)
 
@@ -234,3 +273,24 @@ def test_wrappers_reject_bad_input(cuda):
         nerf.nerf_fwd(ncfg, npts[:, :3], views, nws, nbs)
     with pytest.raises(ValueError):
         nerf.nerf_fwd(ncfg, npts, views[:16], nws, nbs)
+    # widths the tensor-core backwards do not take: they raise, never fall
+    # back to the CUDA-core route
+    n0 = dict(_build.launches)
+    gen = torch.Generator().manual_seed(5)
+    for W in (512, 128):   # the bf16 NeRF trunk is exactly 256 wide
+        other = fields.NeRFConfig(W=W)
+        ww, wb = nerf.flatten_params(fields.init_nerf(gen, other, device=cuda))
+        with pytest.raises(ValueError):
+            nerf.nerf_bwd(other, npts, views, ww, wb,
+                          torch.zeros(32, 1, device=cuda),
+                          torch.zeros(32, 3, device=cuda))
+    acfg = fields.RenderingConfig(d_hidden=512)
+    aparams = fields.init_rendering_network(gen, acfg, cuda)
+    aw = [fields.fold_weight_norm(l) for l in aparams]
+    ab = [l["b"] for l in aparams]
+    apts, anrm = npts[:, :3], torch.nn.functional.normalize(npts[:, :3], dim=-1)
+    afeat = torch.zeros(32, acfg.d_feature, device=cuda)
+    with pytest.raises(ValueError):
+        albedo.albedo_bwd(acfg, apts, anrm, afeat, aw, ab,
+                          torch.zeros(32, 3, device=cuda))
+    assert _moved(n0) == {}
