@@ -8,8 +8,8 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      its main path's point count and at a ragged one: the SDF core and
      albedo at 512 rays x 128 samples = 65,536 and 65,573, the background
      NeRF at 512 x (128 + 4) = 67,584 and 67,617 (the SDF core and the
-     albedo and NeRF backwards on both routes: bf16 on the tensor cores,
-     f32 on the CUDA cores), the four SDF-forward ablation
+     albedo and NeRF forwards and backwards on both routes: bf16 on the
+     tensor cores, f32 on the CUDA cores), the four SDF-forward ablation
      variants of both routes at 65,536, the bf16 backward's dW product for
      one 256x256 layer over 2 x 65,536 rows; f32 operands within 1e-4 and
      bf16 operands within 1e-2 of the plain result's norm; times kernel and
@@ -39,8 +39,9 @@ bf16 route, its dW product and albedo, the wmask parity step for the f32
 routes of the SDF core and albedo, the womask step for the NeRF and the
 womask parity step for its f32 route, the ablation run for the ablation
 variants), `ms` / `plain_ms` are at the main-path shape with the
-route's operands (bf16 unless named f32; for the ablation kernel: one
-launch of each of its four variants), `bound_ms` is the larger of the
+route's operands (bf16 unless named f32; the bf16 albedo and NeRF kernels
+on the weight image their op packs once a step; for the ablation kernel:
+one launch of each of its four variants), `bound_ms` is the larger of the
 least bytes (inputs read once, outputs written once) over 3.35 TB/s and the
 least multiply-adds over the peak of their type (989 TFLOP/s bf16 on the
 tensor cores, 67 TFLOP/s f32 on the CUDA cores), from this run's shapes,
@@ -71,8 +72,9 @@ WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "sdf_dw_gemm", "albedo_fwd",
 WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd", "nerf_dw_gemm")
 # the f32 routes' kernels (CUDA cores): launched by the f32 parity step of
 # each conf, never by the bf16 training step
-WMASK_F32 = ("sdf_core_fwd_f32", "sdf_core_bwd_f32", "albedo_bwd_f32")
-WOMASK_F32 = WMASK_F32 + ("nerf_bwd_f32",)
+WMASK_F32 = ("sdf_core_fwd_f32", "sdf_core_bwd_f32", "albedo_fwd_f32",
+             "albedo_bwd_f32")
+WOMASK_F32 = WMASK_F32 + ("nerf_fwd_f32", "nerf_bwd_f32")
 F32_ROUTE = WOMASK_F32
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12   # H100 SXM data sheet
 
@@ -91,12 +93,16 @@ KERNELS = {
                    "rnb_tpu/ops/pallas_albedo.py:85"),
     "albedo_bwd": ("rnb_tpu_torch/csrc/albedo.cu",
                    "rnb_tpu/ops/pallas_albedo.py:101"),
+    "albedo_fwd_f32": ("rnb_tpu_torch/csrc/albedo.cu",
+                       "rnb_tpu/ops/pallas_albedo.py:85"),
     "albedo_bwd_f32": ("rnb_tpu_torch/csrc/albedo.cu",
                        "rnb_tpu/ops/pallas_albedo.py:101"),
     "nerf_fwd": ("rnb_tpu_torch/csrc/nerf.cu",
                  "rnb_tpu/ops/pallas_nerf.py:105"),
     "nerf_bwd": ("rnb_tpu_torch/csrc/nerf.cu",
                  "rnb_tpu/ops/pallas_nerf.py:122"),
+    "nerf_fwd_f32": ("rnb_tpu_torch/csrc/nerf.cu",
+                     "rnb_tpu/ops/pallas_nerf.py:105"),
     "nerf_bwd_f32": ("rnb_tpu_torch/csrc/nerf.cu",
                      "rnb_tpu/ops/pallas_nerf.py:122"),
     "sdf_fwd_ablate": ("rnb_tpu_torch/csrc/sdf_core.cu",
@@ -130,8 +136,10 @@ def load(conf_spec):
     conf = config.load_conf(path)
     for o in overrides:
         config.apply_override(conf, o)
+    tcfg = steplib.train_conf(conf)
     return (fields.statics_from_conf(conf["model"]),
-            renderer.renderer_conf(conf["model"]), steplib.train_conf(conf))
+            steplib.apply_runtime_flags(renderer.renderer_conf(conf["model"]), tcfg),
+            tcfg)
 
 
 def nbytes(tensors):
@@ -243,6 +251,11 @@ def kernel_checks(dev):
     dtypes = (torch.float32, torch.bfloat16)
     sdf_w = [*sw, *sb]
     alb_w = [*aw, *ab]
+    # the bf16 albedo and NeRF kernels take the weight image their op packs
+    # once a step for forward and backward (ops/albedo.py, ops/nerf.py
+    # wg_pack); they are checked and timed on it, as the step calls them
+    packs = {torch.bfloat16: (albedo.wg_pack(aw, ab), nerf.wg_pack(ncfg, nw, nb)),
+             torch.float32: (None, None)}
     for n in (MAIN_N, RAGGED_N):
         pts = (torch.rand(n, 3, generator=gen) * 1.6 - 0.8).to(dev)
         nrm = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
@@ -253,6 +266,7 @@ def kernel_checks(dev):
         co = torch.randn(n, acfg.d_out, generator=gen).to(dev)
         for dtype in dtypes:
             route = "" if dtype == torch.bfloat16 else "_f32"
+            apk = packs[dtype][0]
             calls = {
                 "sdf_core_fwd" + route: (
                     lambda: list(sdf_core.sdf_core_fwd(scfg, pts, sw, sb, dtype)),
@@ -262,12 +276,12 @@ def kernel_checks(dev):
                     lambda: sum(sdf_core.sdf_core_bwd(scfg, pts, sw, sb, cs, cf, cg, dtype), []),
                     lambda: sum(sdf_core.sdf_core_bwd_plain(scfg, pts, sw, sb, cs, cf, cg, dtype), []),
                     [pts, *sdf_w, cs, cf, cg], n * sdf_macs(scfg, sw, True)),
-                "albedo_fwd": (
-                    lambda: [albedo.albedo_fwd(acfg, pts, nrm, feat, aw, ab, dtype)],
+                "albedo_fwd" + route: (
+                    lambda: [albedo.albedo_fwd(acfg, pts, nrm, feat, aw, ab, dtype, apk)],
                     lambda: [albedo.albedo_fwd_plain(acfg, pts, nrm, feat, aw, ab, dtype)],
                     [pts, nrm, feat, *alb_w], n * chain_macs(aw)),
                 "albedo_bwd" + route: (
-                    lambda: _flat_alb(albedo.albedo_bwd(acfg, pts, nrm, feat, aw, ab, co, dtype)),
+                    lambda: _flat_alb(albedo.albedo_bwd(acfg, pts, nrm, feat, aw, ab, co, dtype, apk)),
                     lambda: _flat_alb(albedo.albedo_bwd_plain(acfg, pts, nrm, feat, aw, ab, co, dtype)),
                     [pts, nrm, feat, *alb_w, co], n * albedo_bwd_macs(acfg, aw)),
             }
@@ -316,16 +330,17 @@ def kernel_checks(dev):
         ca = torch.randn(n, 1, generator=gen).to(dev)
         cr = torch.randn(n, 3, generator=gen).to(dev)
         for dtype in dtypes:
-            timed = n == NERF_N and dtype == torch.bfloat16
+            timed = n == NERF_N
             route = "" if dtype == torch.bfloat16 else "_f32"
-            check_kernel(results, "nerf_fwd", n, dtype,
-                         lambda: list(nerf.nerf_fwd(ncfg, pts4, views, nw, nb, dtype)),
+            npk = packs[dtype][1]
+            check_kernel(results, "nerf_fwd" + route, n, dtype,
+                         lambda: list(nerf.nerf_fwd(ncfg, pts4, views, nw, nb, dtype, npk)),
                          lambda: list(nerf.nerf_fwd_plain(ncfg, pts4, views, nw, nb, dtype)),
                          timed, [pts4, views, *nw, *nb], n * chain_macs(nw))
             check_kernel(results, "nerf_bwd" + route, n, dtype,
-                         lambda: sum(nerf.nerf_bwd(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
+                         lambda: sum(nerf.nerf_bwd(ncfg, pts4, views, nw, nb, ca, cr, dtype, npk), []),
                          lambda: sum(nerf.nerf_bwd_plain(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
-                         n == NERF_N, [pts4, views, *nw, *nb, ca, cr],
+                         timed, [pts4, views, *nw, *nb, ca, cr],
                          n * nerf_bwd_macs(ncfg, nw))
         del pts4, views, ca, cr
         torch.cuda.empty_cache()
@@ -507,8 +522,8 @@ def main():
     _build.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_build.build_info['path']})")
-    for name, rep in _build.ptxas_summary("sdf_", "dw_gemm", "albedo_bwd",
-                                          "nerf_bwd").items():
+    for name, rep in _build.ptxas_summary("sdf_", "dw_gemm", "albedo_",
+                                          "nerf_").items():
         log(f"[ptxas] {name}: {rep}")
 
     kern = kernel_checks(dev)

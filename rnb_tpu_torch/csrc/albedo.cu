@@ -11,17 +11,17 @@
 //             c_feat = bar_x0[:, 2E:]; c_normals by the reverse of PE(n).
 //             The pts cotangent is zero.
 //
-// Two routes for the backward, chosen by the op dtype (ops/albedo.py), never
-// by failure: bf16 (the training step's) albedo_bwd_wg_kernel on the tensor
-// cores, designed below; f32 (the f32 comparisons) albedo_bwd_kernel on the
-// CUDA cores. The forward has one kernel, albedo_fwd_kernel.
+// Two routes each, chosen by the op dtype (ops/albedo.py), never by
+// failure: bf16 (the training step's) albedo_fwd_wg_kernel and
+// albedo_bwd_wg_kernel on the tensor cores, designed below; f32 (the f32
+// comparisons) albedo_fwd_kernel and albedo_bwd_kernel on the CUDA cores.
 //
-// What bounds them: arithmetic, ~0.15 M multiply-adds per point per chain
-// at the shipped conf (310→256→256→3). The CUDA-core kernels compute one
-// output column a thread; the f32 backward keeps the pre-activations it
-// needs in a global scratch written and read by the same block, and its dW
-// operands are reduced across points by the split-K kernels of common.cuh
-// (deterministic, no atomics).
+// What bounds the f32 route: arithmetic, ~0.15 M multiply-adds per point
+// per chain at the shipped conf (310→256→256→3). The CUDA-core kernels
+// compute one output column a thread; the f32 backward keeps the
+// pre-activations it needs in a global scratch written and read by the same
+// block, and its dW operands are reduced across points by the split-K
+// kernels of common.cuh (deterministic, no atomics).
 #include "common.cuh"
 
 // [x, sin(f0 x), cos(f0 x), ...] by the double-angle recurrence, for one
@@ -41,11 +41,11 @@ __device__ __forceinline__ void albedo_pe(float x, int d, int multires,
   }
 }
 
-// x0 of the tile into X (rounded to the op dtype)
+// x0 of the tile into X (f32)
 __device__ __forceinline__ void albedo_input(
     const float* __restrict__ pts, const float* __restrict__ nrm,
-    const float* __restrict__ feat, long long n, int F, int multires, int bf,
-    long long n0, int in0, int LD, float* X) {
+    const float* __restrict__ feat, long long n, int F, int multires,
+    long long n0, int LD, float* X) {
   constexpr int P = RNB_P;
   const int E = 3 * (1 + 2 * multires);
   for (int idx = threadIdx.x; idx < P * 3; idx += blockDim.x) {
@@ -62,18 +62,13 @@ __device__ __forceinline__ void albedo_input(
     X[p * LD + 2 * E + f] = row < n ? feat[row * F + f] : 0.0f;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < P * in0; idx += blockDim.x) {
-    const int p = idx / in0, i = idx % in0;
-    X[p * LD + i] = rnb_rnd(X[p * LD + i], bf);
-  }
-  __syncthreads();
 }
 
 static __global__ void __launch_bounds__(RNB_NT)
 albedo_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                   const float* __restrict__ feat, long long n, int F,
                   const float* __restrict__ w, const float* __restrict__ b,
-                  RnbNet net, int multires, int bf, float* __restrict__ out) {
+                  RnbNet net, int multires, float* __restrict__ out) {
   constexpr int P = RNB_P;
   extern __shared__ __align__(16) float smem[];
   const int LD = net.ld;
@@ -81,7 +76,7 @@ albedo_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   float* spare = cur + P * LD; // [P][LD]
   const long long n0 = (long long)blockIdx.x * P;
   const int L = net.n_layers;
-  albedo_input(pts, nrm, feat, n, F, multires, bf, n0, net.in_dim[0], LD, cur);
+  albedo_input(pts, nrm, feat, n, F, multires, n0, LD, cur);
   for (int l = 0; l < L; ++l) {
     const int in = net.in_dim[l], o = net.out_dim[l];
     const float* W = w + net.w_off[l];
@@ -94,7 +89,7 @@ albedo_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
       for (int p = 0; p < P; ++p) {
         const float z = acc[p] + bc;
         if (l < L - 1) {
-          spare[p * LD + c] = rnb_rnd(fmaxf(z, 0.0f), bf);
+          spare[p * LD + c] = fmaxf(z, 0.0f);
         } else {
           const long long row = n0 + p;
           if (row < n) out[row * o + c] = rnb_sigmoid(z);
@@ -111,7 +106,7 @@ albedo_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                   const float* __restrict__ feat, long long n, int F,
                   const float* __restrict__ w, const float* __restrict__ wt,
                   const float* __restrict__ b, RnbNet net, int multires,
-                  int bf, const float* __restrict__ cout,
+                  const float* __restrict__ cout,
                   float* __restrict__ rec, int rec_ld,
                   float* __restrict__ abuf, float* __restrict__ bbuf,
                   float* __restrict__ cnrm, float* __restrict__ cfeat) {
@@ -123,7 +118,7 @@ albedo_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   const long long n0 = (long long)blockIdx.x * P;
   const int L = net.n_layers;
   const int E = 3 * (1 + 2 * multires);
-  albedo_input(pts, nrm, feat, n, F, multires, bf, n0, net.in_dim[0], LD, cur);
+  albedo_input(pts, nrm, feat, n, F, multires, n0, LD, cur);
 
   // --- recompute, recording layer inputs (A rows) and pre-activations ---
   for (int l = 0; l < L; ++l) {
@@ -146,7 +141,7 @@ albedo_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
         const float z = acc[p] + bc;
         if (l < L - 1) {
           if (row < n) rec[((long long)l * n + row) * rec_ld + c] = z;
-          spare[p * LD + c] = rnb_rnd(fmaxf(z, 0.0f), bf);
+          spare[p * LD + c] = fmaxf(z, 0.0f);
         } else {
           // bar_z of the sigmoid head
           const float s = rnb_sigmoid(z);
@@ -168,7 +163,6 @@ albedo_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
       const long long row = n0 + p;
       const float z = cur[p * LD + j];
       if (row < n) B[row * o + j] = z;
-      cur[p * LD + j] = rnb_rnd(z, bf);
     }
     __syncthreads();
     const float* WT = wt + net.w_off[l];
@@ -218,11 +212,12 @@ albedo_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   }
 }
 
+// The f32 route's forward (f32 operands).
 extern "C" int rnb_albedo_fwd(const float* pts, const float* nrm,
                               const float* feat, long long n, int F,
                               const float* w, const float* b,
                               const int* in_dims, const int* out_dims,
-                              int n_layers, int multires, int bf, float* out,
+                              int n_layers, int multires, float* out,
                               void* stream) {
   RnbNet net;
   if (rnb_make_net(&net, in_dims, out_dims, nullptr, n_layers, n, 1))
@@ -233,11 +228,11 @@ extern "C" int rnb_albedo_fwd(const float* pts, const float* nrm,
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
   albedo_fwd_kernel<<<grid, RNB_NT, smem, (cudaStream_t)stream>>>(
-      pts, nrm, feat, n, F, w, b, net, multires, bf, out);
+      pts, nrm, feat, n, F, w, b, net, multires, out);
   return (int)cudaGetLastError();
 }
 
-// The f32 route's backward (f32 operands: the sweep runs with bf = 0).
+// The f32 route's backward (f32 operands).
 extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
                               const float* feat, long long n, int F,
                               const float* w, const float* wt, const float* b,
@@ -257,7 +252,7 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
   albedo_bwd_kernel<<<grid, RNB_NT, smem, st>>>(
-      pts, nrm, feat, n, F, w, wt, b, net, multires, 0, cout, rec, rec_ld,
+      pts, nrm, feat, n, F, w, wt, b, net, multires, cout, rec, rec_ld,
       abuf, bbuf, cnrm, cfeat);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -271,8 +266,21 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
 }
 
 // ===========================================================================
-// bf16 route: the backward on the tensor cores (wgmma, sm_90a)
+// bf16 route: the forward and the backward on the tensor cores (wgmma,
+// sm_90a)
 // ===========================================================================
+//
+// albedo_fwd_wg_kernel replaces the forward TPU kernel (pallas_albedo.py
+// _fwd_kernel :85) at bf16 operands; albedo_fwd_kernel above stays as the
+// f32 route. What bounds it on the H100: 145,664 multiply-adds and 1,048 B
+// of feature row read a point at the shipped conf, 0.019 ms of bf16 peak
+// and 0.020 ms of HBM for 65,536 points. What the design does about it: the
+// recompute half of albedo_bwd_wg_kernel below (x0 and every h in bf16 in
+// shared memory, the two hidden products as 4 warpgroups x 64 columns from
+// the streamed weight image, bias and ReLU in f32 in the epilogue), plus the
+// sigmoid head as one N = 8 product by warpgroup 0, written from its
+// accumulators; no mask bits, no operand rows. Two blocks an SM, so one
+// block's x0 loads overlap another's products.
 //
 // albedo_bwd_wg_kernel replaces the same TPU kernel (pallas_albedo.py
 // _bwd_kernel :101) at bf16 operands; albedo_bwd_kernel above stays as the
@@ -309,6 +317,97 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
 #define ALB_NT 512     // four warpgroups of 64 columns
 #define ALB_KW 320     // widest A tile: x0 (2E + F = 310 -> 320)
 #define ALB_STG 5120   // ring stage: the 320-wide reverse product, 2 x 40 cores
+#define ALB_FSTG 4096  // forward ring stage: N = 256, 2 x 32 cores
+
+// x0 = [PE(p), PE(n), feat] of the tile in bf16 into the A tile X (rows past
+// n from 0), its pad columns up to kp0 zero; ALB_NT threads (a constant
+// stride, so the feature loads are unrolled and in flight together).
+__device__ __forceinline__ void albedo_wg_x0(const float* __restrict__ pts,
+                                             const float* __restrict__ nrm,
+                                             const float* __restrict__ feat,
+                                             long long n, int F, int multires,
+                                             int E, int kp0, long long n0,
+                                             rnb_bf16* X) {
+  for (int idx = threadIdx.x; idx < WG_M * 6; idx += ALB_NT) {
+    const int p = idx / 6, q = (idx % 6) / 3, d = idx % 3;
+    const long long row = n0 + p;
+    const float x = row < n ? (q ? nrm : pts)[row * 3 + d] : 0.0f;
+    const int o = q * E;
+    X[wg_tidx(p, o + d)] = wg_bf(x);
+    float s = sinf(x), c = cosf(x);
+    for (int k = 0; k < multires; ++k) {
+      X[wg_tidx(p, o + 3 + 6 * k + d)] = wg_bf(s);
+      X[wg_tidx(p, o + 6 + 6 * k + d)] = wg_bf(c);
+      if (k + 1 < multires) {
+        const float s2 = 2.0f * s * c;
+        c = 1.0f - 2.0f * s * s;
+        s = s2;
+      }
+    }
+  }
+  const int fw = kp0 - 2 * E;
+  for (int idx = threadIdx.x; idx < WG_M * fw; idx += ALB_NT) {
+    const int p = idx / fw, f = idx - p * fw;
+    const long long row = n0 + p;
+    X[wg_tidx(p, 2 * E + f)] =
+        wg_bf(row < n && f < F ? feat[row * F + f] : 0.0f);
+  }
+  __syncthreads();
+}
+
+// Two blocks an SM (64 registers, no spill): one block an SM ran slower in
+// a trial build on the H100.
+static __global__ void __launch_bounds__(ALB_NT, 2)
+albedo_fwd_wg_kernel(const float* __restrict__ pts,
+                     const float* __restrict__ nrm,
+                     const float* __restrict__ feat, long long n, int F,
+                     const rnb_bf16* __restrict__ w, const float* __restrict__ b,
+                     RnbWgNet net, int multires, float* __restrict__ out) {
+  constexpr int RS = WG_RS;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][320]
+  rnb_bf16* ring = X + WG_M * ALB_KW;
+  WG_FRAG_ROWS;
+  const long long n0 = (long long)blockIdx.x * WG_M;
+  const int L = net.n_layers;
+  albedo_wg_x0(pts, nrm, feat, n, F, multires, net.E,
+               rnb_pad16(net.in_dim[0]), n0, X);
+
+  WgProduct prod;
+  float acc[32];
+  prod.set(w, net, 0, 0, 256);
+  pipe_prologue<RS, ALB_FSTG>(ring, prod.nk, prod);
+  // --- the hidden layers: relu(x W + b) in bf16 back into the A tile ---
+  for (int l = 0; l < L - 1; ++l) {
+    pipe_run<RS, ALB_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                          rnb_desc(st + wg * 8 * 64, 32 * 128, 128), t > 0);
+    });
+    if (l + 1 < L - 1) prod.set(w, net, l + 1, 0, 256);
+    else prod.set(w, net, L - 1, 0, 16);
+    pipe_prologue<RS, ALB_FSTG>(ring, prod.nk, prod);
+    wg_relu_put<8>(acc, b + net.b_off[l], net.out_dim[l], X, wg * 64);
+  }
+  // --- the sigmoid head (N = 8, warpgroup 0), from its accumulators ---
+  float acc8[4];
+  pipe_run<RS, ALB_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+    if (wg == 0)
+      rnb_wgmma_n8<0, 1>(acc8, rnb_desc(X + t * 1024, 1024, 128),
+                         rnb_desc(st, 2 * 128, 128), t > 0);
+  });
+  if (wg == 0) {
+    const int o = net.out_dim[L - 1];
+    const float* bl = b + net.b_off[L - 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const long long row = n0 + r0 + 8 * h;
+        const int c = cq + u;
+        if (c < o && row < n) out[row * o + c] = rnb_sigmoid(acc8[2 * h + u] + bl[c]);
+      }
+  }
+}
 
 static __global__ void __launch_bounds__(ALB_NT, 1)
 albedo_bwd_wg_kernel(const float* __restrict__ pts,
@@ -332,32 +431,7 @@ albedo_bwd_wg_kernel(const float* __restrict__ pts,
   const int L = net.n_layers, E = net.E, kp0 = rnb_pad16(net.in_dim[0]);
   float* dbt = dbp + tile * db_len;
 
-  // --- x0 = [PE(p), PE(n), feat] in bf16 (rows past n from 0), pads zero ---
-  for (int idx = tid; idx < WG_M * 6; idx += ALB_NT) {
-    const int p = idx / 6, q = (idx % 6) / 3, d = idx % 3;
-    const long long row = n0 + p;
-    const float x = row < n ? (q ? nrm : pts)[row * 3 + d] : 0.0f;
-    const int o = q * E;
-    X[wg_tidx(p, o + d)] = wg_bf(x);
-    float s = sinf(x), c = cosf(x);
-    for (int k = 0; k < multires; ++k) {
-      X[wg_tidx(p, o + 3 + 6 * k + d)] = wg_bf(s);
-      X[wg_tidx(p, o + 6 + 6 * k + d)] = wg_bf(c);
-      if (k + 1 < multires) {
-        const float s2 = 2.0f * s * c;
-        c = 1.0f - 2.0f * s * s;
-        s = s2;
-      }
-    }
-  }
-  const int fw = kp0 - 2 * E;
-  for (int idx = tid; idx < WG_M * fw; idx += ALB_NT) {
-    const int p = idx / fw, f = idx - p * fw;
-    const long long row = n0 + p;
-    X[wg_tidx(p, 2 * E + f)] =
-        wg_bf(row < n && f < F ? feat[row * F + f] : 0.0f);
-  }
-  __syncthreads();
+  albedo_wg_x0(pts, nrm, feat, n, F, multires, E, kp0, n0, X);
   wg_tile_out(X, kp0, n0, n, abuf + net.a_off[0]);
 
   WgProduct prod;
@@ -479,6 +553,58 @@ albedo_bwd_wg_kernel(const float* __restrict__ pts,
   }
 }
 
+// RnbWgNet of the albedo net (b and db offsets in layer order); a_off and
+// bb_off may be null (the forward writes no operand rows). Checks the widths
+// the tensor-core kernels take; returns the length of b, or -1.
+static int albedo_wg_net(RnbWgNet* net, const int* in_dims,
+                         const int* out_dims, const long long* w_off,
+                         const long long* a_off, const long long* bb_off,
+                         int n_layers, int multires, int F) {
+  if (n_layers < 2 || n_layers > RNB_MAXL) return -1;
+  net->n_layers = n_layers;
+  net->E = 3 * (1 + 2 * multires);
+  int db_len = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    net->in_dim[l] = in_dims[l];
+    net->out_dim[l] = out_dims[l];
+    net->skip[l] = 0;
+    net->hd[l] = in_dims[l];
+    net->w_off[l] = w_off[l];
+    net->a_off[l] = a_off ? a_off[l] : 0;
+    net->bb_off[l] = bb_off ? bb_off[l] : 0;
+    net->b_off[l] = db_len;
+    db_len += out_dims[l];
+    const bool in_ok = l == 0 ? in_dims[0] == 2 * net->E + F && in_dims[0] <= ALB_KW
+                              : in_dims[l] == out_dims[l - 1];
+    if (!in_ok || out_dims[l] > (l + 1 < n_layers ? 256 : 8) || w_off[l] % 8)
+      return -1;
+  }
+  return db_len;
+}
+
+// The bf16 forward: out [n, d_out] = sigmoid of the head. w is the bf16
+// weight image (ops/wg.py pack_weights) at w_off.
+extern "C" int rnb_albedo_fwd_wg(const float* pts, const float* nrm,
+                                 const float* feat, long long n, int F,
+                                 const void* w, const float* b,
+                                 const int* in_dims, const int* out_dims,
+                                 const long long* w_off, int n_layers,
+                                 int multires, float* out, void* stream) {
+  RnbWgNet net;
+  if (albedo_wg_net(&net, in_dims, out_dims, w_off, nullptr, nullptr,
+                    n_layers, multires, F) < 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)(sizeof(rnb_bf16) * (WG_M * ALB_KW + WG_RS * ALB_FSTG));
+  cudaError_t err = cudaFuncSetAttribute(
+      albedo_fwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + WG_M - 1) / WG_M;
+  albedo_fwd_wg_kernel<<<(unsigned)tiles, ALB_NT, smem, (cudaStream_t)stream>>>(
+      pts, nrm, feat, n, F, static_cast<const rnb_bf16*>(w), b, net, multires,
+      out);
+  return (int)cudaGetLastError();
+}
+
 // The bf16 backward sweep: fills the bf16 dW scratch (A rows at a_off, B
 // rows at bb_off, n rows of pad16(width) each), writes db, c_normals and
 // c_feat; the wrapper then runs rnb_dw_gemm per layer. w is the bf16 weight
@@ -494,26 +620,10 @@ extern "C" int rnb_albedo_bwd_wg(const float* pts, const float* nrm,
                                  int multires, const float* cout, void* abuf,
                                  void* bbuf, float* dbp, float* db,
                                  float* cnrm, float* cfeat, void* stream) {
-  if (n_layers < 2 || n_layers > RNB_MAXL) return (int)cudaErrorInvalidValue;
   RnbWgNet net;
-  net.n_layers = n_layers;
-  net.E = 3 * (1 + 2 * multires);
-  int db_len = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    net.in_dim[l] = in_dims[l];
-    net.out_dim[l] = out_dims[l];
-    net.skip[l] = 0;
-    net.hd[l] = in_dims[l];
-    net.w_off[l] = w_off[l];
-    net.a_off[l] = a_off[l];
-    net.bb_off[l] = bb_off[l];
-    net.b_off[l] = db_len;
-    db_len += out_dims[l];
-    const bool in_ok = l == 0 ? in_dims[0] == 2 * net.E + F && in_dims[0] <= ALB_KW
-                              : in_dims[l] == out_dims[l - 1];
-    if (!in_ok || out_dims[l] > (l + 1 < n_layers ? 256 : 8) || w_off[l] % 8)
-      return (int)cudaErrorInvalidValue;
-  }
+  const int db_len = albedo_wg_net(&net, in_dims, out_dims, w_off, a_off,
+                                   bb_off, n_layers, multires, F);
+  if (db_len < 0) return (int)cudaErrorInvalidValue;
   const int smem = (int)(sizeof(rnb_bf16) * (WG_M * ALB_KW + WG_RS * ALB_STG) +
                          sizeof(float) * 4 * 256 +
                          sizeof(uint32_t) * (n_layers - 1) * ALB_NT);

@@ -23,28 +23,29 @@
 // ~0.60 M multiply-adds forward (8x256 trunk with an 84-wide PE and a
 // 340-wide skip input, 256+1 heads, 283→128→3 views/rgb); the backward
 // recomputes the forward, runs the reverse products (~0.55 M) and the dW
-// reduction (~0.60 M). The forward and the f32 route of the backward run
-// on the CUDA cores in fp32, one thread per output column as the other
-// CUDA-core sweep kernels do; the 1- and 3-wide heads leave most threads of
-// their pass idle. That backward records the layer inputs (A rows), the
+// reduction (~0.60 M). The f32 routes of both run on the CUDA cores in
+// fp32, one thread per output column as the other CUDA-core sweep kernels
+// do; the 1- and 3-wide heads leave most threads of their pass idle. The
+// f32 backward records the layer inputs (A rows), the
 // pre-activation cotangents (B rows) and the ReLU pre-activations in global
 // scratch written and read by the same block; the split-K kernels of
 // common.cuh reduce dW and db across points.
 //
-// Two routes for the backward, chosen by the op dtype (ops/nerf.py), never
-// by failure: bf16 (the training step's) nerf_bwd_wg_kernel on the tensor
-// cores, designed below; f32 (the f32 comparisons) nerf_bwd_kernel.
+// Two routes each, chosen by the op dtype (ops/nerf.py), never by failure:
+// bf16 (the training step's) nerf_fwd_wg_kernel and nerf_bwd_wg_kernel on
+// the tensor cores, designed below; f32 (the f32 comparisons)
+// nerf_fwd_kernel and nerf_bwd_kernel.
 #include "common.cuh"
 
 // [x, sin(f0 x), cos(f0 x), ...] of channel d of a C-channel input, by the
-// double-angle recurrence, rounded to the op dtype, into row e.
+// double-angle recurrence, into row e.
 __device__ __forceinline__ void nerf_pe(float x, int d, int C, int multires,
-                                        int bf, float* e) {
-  e[d] = rnb_rnd(x, bf);
+                                        float* e) {
+  e[d] = x;
   float s = sinf(x), c = cosf(x);
   for (int k = 0; k < multires; ++k) {
-    e[C * (1 + 2 * k) + d] = rnb_rnd(s, bf);
-    e[C * (2 + 2 * k) + d] = rnb_rnd(c, bf);
+    e[C * (1 + 2 * k) + d] = s;
+    e[C * (2 + 2 * k) + d] = c;
     if (k + 1 < multires) {
       const float s2 = 2.0f * s * c;
       c = 1.0f - 2.0f * s * s;
@@ -56,19 +57,18 @@ __device__ __forceinline__ void nerf_pe(float x, int d, int C, int multires,
 // PE(pts) of the tile into sE [P][LDE], PE(views) into sV [P][LDV]
 __device__ __forceinline__ void nerf_inputs(
     const float* __restrict__ pts, const float* __restrict__ views,
-    long long n, int C, int multires, int multires_view, int bf, long long n0,
+    long long n, int C, int multires, int multires_view, long long n0,
     int LDE, int LDV, float* sE, float* sV) {
   constexpr int P = RNB_P;
   for (int idx = threadIdx.x; idx < P * C; idx += blockDim.x) {
     const int p = idx / C, d = idx % C;
     const long long row = n0 + p;
-    nerf_pe(row < n ? pts[row * C + d] : 0.0f, d, C, multires, bf,
-            sE + p * LDE);
+    nerf_pe(row < n ? pts[row * C + d] : 0.0f, d, C, multires, sE + p * LDE);
   }
   for (int idx = threadIdx.x; idx < P * 3; idx += blockDim.x) {
     const int p = idx / 3, d = idx % 3;
     const long long row = n0 + p;
-    nerf_pe(row < n ? views[row * 3 + d] : 0.0f, d, 3, multires_view, bf,
+    nerf_pe(row < n ? views[row * 3 + d] : 0.0f, d, 3, multires_view,
             sV + p * LDV);
   }
   __syncthreads();
@@ -93,7 +93,7 @@ template <bool RECORD>
 __device__ __forceinline__ float* nerf_primal(
     const float* __restrict__ w, const float* __restrict__ b,
     const RnbNet& net, unsigned skips, const float* sE, int LDE,
-    const float* sV, int LDV, int bf, long long n0, long long n, float* bufA,
+    const float* sV, int LDV, long long n0, long long n, float* bufA,
     float* bufB, float* __restrict__ rec, int rec_ld,
     float* __restrict__ abuf, float* __restrict__ alpha) {
   constexpr int P = RNB_P;
@@ -124,7 +124,7 @@ __device__ __forceinline__ float* nerf_primal(
           const long long row = n0 + p;
           if (row < n) rec[((long long)i * n + row) * rec_ld + c] = z;
         }
-        dst[p * LD + off + c] = rnb_rnd(fmaxf(z, 0.0f), bf);
+        dst[p * LD + off + c] = fmaxf(z, 0.0f);
       }
     }
     __syncthreads();
@@ -154,7 +154,7 @@ __device__ __forceinline__ float* nerf_primal(
       rnb_dot_col<P>(h, LD, net.in_dim[lf], w + net.w_off[lf], of, c, acc);
       const float bc = b[net.b_off[lf] + c];
 #pragma unroll
-      for (int p = 0; p < P; ++p) h2[p * LD + c] = rnb_rnd(acc[p] + bc, bf);
+      for (int p = 0; p < P; ++p) h2[p * LD + c] = acc[p] + bc;
     } else {
       const int ca = c - of;
       rnb_dot_col<P>(h, LD, net.in_dim[la], w + net.w_off[la], oa, ca, acc);
@@ -181,7 +181,7 @@ __device__ __forceinline__ float* nerf_primal(
         const long long row = n0 + p;
         if (row < n) rec[((long long)D * n + row) * rec_ld + c] = z;
       }
-      h[p * LD + c] = rnb_rnd(fmaxf(z, 0.0f), bf);
+      h[p * LD + c] = fmaxf(z, 0.0f);
     }
   }
   __syncthreads();
@@ -193,8 +193,8 @@ static __global__ void __launch_bounds__(RNB_NT)
 nerf_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
                 long long n, int C, const float* __restrict__ w,
                 const float* __restrict__ b, RnbNet net, unsigned skips,
-                int multires, int multires_view, int bf,
-                float* __restrict__ alpha, float* __restrict__ rgb) {
+                int multires, int multires_view, float* __restrict__ alpha,
+                float* __restrict__ rgb) {
   constexpr int P = RNB_P;
   extern __shared__ __align__(16) float smem[];
   const int D = net.n_layers - 4;
@@ -206,10 +206,9 @@ nerf_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
   float* bufA = sV + P * LDV;    // [P][LD]
   float* bufB = bufA + P * LD;   // [P][LD]
   const long long n0 = (long long)blockIdx.x * P;
-  nerf_inputs(pts, views, n, C, multires, multires_view, bf, n0, LDE, LDV, sE,
-              sV);
-  const float* hv = nerf_primal<false>(w, b, net, skips, sE, LDE, sV, LDV, bf,
-                                       n0, n, bufA, bufB, nullptr, 0, nullptr,
+  nerf_inputs(pts, views, n, C, multires, multires_view, n0, LDE, LDV, sE, sV);
+  const float* hv = nerf_primal<false>(w, b, net, skips, sE, LDE, sV, LDV, n0,
+                                       n, bufA, bufB, nullptr, 0, nullptr,
                                        alpha);
   const int lr = D + 3;
   const int orr = net.out_dim[lr];
@@ -228,11 +227,11 @@ nerf_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
 // One reverse product of a tile: for c < cols,
 //   v[p] = Σ_j X[p][j] M[j][c0 + c]   (M rows of width C; X already rounded)
 //   bar  = v ⊙ [rec[p][c] > 0]        (no mask where rec is null)
-// then the B rows of the layer below get bar, and Y[p][yoff + c] = rnd(bar).
+// then the B rows of the layer below get bar, and Y[p][yoff + c] = bar.
 __device__ __forceinline__ void nerf_reverse(
     const float* X, int LD, int R, const float* __restrict__ M, int C, int c0,
     int cols, const float* __restrict__ rec, int rec_ld, long long n0,
-    long long n, int bf, float* __restrict__ B, float* Y, int yoff) {
+    long long n, float* __restrict__ B, float* Y, int yoff) {
   constexpr int P = RNB_P;
   for (int c = threadIdx.x; c < cols; c += blockDim.x) {
     float acc[P];
@@ -244,7 +243,7 @@ __device__ __forceinline__ void nerf_reverse(
       if (rec != nullptr)
         v = (row < n && rec[row * rec_ld + c] > 0.0f) ? v : 0.0f;
       if (row < n) B[row * cols + c] = v;
-      Y[p * LD + yoff + c] = rnb_rnd(v, bf);
+      Y[p * LD + yoff + c] = v;
     }
   }
 }
@@ -258,7 +257,7 @@ nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
                 long long n, int C, const float* __restrict__ w,
                 const float* __restrict__ wt, const float* __restrict__ b,
                 RnbNet net, unsigned skips, int multires, int multires_view,
-                int bf, const float* __restrict__ calpha,
+                const float* __restrict__ calpha,
                 const float* __restrict__ crgb, float* __restrict__ rec,
                 int rec_ld, float* __restrict__ abuf,
                 float* __restrict__ bbuf) {
@@ -276,10 +275,9 @@ nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
   float* bufB = bufA + P * LD;
   const long long n0 = (long long)blockIdx.x * P;
   const long long rstride = n * rec_ld;  // one layer's rec rows
-  nerf_inputs(pts, views, n, C, multires, multires_view, bf, n0, LDE, LDV, sE,
-              sV);
-  float* Y = nerf_primal<true>(w, b, net, skips, sE, LDE, sV, LDV, bf, n0, n,
-                               bufA, bufB, rec, rec_ld, abuf, nullptr);
+  nerf_inputs(pts, views, n, C, multires, multires_view, n0, LDE, LDV, sE, sV);
+  float* Y = nerf_primal<true>(w, b, net, skips, sE, LDE, sV, LDV, n0, n, bufA,
+                               bufB, rec, rec_ld, abuf, nullptr);
   float* X = Y == bufA ? bufB : bufA;
   const int oa = net.out_dim[la], of = net.out_dim[lf];
   const int ov = net.out_dim[lv], orr = net.out_dim[lr];
@@ -290,13 +288,12 @@ nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
     const long long row = n0 + p;
     const float co = row < n ? crgb[row * orr + j] : 0.0f;
     if (row < n) bbuf[net.bb_off[lr] + row * orr + j] = co;
-    X[p * LD + j] = rnb_rnd(co, bf);
+    X[p * LD + j] = co;
   }
   __syncthreads();
   // views layer: bar_z_v = (c_rgb W_rgbᵀ) ⊙ [z_v > 0]
   nerf_reverse(X, LD, orr, wt + net.w_off[lr], net.in_dim[lr], 0, ov,
-               rec + D * rstride, rec_ld, n0, n, bf, bbuf + net.bb_off[lv], Y,
-               0);
+               rec + D * rstride, rec_ld, n0, n, bbuf + net.bb_off[lv], Y, 0);
   __syncthreads();
   { float* t = X; X = Y; Y = t; }
   // feature head: bar_feat = (bar_z_v W_vᵀ)[:, :of]; alpha head: c_alpha.
@@ -306,10 +303,10 @@ nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
     const long long row = n0 + p;
     const float ca = row < n ? calpha[row * oa + j] : 0.0f;
     if (row < n) bbuf[net.bb_off[la] + row * oa + j] = ca;
-    Y[p * LD + j] = rnb_rnd(ca, bf);
+    Y[p * LD + j] = ca;
   }
   nerf_reverse(X, LD, ov, wt + net.w_off[lv], net.in_dim[lv], 0, of, nullptr,
-               rec_ld, n0, n, bf, bbuf + net.bb_off[lf], Y, oa);
+               rec_ld, n0, n, bbuf + net.bb_off[lf], Y, oa);
   __syncthreads();
   { float* t = X; X = Y; Y = t; }
   // bar_h = c_alpha W_aᵀ + bar_feat W_fᵀ in one product: in the flat Wᵀ
@@ -317,7 +314,7 @@ nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
   // layer's [of, W] block, one [oa+of, W] matrix.
   nerf_reverse(X, LD, oa + of, wt + net.w_off[la], net.in_dim[la], 0,
                net.in_dim[la], rec + (long long)(D - 1) * rstride, rec_ld, n0,
-               n, bf, bbuf + net.bb_off[D - 1], Y, 0);
+               n, bbuf + net.bb_off[D - 1], Y, 0);
   __syncthreads();
   { float* t = X; X = Y; Y = t; }
   // trunk: bar_z_{i-1} = (bar_z_i W_iᵀ)[PE slice dropped] ⊙ [z_{i-1} > 0]
@@ -325,7 +322,7 @@ nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
     const int in = net.in_dim[i];
     const int off = ((skips >> (i - 1)) & 1u) ? E : 0;
     nerf_reverse(X, LD, net.out_dim[i], wt + net.w_off[i], in, off, in - off,
-                 rec + (long long)(i - 1) * rstride, rec_ld, n0, n, bf,
+                 rec + (long long)(i - 1) * rstride, rec_ld, n0, n,
                  bbuf + net.bb_off[i - 1], Y, 0);
     __syncthreads();
     float* t = X; X = Y; Y = t;
@@ -362,12 +359,13 @@ static int nerf_smem(const RnbNet& net, int C, int multires, int multires_view) 
   return (int)sizeof(float) * RNB_P * (LDE + LDV + 2 * net.ld);
 }
 
+// The f32 route's forward (f32 operands).
 extern "C" int rnb_nerf_fwd(const float* pts, const float* views, long long n,
                             int C, const float* w, const float* b,
                             const int* in_dims, const int* out_dims,
                             int n_layers, int skips, int multires,
-                            int multires_view, int bf, float* alpha,
-                            float* rgb, void* stream) {
+                            int multires_view, float* alpha, float* rgb,
+                            void* stream) {
   RnbNet net;
   if (nerf_make_net(&net, in_dims, out_dims, n_layers, (unsigned)skips, n, C,
                     multires, multires_view))
@@ -379,11 +377,11 @@ extern "C" int rnb_nerf_fwd(const float* pts, const float* views, long long n,
   const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
   nerf_fwd_kernel<<<grid, RNB_NT, smem, (cudaStream_t)stream>>>(
       pts, views, n, C, w, b, net, (unsigned)skips, multires, multires_view,
-      bf, alpha, rgb);
+      alpha, rgb);
   return (int)cudaGetLastError();
 }
 
-// The f32 route's backward (f32 operands: the sweep runs with bf = 0).
+// The f32 route's backward (f32 operands).
 extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
                             int C, const float* w, const float* wt,
                             const float* b, const int* in_dims,
@@ -405,7 +403,7 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
   const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
   nerf_bwd_kernel<<<grid, RNB_NT, smem, st>>>(
       pts, views, n, C, w, wt, b, net, (unsigned)skips, multires,
-      multires_view, 0, calpha, crgb, rec, rec_ld, abuf, bbuf);
+      multires_view, calpha, crgb, rec, rec_ld, abuf, bbuf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < n_layers; ++l) {
@@ -418,8 +416,23 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 }
 
 // ===========================================================================
-// bf16 route: the backward on the tensor cores (wgmma, sm_90a)
+// bf16 route: the forward and the backward on the tensor cores (wgmma,
+// sm_90a)
 // ===========================================================================
+//
+// nerf_fwd_wg_kernel replaces the forward TPU kernel (pallas_nerf.py
+// _fwd_kernel :105) at bf16 operands; nerf_fwd_kernel above stays as the
+// f32 route. What bounds it on the H100: arithmetic, 603,520 multiply-adds
+// a point at the womask conf (trunk, alpha and feature heads, views and rgb
+// layers), 0.083 ms at the bf16 peak for 67,584 points. What the design
+// does about it: the recompute half of nerf_bwd_wg_kernel below over the
+// same image layers (trunk N = 256 as 4 x 64 with the skip input held as
+// [h, e], views N = 128 as 4 x 32), with the two outputs the backward never
+// computes: the alpha column (column 256 of the fused [W_f | W_a] tile) as
+// one N = 8 product by warpgroup 0 in the same K loop as the N = 256
+// feature block, and the rgb head (128 -> 3) as one N = 8 product by
+// warpgroup 0; both written raw from their accumulators. No mask bits, no
+// operand rows; two blocks an SM.
 //
 // nerf_bwd_wg_kernel replaces the same TPU kernel (pallas_nerf.py
 // _bwd_kernel :122, the heads at :159-183, the trunk at :185-196) at bf16
@@ -460,8 +473,166 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 #define NRF_NT 512    // four warpgroups of 64 columns
 #define NRF_KW 352    // widest A tile: the skip input [h, e] (256 + 84 -> 352)
 #define NRF_STG 4096  // ring stage: 2 x 32 cores
+#define NRF_FSTG 4352 // forward ring stage: the fused head's 272 columns, 2 x 34 cores
 #define NRF_EW 96     // PE(pts) channels held per point (E <= 96)
 #define NRF_VW 32     // PE(views) channels held per point (V <= 32)
+
+// PE(pts) into e16 [64][NRF_EW] and PE(views) into v16 [64][NRF_VW] in bf16
+// (rows past n from 0, pads zero; e16 and v16 adjacent), and PE(pts) as the
+// first A tile X, its pad columns up to pad16(E) zero. NRF_NT threads.
+__device__ __forceinline__ void nerf_wg_pe(const float* __restrict__ pts,
+                                           const float* __restrict__ views,
+                                           long long n, int C, int multires,
+                                           int multires_view, int E,
+                                           long long n0, rnb_bf16* e16,
+                                           rnb_bf16* v16, rnb_bf16* X) {
+  for (int idx = threadIdx.x; idx < WG_M * (NRF_EW + NRF_VW); idx += NRF_NT)
+    e16[idx] = wg_bf(0.0f);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < WG_M * (C + 3); idx += NRF_NT) {
+    const int p = idx / (C + 3), d = idx % (C + 3);
+    const long long row = n0 + p;
+    const bool isv = d >= C;
+    const int ch = isv ? 3 : C, dd = isv ? d - C : d;
+    const int mr = isv ? multires_view : multires;
+    rnb_bf16* e = isv ? v16 + p * NRF_VW : e16 + p * NRF_EW;
+    const float x =
+        row < n ? (isv ? views[row * 3 + dd] : pts[row * C + dd]) : 0.0f;
+    e[dd] = wg_bf(x);
+    float s = sinf(x), c = cosf(x);
+    for (int k = 0; k < mr; ++k) {
+      e[ch * (1 + 2 * k) + dd] = wg_bf(s);
+      e[ch * (2 + 2 * k) + dd] = wg_bf(c);
+      if (k + 1 < mr) {
+        const float s2 = 2.0f * s * c;
+        c = 1.0f - 2.0f * s * s;
+        s = s2;
+      }
+    }
+  }
+  __syncthreads();
+  const int kp0 = rnb_pad16(E);
+  for (int idx = threadIdx.x; idx < WG_M * kp0; idx += NRF_NT) {
+    const int p = idx / kp0, c = idx - p * kp0;
+    X[wg_tidx(p, c)] = e16[p * NRF_EW + c];
+  }
+  __syncthreads();
+}
+
+// Columns 256..kn-1 of the A tile X: the slice appended after a 256-wide
+// epilogue (ex [64][exld], exw wide; none where ex is null), pads zero.
+// NRF_NT threads.
+__device__ __forceinline__ void nerf_wg_append(rnb_bf16* X, int kn,
+                                               const rnb_bf16* ex, int exld,
+                                               int exw) {
+  for (int idx = threadIdx.x; idx < WG_M * (kn - 256); idx += NRF_NT) {
+    const int p = idx / (kn - 256), cc = idx % (kn - 256);
+    X[wg_tidx(p, 256 + cc)] =
+        ex != nullptr && cc < exw ? ex[p * exld + cc] : wg_bf(0.0f);
+  }
+}
+
+// Image layers (net) as for nerf_bwd_wg_kernel below. Outputs: alpha [n, oa]
+// and rgb [n, orr], raw, f32.
+// Two blocks an SM (64 registers, no spill): one block an SM ran slower in
+// a trial build on the H100.
+static __global__ void __launch_bounds__(NRF_NT, 2)
+nerf_fwd_wg_kernel(const float* __restrict__ pts,
+                   const float* __restrict__ views, long long n, int C,
+                   const rnb_bf16* __restrict__ w, const float* __restrict__ b,
+                   RnbWgNet net, int of, int multires, int multires_view,
+                   float* __restrict__ alpha, float* __restrict__ rgb) {
+  constexpr int RS = WG_RS;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][352]
+  rnb_bf16* ring = X + WG_M * NRF_KW;
+  rnb_bf16* e16 = ring + RS * NRF_FSTG;  // [64][96] PE(pts)
+  rnb_bf16* v16 = e16 + WG_M * NRF_EW;   // [64][32] PE(views)
+  WG_FRAG_ROWS;
+  const long long n0 = (long long)blockIdx.x * WG_M;
+  const int D = net.n_layers - 3, lh = D, lv = D + 1, lr = D + 2;
+  const int E = net.E, V = 3 * (1 + 2 * multires_view);
+  nerf_wg_pe(pts, views, n, C, multires, multires_view, E, n0, e16, v16, X);
+
+  WgProduct prod;
+  float acc[32];
+  prod.set(w, net, 0, 0, 256);
+  pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
+  // --- the trunk: h = relu(x W + b) in bf16, then e appended before a skip
+  // layer (its input held as [h, e]) ---
+  for (int l = 0; l < D; ++l) {
+    pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                          rnb_desc(st + wg * 8 * 64, 32 * 128, 128), t > 0);
+    });
+    if (l + 1 < D) prod.set(w, net, l + 1, 0, 256);
+    else prod.set(w, net, lh, 0, rnb_pad16(net.out_dim[lh]));
+    pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
+    wg_relu_put<8>(acc, b + net.b_off[l], 256, X, wg * 64);
+    nerf_wg_append(X, rnb_pad16(net.in_dim[l + 1]),
+                   net.skip[l + 1] ? e16 : nullptr, NRF_EW, E);
+  }
+
+  // --- the fused head: feature block N = 256 (4 x 64) and, by warpgroup 0
+  // in the same K loop, the alpha column at 256 (N = 8) ---
+  float acc8[4];
+  {
+    const uint32_t lbo = (uint32_t)prod.n8 * 128;
+    pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                          rnb_desc(st + wg * 8 * 64, lbo, 128), t > 0);
+      if (wg == 0)
+        rnb_wgmma_n8<0, 1>(acc8, rnb_desc(X + t * 1024, 1024, 128),
+                           rnb_desc(st + (of >> 3) * 64, lbo, 128), t > 0);
+    });
+  }
+  prod.set(w, net, lv, 0, 128);
+  pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
+  // [rnd(feat), PE(views)] is the views layer's input
+  wg_relu_put<8>(acc, b + net.b_off[lh], of, X, wg * 64, false);
+  nerf_wg_append(X, rnb_pad16(net.in_dim[lv]), v16, NRF_VW, V);
+  if (wg == 0) {
+    const int oa = net.out_dim[lh] - of;
+    const float* ba = b + net.b_off[lh] + of;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const long long row = n0 + r0 + 8 * h;
+        const int c = cq + u;
+        if (c < oa && row < n) alpha[row * oa + c] = acc8[2 * h + u] + ba[c];
+      }
+  }
+
+  // --- views layer (N = 128 as 4 x 32): relu in bf16 into columns 0..127 ---
+  float acc16[16];
+  pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n32<0, 1>(acc16, rnb_desc(X + t * 1024, 1024, 128),
+                        rnb_desc(st + wg * 4 * 64, 16 * 128, 128), t > 0);
+  });
+  prod.set(w, net, lr, 0, 16);
+  pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
+  wg_relu_put<4>(acc16, b + net.b_off[lv], net.out_dim[lv], X, wg * 32);
+
+  // --- the rgb head (N = 8, warpgroup 0), from its accumulators ---
+  pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
+    if (wg == 0)
+      rnb_wgmma_n8<0, 1>(acc8, rnb_desc(X + t * 1024, 1024, 128),
+                         rnb_desc(st, 2 * 128, 128), t > 0);
+  });
+  if (wg == 0) {
+    const int orr = net.out_dim[lr];
+    const float* br = b + net.b_off[lr];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const long long row = n0 + r0 + 8 * h;
+        const int c = cq + u;
+        if (c < orr && row < n) rgb[row * orr + c] = acc8[2 * h + u] + br[c];
+      }
+  }
+}
 
 // Image layers (net): 0..D-1 the trunk (skip[l]: input [h, e]), D the fused
 // head [W_f | W_a] (feature columns 0..of-1), D+1 views, D+2 rgb; b and db
@@ -489,39 +660,8 @@ nerf_bwd_wg_kernel(const float* __restrict__ pts,
   const int E = net.E, V = 3 * (1 + 2 * multires_view);
   float* dbt = dbp + tile * db_len;
 
-  // --- PE(pts) and PE(views) in bf16 (rows past n from 0), pads zero ---
-  for (int idx = tid; idx < WG_M * (NRF_EW + NRF_VW); idx += NRF_NT)
-    e16[idx] = wg_bf(0.0f);  // e16 and v16 are adjacent
-  __syncthreads();
-  for (int idx = tid; idx < WG_M * (C + 3); idx += NRF_NT) {
-    const int p = idx / (C + 3), d = idx % (C + 3);
-    const long long row = n0 + p;
-    const bool isv = d >= C;
-    const int ch = isv ? 3 : C, dd = isv ? d - C : d;
-    const int mr = isv ? multires_view : multires;
-    rnb_bf16* e = isv ? v16 + p * NRF_VW : e16 + p * NRF_EW;
-    const float x =
-        row < n ? (isv ? views[row * 3 + dd] : pts[row * C + dd]) : 0.0f;
-    e[dd] = wg_bf(x);
-    float s = sinf(x), c = cosf(x);
-    for (int k = 0; k < mr; ++k) {
-      e[ch * (1 + 2 * k) + dd] = wg_bf(s);
-      e[ch * (2 + 2 * k) + dd] = wg_bf(c);
-      if (k + 1 < mr) {
-        const float s2 = 2.0f * s * c;
-        c = 1.0f - 2.0f * s * s;
-        s = s2;
-      }
-    }
-  }
-  __syncthreads();
-  const int kp0 = rnb_pad16(E);
-  for (int idx = tid; idx < WG_M * kp0; idx += NRF_NT) {
-    const int p = idx / kp0, c = idx - p * kp0;
-    X[wg_tidx(p, c)] = e16[p * NRF_EW + c];
-  }
-  __syncthreads();
-  wg_tile_out(X, kp0, n0, n, abuf + net.a_off[0]);
+  nerf_wg_pe(pts, views, n, C, multires, multires_view, E, n0, e16, v16, X);
+  wg_tile_out(X, rnb_pad16(E), n0, n, abuf + net.a_off[0]);
 
   WgProduct prod;
   float acc[32];
@@ -546,14 +686,9 @@ nerf_bwd_wg_kernel(const float* __restrict__ pts,
     const uint32_t bits =
         wg_relu_put<8>(acc, b + net.b_off[l], 256, X, wg * 64, !head);
     if (!head) mbits[l * NRF_NT + tid] = bits;
-    const rnb_bf16* ex = head ? v16 : (net.skip[l + 1] ? e16 : nullptr);
-    const int exld = head ? NRF_VW : NRF_EW, exw = head ? V : E;
     const int kn = rnb_pad16(net.in_dim[l + 1]);
-    for (int idx = tid; idx < WG_M * (kn - 256); idx += NRF_NT) {
-      const int p = idx / (kn - 256), cc = idx % (kn - 256);
-      X[wg_tidx(p, 256 + cc)] =
-          ex != nullptr && cc < exw ? ex[p * exld + cc] : wg_bf(0.0f);
-    }
+    nerf_wg_append(X, kn, head ? v16 : (net.skip[l + 1] ? e16 : nullptr),
+                   head ? NRF_VW : NRF_EW, head ? V : E);
     __syncthreads();
     wg_tile_out(X, kn, n0, n, abuf + net.a_off[l + 1]);
   }
@@ -650,6 +785,72 @@ nerf_bwd_wg_kernel(const float* __restrict__ pts,
   }
 }
 
+// RnbWgNet of the NeRF's image layers (b and db offsets in image order);
+// a_off and bb_off may be null (the forward writes no operand rows). Checks
+// the widths the tensor-core kernels take; returns the length of b, or -1.
+static int nerf_wg_net(RnbWgNet* net, const int* in_dims, const int* out_dims,
+                       const int* skip, const long long* w_off,
+                       const long long* a_off, const long long* bb_off,
+                       int n_layers, int of, int C, int multires,
+                       int multires_view) {
+  const int D = n_layers - 3;
+  const int E = C * (1 + 2 * multires), V = 3 * (1 + 2 * multires_view);
+  if (D < 1 || n_layers > RNB_MAXL || C < 1 || E > NRF_EW || V > NRF_VW)
+    return -1;
+  net->n_layers = n_layers;
+  net->E = E;
+  int db_len = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    net->in_dim[l] = in_dims[l];
+    net->out_dim[l] = out_dims[l];
+    net->skip[l] = l < D ? skip[l] : 0;
+    net->hd[l] = net->skip[l] ? out_dims[l - 1] : in_dims[l];
+    net->w_off[l] = w_off[l];
+    net->a_off[l] = a_off ? a_off[l] : 0;
+    net->bb_off[l] = bb_off ? bb_off[l] : 0;
+    net->b_off[l] = db_len;
+    db_len += out_dims[l];
+    if (w_off[l] % 8) return -1;
+  }
+  bool ok = skip[0] == 0;
+  for (int l = 0; l < D; ++l) {
+    const int want = l == 0 ? E : out_dims[l - 1] + (net->skip[l] ? E : 0);
+    ok = ok && in_dims[l] == want && rnb_pad16(in_dims[l]) <= NRF_KW &&
+         out_dims[l] == 256;
+  }
+  // the heads' N = 8 products: alpha (column of = 256 on) and rgb <= 8 wide
+  ok = ok && in_dims[D] == out_dims[D - 1] && of == 256 && out_dims[D] > of &&
+       out_dims[D] <= of + 8 && in_dims[D + 1] == of + V &&
+       rnb_pad16(in_dims[D + 1]) <= NRF_KW && out_dims[D + 1] <= 128 &&
+       in_dims[D + 2] == out_dims[D + 1] && out_dims[D + 2] <= 8;
+  return ok ? db_len : -1;
+}
+
+// The bf16 forward over the image layers (see nerf_fwd_wg_kernel): raw
+// alpha [n, oa] and rgb [n, orr].
+extern "C" int rnb_nerf_fwd_wg(const float* pts, const float* views,
+                               long long n, int C, const void* w,
+                               const float* b, const int* in_dims,
+                               const int* out_dims, const int* skip,
+                               const long long* w_off, int n_layers, int of,
+                               int multires, int multires_view, float* alpha,
+                               float* rgb, void* stream) {
+  RnbWgNet net;
+  if (nerf_wg_net(&net, in_dims, out_dims, skip, w_off, nullptr, nullptr,
+                  n_layers, of, C, multires, multires_view) < 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)(sizeof(rnb_bf16) * (WG_M * (NRF_KW + NRF_EW + NRF_VW) +
+                                             WG_RS * NRF_FSTG));
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_fwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + WG_M - 1) / WG_M;
+  nerf_fwd_wg_kernel<<<(unsigned)tiles, NRF_NT, smem, (cudaStream_t)stream>>>(
+      pts, views, n, C, static_cast<const rnb_bf16*>(w), b, net, of, multires,
+      multires_view, alpha, rgb);
+  return (int)cudaGetLastError();
+}
+
 // The bf16 backward sweep over the image layers (see nerf_bwd_wg_kernel):
 // fills the bf16 dW scratch (A rows at a_off, B rows at bb_off, n rows of
 // pad16(width) each) and writes db in image order; the wrapper then runs
@@ -665,37 +866,12 @@ extern "C" int rnb_nerf_bwd_wg(const float* pts, const float* views,
                                const float* calpha, const float* crgb,
                                void* abuf, void* bbuf, float* dbp, float* db,
                                void* stream) {
-  const int D = n_layers - 3;
-  const int E = C * (1 + 2 * multires), V = 3 * (1 + 2 * multires_view);
-  if (D < 1 || n_layers > RNB_MAXL || C < 1 || E > NRF_EW || V > NRF_VW)
-    return (int)cudaErrorInvalidValue;
   RnbWgNet net;
-  net.n_layers = n_layers;
-  net.E = E;
-  int db_len = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    net.in_dim[l] = in_dims[l];
-    net.out_dim[l] = out_dims[l];
-    net.skip[l] = l < D ? skip[l] : 0;
-    net.hd[l] = net.skip[l] ? out_dims[l - 1] : in_dims[l];
-    net.w_off[l] = w_off[l];
-    net.a_off[l] = a_off[l];
-    net.bb_off[l] = bb_off[l];
-    net.b_off[l] = db_len;
-    db_len += out_dims[l];
-    if (w_off[l] % 8) return (int)cudaErrorInvalidValue;
-  }
-  bool ok = skip[0] == 0;
-  for (int l = 0; l < D; ++l) {
-    const int want = l == 0 ? E : out_dims[l - 1] + (net.skip[l] ? E : 0);
-    ok = ok && in_dims[l] == want && rnb_pad16(in_dims[l]) <= NRF_KW &&
-         out_dims[l] == 256;
-  }
-  ok = ok && in_dims[D] == out_dims[D - 1] && of == 256 && out_dims[D] > of &&
-       rnb_pad16(out_dims[D]) <= 272 && in_dims[D + 1] == of + V &&
-       rnb_pad16(in_dims[D + 1]) <= NRF_KW && out_dims[D + 1] <= 128 &&
-       in_dims[D + 2] == out_dims[D + 1] && out_dims[D + 2] <= 16;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const int db_len = nerf_wg_net(&net, in_dims, out_dims, skip, w_off, a_off,
+                                 bb_off, n_layers, of, C, multires,
+                                 multires_view);
+  if (db_len < 0) return (int)cudaErrorInvalidValue;
+  const int D = n_layers - 3;
   const int smem =
       (int)(sizeof(rnb_bf16) * (WG_M * (NRF_KW + NRF_EW + NRF_VW) +
                                 WG_RS * NRF_STG) +

@@ -46,15 +46,45 @@ from rnb_tpu_torch.ops import sdf_core
 _KERNEL_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
+# The JAX package's runtime knobs that the port parses but runs one way
+# only: the value it honours, and where another value would come from.
+# Any other value is refused by name, never ignored.
+_ONE_WAY = {
+    "core_impl": ("pallas", "the port runs the fused kernels only; 'vjp' and "
+                  "'fwdmode' are left out on purpose (ROADMAP.md, queue 1)"),
+    "remat": (False, "the port stores activations; remat is left out on "
+              "purpose (ROADMAP.md, queue 1)"),
+    "view_shard": (False, "view-sharded placement comes with ROADMAP.md "
+                   "queue 1, item 13 (parallel)"),
+}
+
+
+def refuse_unsupported(section: str, **knobs) -> None:
+    """Raise ValueError, naming the key and its value, for a runtime knob of
+    the JAX package (``core_impl``, ``remat``, ``view_shard``) set to a
+    value the port cannot honour."""
+    for key, value in knobs.items():
+        want, why = _ONE_WAY[key]
+        if value != want:
+            raise ValueError(f"{section}.{key} = {value!r} is not supported "
+                             f"by rnb_tpu_torch (only {want!r}): {why}")
+
+
 @dataclasses.dataclass(frozen=True)
 class RendererConfig:
-    """The ``model.neus_renderer`` conf section plus two precision knobs:
+    """The ``model.neus_renderer`` conf section plus the precision knobs:
 
       upsample_prec   'bf16' | 'f32': matmul operands of the no-grad
-                      up-sampling SDF sweeps (sample placement only)
+                      up-sampling SDF sweeps (sample placement only);
+                      ``train.apply_runtime_flags`` sets it from
+                      ``train.upsample_precision``, as the JAX package does
       kernel_prec     'bf16' | 'f32': op dtype of the fused SDF-core,
                       albedo and background-NeRF kernels (bf16 operands with f32 accumulation
-                      on the main path; f32 to compare against a reference)
+                      on the main path; f32 to compare against a reference);
+                      the port's own knob
+      remat, core_impl
+                      the JAX package's knobs, parsed; only False and
+                      'pallas' run (``refuse_unsupported``)
     """
     n_samples: int = 64
     n_importance: int = 64
@@ -63,6 +93,12 @@ class RendererConfig:
     perturb: float = 1.0
     upsample_prec: str = "bf16"
     kernel_prec: str = "bf16"
+    remat: bool = False
+    core_impl: str = "pallas"
+
+    def __post_init__(self):
+        refuse_unsupported("neus_renderer", remat=self.remat,
+                           core_impl=self.core_impl)
 
     @property
     def total_samples(self) -> int:

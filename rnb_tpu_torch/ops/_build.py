@@ -32,15 +32,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# sdf_core_fwd / sdf_core_bwd, albedo_bwd and nerf_bwd count the bf16 route
-# (tensor-core kernels), the *_f32 keys the f32 route (CUDA-core kernels);
+# sdf_core_fwd / sdf_core_bwd, albedo_fwd / albedo_bwd and nerf_fwd /
+# nerf_bwd count the bf16 route (tensor-core kernels), the *_f32 keys the
+# f32 route (CUDA-core kernels);
 # sdf_dw_gemm, albedo_dw_gemm and nerf_dw_gemm count each bf16 backward's
 # per-layer dW products (ops/wg.py dw_gemm).
 launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
             "sdf_core_fwd_f32": 0, "sdf_core_bwd_f32": 0, "sdf_dw_gemm": 0,
-            "albedo_fwd": 0, "albedo_bwd": 0, "albedo_bwd_f32": 0,
-            "albedo_dw_gemm": 0, "nerf_fwd": 0, "nerf_bwd": 0,
-            "nerf_bwd_f32": 0, "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0}
+            "albedo_fwd": 0, "albedo_bwd": 0, "albedo_fwd_f32": 0,
+            "albedo_bwd_f32": 0, "albedo_dw_gemm": 0, "nerf_fwd": 0,
+            "nerf_bwd": 0, "nerf_fwd_f32": 0, "nerf_bwd_f32": 0,
+            "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0}
 
 # filled by the first library() call of the process
 build_info = {"seconds": None, "path": None, "log": ""}
@@ -79,10 +81,14 @@ _SIGNATURES = {
                        _P),
     # a, lda, b, ldb, K, M, N, kchunk, splits, partial, dw, stream
     "rnb_dw_gemm": (_P, _I, _P, _I, _LL, _I, _I, _LL, _I, _P, _P, _P),
-    # pts, nrm, feat, n, F, w, b, in_dims, out_dims, n_layers, multires, bf,
+    # pts, nrm, feat, n, F, w, b, in_dims, out_dims, n_layers, multires,
     # out, stream
-    "rnb_albedo_fwd": (_P, _P, _P, _LL, _I, _P, _P, _IP, _IP, _I, _I, _I,
-                       _P, _P),
+    "rnb_albedo_fwd": (_P, _P, _P, _LL, _I, _P, _P, _IP, _IP, _I, _I, _P,
+                       _P),
+    # pts, nrm, feat, n, F, w (bf16 image), b, in_dims, out_dims, w_off,
+    # n_layers, multires, out, stream
+    "rnb_albedo_fwd_wg": (_P, _P, _P, _LL, _I, _P, _P, _IP, _IP, _LLP, _I,
+                          _I, _P, _P),
     # pts, nrm, feat, n, F, w, wt, b, in_dims, out_dims, n_layers, multires,
     # cout, rec, rec_ld, abuf, bbuf, partial, splits, dw, db, cnrm, cfeat,
     # stream
@@ -94,9 +100,13 @@ _SIGNATURES = {
     "rnb_albedo_bwd_wg": (_P, _P, _P, _LL, _I, _P, _P, _IP, _IP, _LLP, _LLP,
                           _LLP, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # pts, views, n, C, w, b, in_dims, out_dims, n_layers, skips, multires,
-    # multires_view, bf, alpha, rgb, stream
-    "rnb_nerf_fwd": (_P, _P, _LL, _I, _P, _P, _IP, _IP, _I, _I, _I, _I, _I,
-                     _P, _P, _P),
+    # multires_view, alpha, rgb, stream
+    "rnb_nerf_fwd": (_P, _P, _LL, _I, _P, _P, _IP, _IP, _I, _I, _I, _I, _P,
+                     _P, _P),
+    # pts, views, n, C, w (bf16 image), b, in_dims, out_dims, skip, w_off,
+    # n_layers, of, multires, multires_view, alpha, rgb, stream
+    "rnb_nerf_fwd_wg": (_P, _P, _LL, _I, _P, _P, _IP, _IP, _IP, _LLP, _I, _I,
+                        _I, _I, _P, _P, _P),
     # pts, views, n, C, w, wt, b, in_dims, out_dims, n_layers, skips,
     # multires, multires_view, calpha, crgb, rec, rec_ld, abuf, bbuf,
     # partial, splits, dw, db, stream

@@ -2,9 +2,11 @@
 ``torch.autograd.Function`` around a CUDA kernel pair.
 
 Replaces ``rnb_tpu/ops/pallas_albedo.py`` (``_fwd_kernel`` :85,
-``_bwd_kernel`` :101); the kernels are in ``csrc/albedo.cu``. The backward
-has two routes by op dtype: bf16 (the training step's) on the tensor cores
-(``albedo_bwd_wg_kernel`` + ``wg.dw_gemm``), f32 on the CUDA cores.
+``_bwd_kernel`` :101); the kernels are in ``csrc/albedo.cu``. Forward and
+backward have two routes by op dtype: bf16 (the training step's) on the
+tensor cores (``albedo_fwd_wg_kernel``; ``albedo_bwd_wg_kernel`` +
+``wg.dw_gemm``), both reading one bf16 weight image that the op packs once
+a forward-plus-backward (``wg_pack``); f32 on the CUDA cores.
 
     forward:   x0 = [PE(p), PE(n), feat];  z_l = x_l @ W_l + b_l;
                x_{l+1} = relu(z_l);  out = sigmoid(z_last)
@@ -139,40 +141,52 @@ def _check_args(cfg, pts, nrm, feat, ws, bs):
 
 
 def albedo_fwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs,
-               dtype=torch.bfloat16):
-    """Forward kernel (``rnb_albedo_fwd``) for CUDA tensors, plain version
-    for CPU tensors. -> [N, d_out]."""
+               dtype=torch.bfloat16, packed=None):
+    """Forward kernel for CUDA tensors, plain version for CPU tensors.
+    -> [N, d_out]. The op dtype names the route, never a failure: bf16
+    launches the tensor-core kernel (``rnb_albedo_fwd_wg``) on ``packed``
+    (``wg_pack``; packed here when None), f32 the CUDA-core kernel
+    (``rnb_albedo_fwd``)."""
     if not pts.is_cuda:
         return albedo_fwd_plain(cfg, pts, nrm, feat, ws, bs, dtype)
+    if _build.bf16_flag(dtype):
+        out = _fwd_wg(cfg, pts, nrm, feat, ws, bs, packed)
+        _build.launches["albedo_fwd"] += 1
+    else:
+        out = _fwd_f32(cfg, pts, nrm, feat, ws, bs)
+        _build.launches["albedo_fwd_f32"] += 1
+    return out
+
+
+def _fwd_f32(cfg, pts, nrm, feat, ws, bs):
     _check_args(cfg, pts, nrm, feat, ws, bs)
-    bf = _build.bf16_flag(dtype)
     lib = _build.library()
     pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
     n, L = pts.shape[0], len(ws)
-    wflat, _, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
+    wflat, _, bflat, in_dims, out_dims = _build.flat_params(ws, bs,
+                                                            torch.float32)
     out = torch.empty(n, out_dims[-1], device=pts.device)
     with torch.cuda.device(pts.device):
         rc = lib.rnb_albedo_fwd(
             pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n, feat.shape[1],
             wflat.data_ptr(), bflat.data_ptr(), _build.int_array(in_dims),
-            _build.int_array(out_dims), L, cfg.multires_view, bf,
-            out.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream)
+            _build.int_array(out_dims), L, cfg.multires_view, out.data_ptr(),
+            torch.cuda.current_stream(pts.device).cuda_stream)
     _build.check(rc, "rnb_albedo_fwd")
-    _build.launches["albedo_fwd"] += 1
     return out
 
 
 def albedo_bwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs, c_out,
-               dtype=torch.bfloat16):
+               dtype=torch.bfloat16, packed=None):
     """Backward kernels for CUDA tensors, plain version for CPU tensors.
     -> (dws, dbs, c_normals, c_feat). The op dtype names the route, never a
-    failure: bf16 runs the tensor-core sweep (``rnb_albedo_bwd_wg``) and one
-    ``wg.dw_gemm`` per layer, f32 the CUDA-core sweep and split-K reduction
-    (``rnb_albedo_bwd``)."""
+    failure: bf16 runs the tensor-core sweep (``rnb_albedo_bwd_wg``) on
+    ``packed`` (as for ``albedo_fwd``) and one ``wg.dw_gemm`` per layer, f32
+    the CUDA-core sweep and split-K reduction (``rnb_albedo_bwd``)."""
     if not pts.is_cuda:
         return albedo_bwd_plain(cfg, pts, nrm, feat, ws, bs, c_out, dtype)
     if _build.bf16_flag(dtype):
-        out = _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out)
+        out = _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out, packed)
         _build.launches["albedo_bwd"] += 1
     else:
         out = _bwd_f32(cfg, pts, nrm, feat, ws, bs, c_out)
@@ -193,6 +207,14 @@ def wg_layout(ws, n: int = 0) -> dict:
     return wg.offsets([w.shape[0] for w in ws], [w.shape[1] for w in ws], n)
 
 
+def wg_pack(ws, bs):
+    """The bf16 route's weights: (the bf16 weight image of ``wg_layout``,
+    the biases flat in layer order). The op builds them once a
+    forward-plus-backward; both kernels read them."""
+    image = wg.pack_weights(ws, wg_layout(ws))
+    return image, torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+
+
 def _check_wg(lay: dict):
     ins, outs = lay["in_dims"], lay["out_dims"]
     if (len(ins) < 2 or lay["kp"][0] > 320 or max(outs[:-1]) > 256
@@ -203,7 +225,26 @@ def _check_wg(lay: dict):
             f"got in {ins}, out {outs}")
 
 
-def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out):
+def _fwd_wg(cfg, pts, nrm, feat, ws, bs, packed):
+    _check_args(cfg, pts, nrm, feat, ws, bs)
+    pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
+    n, L = pts.shape[0], len(ws)
+    lay = wg_layout(ws)
+    _check_wg(lay)
+    image, bflat = packed or wg_pack(ws, bs)
+    out = torch.empty(n, lay["out_dims"][-1], device=pts.device)
+    with torch.cuda.device(pts.device):
+        rc = _build.library().rnb_albedo_fwd_wg(
+            pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n, feat.shape[1],
+            image.data_ptr(), bflat.data_ptr(), _build.int_array(lay["in_dims"]),
+            _build.int_array(lay["out_dims"]), _build.ll_array(lay["w_off"]), L,
+            cfg.multires_view, out.data_ptr(),
+            torch.cuda.current_stream(pts.device).cuda_stream)
+    _build.check(rc, "rnb_albedo_fwd_wg")
+    return out
+
+
+def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out, packed):
     _check_args(cfg, pts, nrm, feat, ws, bs)
     pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
     n, L, F = pts.shape[0], len(ws), feat.shape[1]
@@ -212,8 +253,7 @@ def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out):
     c_out = _cotangent(c_out, n, lay["out_dims"][-1])
     lib = _build.library()
     dev = pts.device
-    image = wg.pack_weights(ws, lay)
-    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+    image, bflat = packed or wg_pack(ws, bs)
     abuf = torch.empty(lay["a_len"], dtype=torch.bfloat16, device=dev)
     bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
     dbp = torch.empty(-(-n // wg.TILE) * bflat.numel(), device=dev)
@@ -274,8 +314,12 @@ class _Albedo(torch.autograd.Function):
     def forward(ctx, cfg, dtype, pts, nrm, feat, *wb):
         L = len(wb) // 2
         ctx.cfg, ctx.dtype = cfg, dtype
+        # the bf16 route's weight image, packed once for both kernels
+        ctx.packed = (wg_pack(wb[:L], wb[L:]) if dtype == torch.bfloat16
+                      else None)
         ctx.save_for_backward(pts, nrm, feat, *wb)
-        return albedo_fwd(cfg, pts, nrm, feat, wb[:L], wb[L:], dtype)
+        return albedo_fwd(cfg, pts, nrm, feat, wb[:L], wb[L:], dtype,
+                          ctx.packed)
 
     @staticmethod
     @once_differentiable
@@ -283,7 +327,8 @@ class _Albedo(torch.autograd.Function):
         pts, nrm, feat, *wb = ctx.saved_tensors
         L = len(wb) // 2
         dws, dbs, cnrm, cfeat = albedo_bwd(ctx.cfg, pts, nrm, feat, wb[:L],
-                                           wb[L:], c_out, ctx.dtype)
+                                           wb[L:], c_out, ctx.dtype,
+                                           ctx.packed)
         return (None, None, None, cnrm, cfeat, *dws, *dbs)
 
 

@@ -4,10 +4,11 @@ around a CUDA kernel pair.
 
 Replaces ``rnb_tpu/ops/pallas_nerf.py`` (``_fwd_kernel`` :105,
 ``_bwd_kernel`` :122); the kernels are in ``csrc/nerf.cu``, whose notes
-say what bounds them on the H100. The backward has two routes by op dtype:
-bf16 (the training step's) on the tensor cores (``nerf_bwd_wg_kernel`` over
-the image layers of ``wg_weights``, + ``wg.dw_gemm``), f32 on the CUDA
-cores.
+say what bounds them on the H100. Forward and backward have two routes by
+op dtype: bf16 (the training step's) on the tensor cores
+(``nerf_fwd_wg_kernel``; ``nerf_bwd_wg_kernel`` + ``wg.dw_gemm``), both
+over the image layers of ``wg_weights`` in one bf16 weight image that the
+op packs once a forward-plus-backward (``wg_pack``); f32 on the CUDA cores.
 
     forward:   e = PE(pts), v = PE(views) (double-angle recurrence);
                trunk z_i = x_i @ W_i + b_i, h_i = relu(z_i),
@@ -200,17 +201,31 @@ def _check_args(cfg: NeRFConfig, pts, views, ws, bs):
                          "the skips")
 
 
-def nerf_fwd(cfg: NeRFConfig, pts, views, ws, bs, dtype=torch.bfloat16):
-    """Forward kernel (``rnb_nerf_fwd``) for CUDA tensors, plain version
-    for CPU tensors. -> (alpha_raw [N,1], rgb_raw [N,3])."""
+def nerf_fwd(cfg: NeRFConfig, pts, views, ws, bs, dtype=torch.bfloat16,
+             packed=None):
+    """Forward kernel for CUDA tensors, plain version for CPU tensors.
+    -> (alpha_raw [N,1], rgb_raw [N,3]). The op dtype names the route, never
+    a failure: bf16 launches the tensor-core kernel (``rnb_nerf_fwd_wg``) on
+    ``packed`` (``wg_pack``; packed here when None), f32 the CUDA-core
+    kernel (``rnb_nerf_fwd``)."""
     if not pts.is_cuda:
         return nerf_fwd_plain(cfg, pts, views, ws, bs, dtype)
+    if _build.bf16_flag(dtype):
+        out = _fwd_wg(cfg, pts, views, ws, bs, packed)
+        _build.launches["nerf_fwd"] += 1
+    else:
+        out = _fwd_f32(cfg, pts, views, ws, bs)
+        _build.launches["nerf_fwd_f32"] += 1
+    return out
+
+
+def _fwd_f32(cfg, pts, views, ws, bs):
     _check_args(cfg, pts, views, ws, bs)
-    bf = _build.bf16_flag(dtype)
     lib = _build.library()
     pts, views = (t.detach().contiguous() for t in (pts, views))
     n, L, dev = pts.shape[0], len(ws), pts.device
-    wflat, _, bflat, in_dims, out_dims = _build.flat_params(ws, bs, dtype)
+    wflat, _, bflat, in_dims, out_dims = _build.flat_params(ws, bs,
+                                                            torch.float32)
     alpha = torch.empty(n, out_dims[cfg.D], device=dev)
     rgb = torch.empty(n, out_dims[-1], device=dev)
     with torch.cuda.device(dev):
@@ -218,24 +233,23 @@ def nerf_fwd(cfg: NeRFConfig, pts, views, ws, bs, dtype=torch.bfloat16):
             pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
             wflat.data_ptr(), bflat.data_ptr(), _build.int_array(in_dims),
             _build.int_array(out_dims), L, _skip_mask(cfg), cfg.multires,
-            cfg.multires_view, bf, alpha.data_ptr(), rgb.data_ptr(),
+            cfg.multires_view, alpha.data_ptr(), rgb.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rnb_nerf_fwd")
-    _build.launches["nerf_fwd"] += 1
     return alpha, rgb
 
 
 def nerf_bwd(cfg: NeRFConfig, pts, views, ws, bs, c_alpha, c_rgb,
-             dtype=torch.bfloat16):
+             dtype=torch.bfloat16, packed=None):
     """Backward kernels for CUDA tensors, plain version for CPU tensors.
     -> (dws, dbs). The op dtype names the route, never a failure: bf16 runs
-    the tensor-core sweep (``rnb_nerf_bwd_wg``) and one ``wg.dw_gemm`` per
-    image layer, f32 the CUDA-core sweep and split-K reduction
-    (``rnb_nerf_bwd``)."""
+    the tensor-core sweep (``rnb_nerf_bwd_wg``) on ``packed`` (as for
+    ``nerf_fwd``) and one ``wg.dw_gemm`` per image layer, f32 the CUDA-core
+    sweep and split-K reduction (``rnb_nerf_bwd``)."""
     if not pts.is_cuda:
         return nerf_bwd_plain(cfg, pts, views, ws, bs, c_alpha, c_rgb, dtype)
     if _build.bf16_flag(dtype):
-        out = _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb)
+        out = _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed)
         _build.launches["nerf_bwd"] += 1
     else:
         out = _bwd_f32(cfg, pts, views, ws, bs, c_alpha, c_rgb)
@@ -301,17 +315,49 @@ def wg_layout(cfg: NeRFConfig, ws, n: int = 0) -> dict:
 def _check_wg(cfg: NeRFConfig, lay: dict):
     D, ins, outs, kp = cfg.D, lay["in_dims"], lay["out_dims"], lay["kp"]
     if (lay["E"] > 96 or max(kp[:D]) > 352 or set(outs[:D]) != {256}
-            or lay["of"] != 256 or lay["np"][D] > 272 or kp[D + 1] > 352
-            or outs[D + 1] > 128 or outs[D + 2] > 16
+            or lay["of"] != 256 or outs[D] > 264 or kp[D + 1] > 352
+            or outs[D + 1] > 128 or outs[D + 2] > 8
             or 3 * (1 + 2 * cfg.multires_view) > 32):
         raise ValueError(
-            "the bf16 nerf kernel takes a PE <= 96 wide, trunk layers and a "
+            "the bf16 nerf kernels take a PE <= 96 wide, trunk layers and a "
             "feature head of exactly 256 (skip inputs <= 352 after padding), "
-            "an alpha head <= 16 wide, a views PE <= 32, a views layer "
-            f"<= 128 wide and an rgb head <= 16 wide; got in {ins}, out {outs}")
+            "an alpha head <= 8 wide, a views PE <= 32, a views layer "
+            f"<= 128 wide and an rgb head <= 8 wide; got in {ins}, out {outs}")
 
 
-def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb):
+def wg_pack(cfg: NeRFConfig, ws, bs):
+    """The bf16 route's weights: (the bf16 image of the image layers of
+    ``wg_weights`` at ``wg_layout``'s offsets, their biases flat in image
+    order). The op builds them once a forward-plus-backward; both kernels
+    read them."""
+    iw, ib = wg_weights(cfg, [w.detach() for w in ws], [b.detach() for b in bs])
+    image = wg.pack_weights(iw, wg_layout(cfg, ws))
+    return image, torch.cat([b.reshape(-1) for b in ib]).contiguous()
+
+
+def _fwd_wg(cfg, pts, views, ws, bs, packed):
+    _check_args(cfg, pts, views, ws, bs)
+    pts, views = (t.detach().contiguous() for t in (pts, views))
+    n, D, dev = pts.shape[0], cfg.D, pts.device
+    lay = wg_layout(cfg, ws)
+    _check_wg(cfg, lay)
+    image, bflat = packed or wg_pack(cfg, ws, bs)
+    alpha = torch.empty(n, ws[D].shape[1], device=dev)
+    rgb = torch.empty(n, ws[-1].shape[1], device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().rnb_nerf_fwd_wg(
+            pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
+            image.data_ptr(), bflat.data_ptr(),
+            _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
+            _build.int_array(lay["skip"]), _build.ll_array(lay["w_off"]),
+            len(lay["in_dims"]), lay["of"], cfg.multires, cfg.multires_view,
+            alpha.data_ptr(), rgb.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rnb_nerf_fwd_wg")
+    return alpha, rgb
+
+
+def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed):
     _check_args(cfg, pts, views, ws, bs)
     pts, views = (t.detach().contiguous() for t in (pts, views))
     n, D, dev = pts.shape[0], cfg.D, pts.device
@@ -320,9 +366,7 @@ def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb):
     c_alpha, c_rgb = _cotangents(c_alpha, c_rgb, n, ws[D].shape[1],
                                  ws[-1].shape[1])
     lib = _build.library()
-    iw, ib = wg_weights(cfg, [w.detach() for w in ws], [b.detach() for b in bs])
-    image = wg.pack_weights(iw, lay)
-    bflat = torch.cat([b.reshape(-1) for b in ib]).contiguous()
+    image, bflat = packed or wg_pack(cfg, ws, bs)
     abuf = torch.empty(lay["a_len"], dtype=torch.bfloat16, device=dev)
     bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
     dbp = torch.empty(-(-n // wg.TILE) * bflat.numel(), device=dev)
@@ -334,7 +378,7 @@ def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb):
             _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
             _build.int_array(lay["skip"]), _build.ll_array(lay["w_off"]),
             _build.ll_array(lay["a_off"]), _build.ll_array(lay["bb_off"]),
-            len(iw), lay["of"], cfg.multires, cfg.multires_view,
+            len(lay["in_dims"]), lay["of"], cfg.multires, cfg.multires_view,
             c_alpha.data_ptr(), c_rgb.data_ptr(), abuf.data_ptr(),
             bbuf.data_ptr(), dbp.data_ptr(), db.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -382,8 +426,11 @@ class _NeRF(torch.autograd.Function):
     def forward(ctx, cfg, dtype, pts, views, *wb):
         L = len(wb) // 2
         ctx.cfg, ctx.dtype = cfg, dtype
+        # the bf16 route's weight image, packed once for both kernels
+        ctx.packed = (wg_pack(cfg, wb[:L], wb[L:]) if dtype == torch.bfloat16
+                      else None)
         ctx.save_for_backward(pts, views, *wb)
-        return nerf_fwd(cfg, pts, views, wb[:L], wb[L:], dtype)
+        return nerf_fwd(cfg, pts, views, wb[:L], wb[L:], dtype, ctx.packed)
 
     @staticmethod
     @once_differentiable
@@ -391,7 +438,7 @@ class _NeRF(torch.autograd.Function):
         pts, views, *wb = ctx.saved_tensors
         L = len(wb) // 2
         dws, dbs = nerf_bwd(ctx.cfg, pts, views, wb[:L], wb[L:], c_alpha,
-                            c_rgb, ctx.dtype)
+                            c_rgb, ctx.dtype, ctx.packed)
         return (None, None, None, None, *dws, *dbs)
 
 

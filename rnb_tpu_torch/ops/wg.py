@@ -46,14 +46,15 @@ def offsets(in_dims: Sequence[int], out_dims: Sequence[int],
                 b_len=bb_off[-1] + rows * np_[-1])
 
 
-def pack_weights(ws, lay: dict) -> torch.Tensor:
+def pack_weights(ws, lay: dict, dtype=torch.bfloat16) -> torch.Tensor:
     """The bf16 weight image: W_l rounded to bf16, zero-padded to
     [pad16(in), pad16(out)] and stored as 8x8 cores, core (i/8, o/8) at
-    lay["w_off"][l] + ((i/8)·pad16(out)/8 + o/8)·64, 8 consecutive o a row."""
+    lay["w_off"][l] + ((i/8)·pad16(out)/8 + o/8)·64, 8 consecutive o a row.
+    (``dtype`` float32 gives the same layout unrounded, for comparisons.)"""
     parts = []
     for w, kp, np_ in zip(ws, lay["kp"], lay["np"]):
-        pad = torch.zeros(kp, np_, dtype=torch.bfloat16, device=w.device)
-        pad[:w.shape[0], :w.shape[1]] = w.detach().to(torch.bfloat16)
+        pad = torch.zeros(kp, np_, dtype=dtype, device=w.device)
+        pad[:w.shape[0], :w.shape[1]] = w.detach().to(dtype)
         parts.append(pad.reshape(kp // 8, 8, np_ // 8, 8).permute(0, 2, 1, 3)
                      .reshape(-1))
     return torch.cat(parts)

@@ -48,8 +48,9 @@ def main(argv=None) -> dict:
     for o in args.set:
         config.apply_override(conf, o)
     statics = fields.statics_from_conf(conf["model"])
-    fn = steplib.make_train_step(statics, renderer.renderer_conf(conf["model"]),
-                                 steplib.train_conf(conf), warmup=False,
+    tcfg = steplib.train_conf(conf)
+    rcfg = steplib.apply_runtime_flags(renderer.renderer_conf(conf["model"]), tcfg)
+    fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=False,
                                  no_albedo=False)
     scene = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4)
     state = steplib.init_train_state(
@@ -83,6 +84,7 @@ def main(argv=None) -> dict:
     top = dict(ranked[:args.top])
     top["everything else"] = sum(v for _, v in ranked[args.top:])
     res = {"card": card(), "conf": args.conf, "set": args.set,
+           "flags": steplib.runtime_flags_dict(tcfg),
            "steps": args.steps, "wall_ms_per_step": wall,
            "device_ms_per_step": device, "idle_share": 1.0 - device / wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any
 
 import torch
@@ -45,7 +46,9 @@ from rnb_tpu_torch.utils.bridge import tree_leaves
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The ``train`` conf section."""
+    """The ``train`` conf section, with the JAX package's runtime knobs
+    under the same names and defaults (``resolve_runtime_flags``: RNB_*
+    environment variables override the conf)."""
     learning_rate: float = 5e-4
     learning_rate_alpha: float = 0.05
     end_iter: int = 300000
@@ -61,11 +64,23 @@ class TrainConfig:
     report_freq: int = 500
     igr_weight: float = 0.1
     mask_weight: float = 0.1
+    # runtime knobs
+    matmul_precision: str = "high"      # carried and recorded, not applied
+    upsample_precision: str = "bf16"    # 'bf16' | 'f32' no-grad sweeps
+    remat: bool = False                 # only False runs
+    core_impl: str = "pallas"           # only 'pallas' runs
+    view_shard: bool = False            # only False runs
+
+    def __post_init__(self):
+        rnd.refuse_unsupported("train", remat=self.remat,
+                               core_impl=self.core_impl,
+                               view_shard=self.view_shard)
 
 
 def train_conf(conf) -> TrainConfig:
+    """The resolved ``train`` section (conf, then RNB_* overrides)."""
     if "train" not in conf:
-        return TrainConfig()
+        return resolve_runtime_flags(TrainConfig())
     d = dict(conf["train"].as_dict())
     known = {f.name for f in dataclasses.fields(TrainConfig)}
     unknown = sorted(set(d) - known)
@@ -73,7 +88,49 @@ def train_conf(conf) -> TrainConfig:
         logging.getLogger(__name__).warning(
             "ignoring unknown train conf keys %s (not in the TrainConfig "
             "schema — check for typos)", unknown)
-    return TrainConfig(**{k: v for k, v in d.items() if k in known})
+    return resolve_runtime_flags(
+        TrainConfig(**{k: v for k, v in d.items() if k in known}))
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    return default if v is None else v not in ("0", "false", "off", "")
+
+
+def resolve_runtime_flags(tcfg: TrainConfig) -> TrainConfig:
+    """The conf's runtime knobs with the RNB_* environment overrides of the
+    JAX package on top (the environment wins)."""
+    return dataclasses.replace(
+        tcfg,
+        matmul_precision=os.environ.get("RNB_MATMUL_PRECISION",
+                                        tcfg.matmul_precision),
+        upsample_precision=os.environ.get("RNB_UPSAMPLE_PREC",
+                                          tcfg.upsample_precision),
+        remat=_env_bool("RNB_REMAT", tcfg.remat),
+        core_impl=os.environ.get("RNB_CORE_IMPL", tcfg.core_impl),
+        view_shard=_env_bool("RNB_VIEW_SHARD", tcfg.view_shard),
+    )
+
+
+def apply_runtime_flags(rcfg: RendererConfig, tcfg: TrainConfig) -> RendererConfig:
+    """Copy the resolved runtime knobs into the RendererConfig, which is
+    what the render functions read: ``upsample_precision`` overwrites its
+    ``upsample_prec``, as in the JAX package. ``matmul_precision`` is
+    carried and recorded (``runtime_flags_dict``), not applied: no global
+    torch state changes, and the port's plain matmuls stay in full f32."""
+    return dataclasses.replace(rcfg, upsample_prec=tcfg.upsample_precision,
+                               remat=tcfg.remat, core_impl=tcfg.core_impl)
+
+
+def runtime_flags_dict(tcfg: TrainConfig) -> dict:
+    """The resolved runtime knobs as a JSON-able dict."""
+    return {
+        "matmul_precision": tcfg.matmul_precision,
+        "upsample_precision": tcfg.upsample_precision,
+        "remat": tcfg.remat,
+        "core_impl": tcfg.core_impl,
+        "view_shard": tcfg.view_shard,
+    }
 
 
 @dataclasses.dataclass

@@ -1,0 +1,117 @@
+"""The port reads a conf's numerics knobs as the JAX package does.
+
+One conf text goes through both packages' parser, ``train_conf`` (the conf's
+runtime knobs, then the RNB_* environment overrides) and
+``apply_runtime_flags(renderer_conf(...), ...)``; the resolved runtime
+fields and the renderer's ``upsample_prec`` must be equal. A knob the port
+cannot honour (``core_impl`` other than 'pallas', ``remat`` or
+``view_shard`` true) is refused by a ValueError that names it.
+"""
+
+import re
+
+import jax
+import pytest
+
+from rnb_tpu import config as jconfig
+from rnb_tpu.models import renderer as jrenderer
+from rnb_tpu.train import step as jstep
+from rnb_tpu_torch import config as tconfig
+from rnb_tpu_torch.models import renderer as trenderer
+from rnb_tpu_torch.train import step as tstep
+
+ENV = ("RNB_MATMUL_PRECISION", "RNB_UPSAMPLE_PREC", "RNB_REMAT",
+       "RNB_CORE_IMPL", "RNB_VIEW_SHARD")
+
+
+@pytest.fixture(autouse=True)
+def clean_env(monkeypatch):
+    """No RNB_* override from outside; the JAX package's global matmul
+    precision (which its apply_runtime_flags sets) restored afterwards."""
+    for k in ENV:
+        monkeypatch.delenv(k, raising=False)
+    before = jax.config.jax_default_matmul_precision
+    yield
+    jax.config.update("jax_default_matmul_precision", before)
+
+
+def _resolve(config, renderer, step, conf):
+    tcfg = step.train_conf(conf)
+    rcfg = step.apply_runtime_flags(renderer.renderer_conf(conf["model"]), tcfg)
+    return step.runtime_flags_dict(tcfg), rcfg.upsample_prec
+
+
+def _both(text):
+    jax_side = _resolve(jconfig, jrenderer, jstep, jconfig.parse_string(text))
+    port = _resolve(tconfig, trenderer, tstep, tconfig.parse_string(text))
+    return jax_side, port
+
+
+CASES = {
+    # the train key sets the sweeps' precision in both packages
+    "train_upsample_f32": ("train { upsample_precision = f32 }\n"
+                           "model { neus_renderer { n_samples = 64 } }", "f32"),
+    # the renderer's own key is overwritten by train.upsample_precision
+    # (default bf16), as the JAX package does
+    "renderer_upsample_f32_no_train_key": (
+        "model { neus_renderer { upsample_prec = f32 } }", "bf16"),
+    "renderer_and_train_keys": (
+        "train { upsample_precision = f32, matmul_precision = highest }\n"
+        "model { neus_renderer { upsample_prec = bf16, remat = false,"
+        " core_impl = pallas } }", "f32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_conf_knobs_resolve_alike(case):
+    text, want = CASES[case]
+    jax_side, port = _both(text)
+    assert port == jax_side
+    assert port[1] == want
+
+
+def test_env_override_wins(monkeypatch):
+    monkeypatch.setenv("RNB_UPSAMPLE_PREC", "f32")
+    monkeypatch.setenv("RNB_MATMUL_PRECISION", "highest")
+    text = "train { upsample_precision = bf16 }\nmodel { neus_renderer { } }"
+    jax_side, port = _both(text)
+    assert port == jax_side
+    assert port[1] == "f32" and port[0]["matmul_precision"] == "highest"
+
+
+@pytest.mark.parametrize("conf", ["confs/wmask_rnb.conf", "confs/womask_rnb.conf"])
+def test_shipped_confs_unchanged(conf):
+    jax_side = _resolve(jconfig, jrenderer, jstep, jconfig.load_conf(conf))
+    port = _resolve(tconfig, trenderer, tstep, tconfig.load_conf(conf))
+    assert port == jax_side
+    assert port == (tstep.runtime_flags_dict(tstep.TrainConfig()), "bf16")
+
+
+REFUSED = {   # case: (conf text, the key the message must name)
+    "renderer_core_impl_vjp": (
+        "model { neus_renderer { core_impl = vjp, remat = false } }",
+        "neus_renderer.core_impl = 'vjp'"),
+    "renderer_remat": ("model { neus_renderer { remat = true } }",
+                       "neus_renderer.remat = True"),
+    "train_core_impl_fwdmode": ("train { core_impl = fwdmode }\nmodel { }",
+                                "train.core_impl = 'fwdmode'"),
+    "train_view_shard": ("train { view_shard = true }\nmodel { }",
+                         "train.view_shard = True"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_unsupported_knob_is_refused_by_name(case):
+    """The JAX package parses these; the port refuses each with a
+    ValueError that names the key and the value (not a TypeError, and never
+    silently)."""
+    text, named = REFUSED[case]
+    _resolve(jconfig, jrenderer, jstep, jconfig.parse_string(text))
+    with pytest.raises(ValueError, match=re.escape(named)):
+        _resolve(tconfig, trenderer, tstep, tconfig.parse_string(text))
+
+
+def test_env_knob_the_port_cannot_honour_is_refused(monkeypatch):
+    monkeypatch.setenv("RNB_VIEW_SHARD", "1")
+    with pytest.raises(ValueError, match=re.escape("train.view_shard = True")):
+        tstep.train_conf(tconfig.parse_string("train { }"))

@@ -9,8 +9,8 @@ Full widths (8x256 SDF net, 310→256→256→3 albedo net, the 8x256 background
 NeRF with its 84-wide PE, 340-wide skip input and 283-wide views layer) at a
 point count that is not a multiple of the 16-point tile of the CUDA-core
 kernels nor of the 64-point tile of the tensor-core ones. The SDF core and
-the albedo and NeRF backwards run both of their routes: bf16 on the tensor
-cores, f32 on the CUDA cores. Tolerances, relative to the norm of
+the albedo and NeRF forwards and backwards run both of their routes: bf16
+on the tensor cores, f32 on the CUDA cores. Tolerances, relative to the norm of
 the plain result: 1e-4 at f32 operands (summation order only), 1e-2 at bf16
 operands (a different summation order can flip the bf16 rounding of an
 activation, one bf16 ulp = 2^-8 relative).
@@ -140,20 +140,21 @@ def _albedo_setup(dev, n=N):
     return cfg, ws, bs, pts, nrm, feat, c_out
 
 
-# the albedo and NeRF counters of each route (the forwards have one route)
+# the albedo and NeRF counters of each route
 ALB_ROUTE = {torch.bfloat16: {"albedo_fwd": 1, "albedo_bwd": 1,
                               "albedo_dw_gemm": 3},
-             torch.float32: {"albedo_fwd": 1, "albedo_bwd_f32": 1}}
+             torch.float32: {"albedo_fwd_f32": 1, "albedo_bwd_f32": 1}}
 NERF_ROUTE = {torch.bfloat16: {"nerf_fwd": 1, "nerf_bwd": 1,
                                "nerf_dw_gemm": 11},
-              torch.float32: {"nerf_fwd": 1, "nerf_bwd_f32": 1}}
+              torch.float32: {"nerf_fwd_f32": 1, "nerf_bwd_f32": 1}}
 
 
 @pytest.mark.parametrize("n", [N, 37])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_albedo_kernels(cuda, dtype, n):
-    """Both backward routes against the plain version, at a ragged count
-    and at one mostly padded tile; the counters show which route ran."""
+    """Both routes of forward and backward against the plain version, at a
+    ragged count and at one mostly padded tile; the counters show which
+    route ran."""
     cfg, ws, bs, pts, nrm, feat, c_out = _albedo_setup(cuda, n)
     n0 = dict(_build.launches)
     _close([albedo.albedo_fwd(cfg, pts, nrm, feat, ws, bs, dtype)],
@@ -180,6 +181,18 @@ def test_albedo_ragged_rows_add_nothing(cuda, dtype):
     _close(full[0] + full[1],
            [x + y for x, y in zip(a[0] + a[1], b[0] + b[1])], 1e-5)
     _close(full[2:], [torch.cat([x, y]) for x, y in zip(a[2:], b[2:])], 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_albedo_forward_ragged_parts(cuda, dtype):
+    """The forward over N points is the rows of the forwards over two
+    ragged parts (517 and 520 points)."""
+    cfg, ws, bs, pts, nrm, feat, _ = _albedo_setup(cuda)
+    k = 517
+    full = albedo.albedo_fwd(cfg, pts, nrm, feat, ws, bs, dtype)
+    a = albedo.albedo_fwd(cfg, pts[:k], nrm[:k], feat[:k], ws, bs, dtype)
+    b = albedo.albedo_fwd(cfg, pts[k:], nrm[k:], feat[k:], ws, bs, dtype)
+    _close([full], [torch.cat([a, b])], 1e-6)
 
 
 def _nerf_setup(dev, n=N):
@@ -212,7 +225,7 @@ def test_nerf_kernels(cuda, dtype, n):
     db of a trunk layer sums O(1) cotangents of random sign over the points
     and cancels to a small norm, where a one-ulp bf16 flip of an activation
     weighs ~1e-2 even between two plain versions (CPU and cuBLAS). The
-    counters show which backward route ran."""
+    counters show which route of forward and backward ran."""
     cfg, ws, bs, pts, views, cots = _nerf_setup(cuda, n)
     n0 = dict(_build.launches)
     _close(nerf.nerf_fwd(cfg, pts, views, ws, bs, dtype),
@@ -237,6 +250,18 @@ def test_nerf_ragged_rows_add_nothing(cuda, dtype):
                       dtype)
     _close(full[0] + full[1], [x + y for x, y in zip(a[0] + a[1], b[0] + b[1])],
            1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_forward_ragged_parts(cuda, dtype):
+    """alpha and rgb over N points are the rows of those over two ragged
+    parts."""
+    cfg, ws, bs, pts, views, _ = _nerf_setup(cuda)
+    k = 517
+    full = nerf.nerf_fwd(cfg, pts, views, ws, bs, dtype)
+    a = nerf.nerf_fwd(cfg, pts[:k], views[:k], ws, bs, dtype)
+    b = nerf.nerf_fwd(cfg, pts[k:], views[k:], ws, bs, dtype)
+    _close(full, [torch.cat([x, y]) for x, y in zip(a, b)], 1e-6)
 
 
 @pytest.mark.parametrize("mode", sdf_ablate.MODES)
@@ -273,13 +298,15 @@ def test_wrappers_reject_bad_input(cuda):
         nerf.nerf_fwd(ncfg, npts[:, :3], views, nws, nbs)
     with pytest.raises(ValueError):
         nerf.nerf_fwd(ncfg, npts, views[:16], nws, nbs)
-    # widths the tensor-core backwards do not take: they raise, never fall
-    # back to the CUDA-core route
+    # widths the tensor-core forwards and backwards do not take: they
+    # raise, never fall back to the CUDA-core route
     n0 = dict(_build.launches)
     gen = torch.Generator().manual_seed(5)
     for W in (512, 128):   # the bf16 NeRF trunk is exactly 256 wide
         other = fields.NeRFConfig(W=W)
         ww, wb = nerf.flatten_params(fields.init_nerf(gen, other, device=cuda))
+        with pytest.raises(ValueError):
+            nerf.nerf_fwd(other, npts, views, ww, wb)
         with pytest.raises(ValueError):
             nerf.nerf_bwd(other, npts, views, ww, wb,
                           torch.zeros(32, 1, device=cuda),
@@ -290,6 +317,8 @@ def test_wrappers_reject_bad_input(cuda):
     ab = [l["b"] for l in aparams]
     apts, anrm = npts[:, :3], torch.nn.functional.normalize(npts[:, :3], dim=-1)
     afeat = torch.zeros(32, acfg.d_feature, device=cuda)
+    with pytest.raises(ValueError):
+        albedo.albedo_fwd(acfg, apts, anrm, afeat, aw, ab)
     with pytest.raises(ValueError):
         albedo.albedo_bwd(acfg, apts, anrm, afeat, aw, ab,
                           torch.zeros(32, 3, device=cuda))
