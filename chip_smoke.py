@@ -31,7 +31,19 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      mean loss of the last 20 steps must be below that of the first 20;
   5. runs the kernel-ablation entry point
      (python -m rnb_tpu_torch.tools.ablate_kernel) and checks that it went
-     through the ablation kernel.
+     through the ablation kernel;
+  6. drives the runner path as a user would, in subprocesses: writes a
+     sphere case (radius 0.35, 6 views, 256x256) with
+     python -m rnb_tpu_torch.tools.make_synthetic_case, trains
+     confs/wmask_rnb.conf on it for 400 steps (300 warm-up) with
+     python -m rnb_tpu_torch.cli --mode train_rnb at full width, and checks
+     the checkpoints at 200 and 400, the validation and normal images, the
+     mesh at 400 (vertex radius 0.35 +- 0.02, std < 0.02), a falling and
+     finite loss, the training kernels' launches in that run, the port's
+     acceptance gate (Chamfer-L1 <= 0.02), and a resume from the step-200
+     checkpoint whose step-201 loss equals the first run's within 1e-6
+     relative; then times the grid query and marching cubes at 128^3 and
+     512^3 on the trained weights.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
@@ -55,9 +67,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -76,6 +92,7 @@ WMASK_F32 = ("sdf_core_fwd_f32", "sdf_core_bwd_f32", "albedo_fwd_f32",
              "albedo_bwd_f32")
 WOMASK_F32 = WMASK_F32 + ("nerf_fwd_f32", "nerf_bwd_f32")
 F32_ROUTE = WOMASK_F32
+ROOT = Path(__file__).resolve().parent
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12   # H100 SXM data sheet
 
 KERNELS = {
@@ -505,6 +522,153 @@ def ablation_run():
     return res, count
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the runner path through the command line
+# ---------------------------------------------------------------------------
+
+def _sub(args, timeout, ok_rcs=(0,)):
+    """Run ``python -m <args>`` from the repository root; its output, and
+    its return code checked against ``ok_rcs``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    tail = "\n".join(proc.stdout.splitlines()[-12:])
+    log(f"[runner] python -m {args[0]} ... rc={proc.returncode} in {secs:.1f} s"
+        f"\n{tail}")
+    if proc.returncode not in ok_rcs:
+        raise RuntimeError(f"python -m {' '.join(args)} exited {proc.returncode}:"
+                           f"\n{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    return proc.stdout, secs
+
+
+def _losses(exp):
+    out = {}
+    with open(os.path.join(exp, "logs", "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "Loss/loss" in rec:
+                out[rec["step"]] = rec["Loss/loss"]
+    return out
+
+
+def runner_path(dev, card):
+    from rnb_tpu_torch.models import renderer as rnd
+    from rnb_tpu_torch.ops import marching_cubes as mc
+    from rnb_tpu_torch.train.runner import Runner
+
+    tmp = tempfile.mkdtemp(prefix="rnb_smoke_")
+    try:
+        case, exp = os.path.join(tmp, "sphere"), os.path.join(tmp, "exp")
+        _sub(["rnb_tpu_torch.tools.make_synthetic_case", "--out", case,
+              "--shape", "sphere", "--radius", "0.35", "--n_views", "6",
+              "--size", "256"], 300)
+        sets = [f"dataset.data_dir={case}", f"general.base_exp_dir={exp}",
+                "train.end_iter=400", "train.warm_up_iter=300",
+                "train.warm_up_end=50", "train.save_freq=200",
+                "train.val_freq=200", "train.val_mesh_freq=400",
+                "train.report_freq=100"]
+        cli = ["rnb_tpu_torch.cli", "--mode", "train_rnb", "--conf",
+               WMASK[0]]
+        # the launch counts of this run start at 0 in the new process and
+        # are printed by it at its end
+        out, run_secs = _sub(cli + ["--mesh_resolution", "128"]
+                             + [a for s in sets for a in ("--set", s)], 900)
+        counts = json.loads(next(l for l in out.splitlines()
+                                 if l.startswith('{"launches"')))["launches"]
+        log(f"[runner] launches in the CLI run: {counts}")
+        for k in WMASK_KERNELS:
+            assert counts[k] > 0, f"kernel {k} was not launched by the runner path"
+        for k in F32_ROUTE:
+            assert counts[k] == 0, f"the runner path launched the f32 route ({k})"
+        wall = next(l for l in out.splitlines() if l.startswith("trained "))
+        steps, secs = int(wall.split()[1]), float(wall.split()[4])
+        assert steps == 400, wall
+
+        for rel in ("checkpoints/ckpt_000200.npz", "checkpoints/ckpt_000400.npz",
+                    "meshes/00000400.ply"):
+            assert os.path.isfile(os.path.join(exp, rel)), f"missing {rel}"
+        for sub in ("validations_fine", "normals"):
+            pngs = [f for f in os.listdir(os.path.join(exp, sub)) if f.endswith(".png")]
+            assert len(pngs) == 2, f"{sub}: {pngs}"
+        losses = _losses(exp)
+        assert sorted(losses) == list(range(1, 401)), "logged steps"
+        ls = np.array([losses[s] for s in range(1, 401)])
+        first, last = float(ls[:20].mean()), float(ls[-20:].mean())
+        assert np.isfinite(ls).all() and last < first, (first, last)
+
+        from rnb_tpu_torch.utils.io import read_ply
+        v, f, _ = read_ply(os.path.join(exp, "meshes", "00000400.ply"))
+        r = np.linalg.norm(v, axis=-1)
+        log(f"[runner] loss first 20 {first:.5f}, last 20 {last:.5f}; mesh "
+            f"{len(v)} vertices, {len(f)} faces, radius mean {r.mean():.5f} "
+            f"std {r.std():.5f}")
+        assert abs(r.mean() - 0.35) < 0.02 and r.std() < 0.02, "mesh radius"
+
+        acc_out, _ = _sub(["rnb_tpu_torch.tools.acceptance", exp, "--shape",
+                           "sphere", "--radius", "0.35", "--threshold", "0.02"],
+                          300)
+        acceptance = json.loads(acc_out.strip().splitlines()[-1])
+        log("[runner] acceptance " + json.dumps(acceptance))
+
+        # resume from the step-200 checkpoint in a fresh directory
+        exp2 = os.path.join(tmp, "exp_resume")
+        os.makedirs(os.path.join(exp2, "checkpoints"))
+        shutil.copy(os.path.join(exp, "checkpoints", "ckpt_000200.npz"),
+                    os.path.join(exp2, "checkpoints"))
+        sets2 = [s for s in sets if not s.startswith(("general.", "train.end_iter"))]
+        _sub(cli + ["--is_continue", "--mesh_resolution", "64",
+                    "--set", f"general.base_exp_dir={exp2}",
+                    "--set", "train.end_iter=201"]
+             + [a for s in sets2 for a in ("--set", s)], 600)
+        resumed = _losses(exp2)
+        assert sorted(resumed) == [201], sorted(resumed)
+        rel = abs(resumed[201] - losses[201]) / abs(losses[201])
+        log(f"[runner] step 201 loss: straight {losses[201]!r}, resumed "
+            f"{resumed[201]!r}, rel diff {rel:.3e}")
+        assert rel <= 1e-6, "the resumed step differs"
+
+        # grid query and marching cubes on the trained weights
+        runner = Runner(WMASK[0], "validate_mesh", is_continue=True,
+                        overrides=sets, device=dev)
+        assert runner.iter_step == 400
+        ds_ = runner.dataset
+        # least work of the query: the f32 multiply-adds of the SDF chain
+        # with its head cut to the sdf column, at the f32 peak
+        sdf_ws = [l["v"] for l in runner.state.params["sdf"]]
+        macs = sum(w.shape[0] * w.shape[1] for w in sdf_ws[:-1]) + sdf_ws[-1].shape[0]
+        extraction = {}
+        for res in (128, 512):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grid = rnd.extract_fields(runner.statics, runner.state.params,
+                                      ds_.object_bbox_min, ds_.object_bbox_max, res)
+            t1 = time.perf_counter()
+            verts, tris = mc.extract_geometry(grid, ds_.object_bbox_min,
+                                              ds_.object_bbox_max)
+            t2 = time.perf_counter()
+            extraction[res] = {"grid_query_s": t1 - t0,
+                               "grid_query_bound_s": 2 * macs * res ** 3 / PEAK_F32,
+                               "marching_cubes_s": t2 - t1,
+                               "vertices": len(verts), "faces": len(tris)}
+            rr = np.linalg.norm(verts, axis=-1)
+            assert abs(rr.mean() - 0.35) < 0.02 and rr.std() < 0.02, res
+            log(f"[runner] extraction {res}^3 ({card}): {extraction[res]}")
+        log(f"[runner] marching cubes built by {mc.build_info['compiler']}")
+        result = {"train_400_steps_s": secs, "rays_per_s": 400 * 512 / secs,
+                  "cli_process_s": run_secs, "loss_first20": first,
+                  "loss_last20": last, "mesh_radius_mean": float(r.mean()),
+                  "mesh_radius_std": float(r.std()),
+                  "chamfer_l1": acceptance["chamfer_l1"],
+                  "step201_rel_diff": rel, "extraction": extraction}
+        log(f"[runner] {card}: wall of 400 steps {secs:.3f} s "
+            f"({result['rays_per_s']:.0f} rays/s, checkpoints and validation "
+            "included)")
+        return result, counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only on a GPU")
@@ -539,6 +703,7 @@ def main():
         summary[label] = {"slice": phases, "parity": parity,
                           "train": training_moves(dev, spec)}
     summary["ablation"], counts["sdf_fwd_ablate"] = ablation_run()
+    summary["runner"], summary["runner_launches"] = runner_path(dev, card)
 
     log("[summary] " + json.dumps(summary))
     log(json.dumps({"kernels": [

@@ -9,10 +9,18 @@ closed-form frames): no per-step host-to-device traffic.
 Pixel draws are inputs (``sample_rays_on_all_lights`` takes ``px``, ``py``;
 ``draw_pixels`` makes them from a ``torch.Generator``), so the tests can
 feed the JAX package's draws.
+
+``Dataset.from_conf`` loads the IDR layout from disk: ``cameras.npz`` with
+``world_mat_i`` / ``scale_mat_i``, ``mask/*.png``, ``normal/*.png`` and
+optionally ``albedo/*.png`` (``albedo_dir = ''`` means no albedo). The maps
+go to the device as float32 (the JAX package re-quantizes them to uint16
+and decodes on the device, so the two differ by about one ulp).
 """
 
 from __future__ import annotations
 
+import os
+from glob import glob
 from typing import NamedTuple
 
 import numpy as np
@@ -20,6 +28,7 @@ import torch
 
 from rnb_tpu_torch.data import cameras as cam
 from rnb_tpu_torch.data import lights
+from rnb_tpu_torch.utils import io
 
 
 class DataArrays(NamedTuple):
@@ -92,6 +101,45 @@ def sample_rays_on_all_lights(arrays: DataArrays, view_idx, px, py) -> RayBatch:
                     near=near, far=far, pixels_x=px, pixels_y=py)
 
 
+def gen_rays_at(arrays: DataArrays, view_idx: int, resolution_level: int = 1):
+    """Full-view ray grid: pixels at linspace(0, W-1, W//l) ->
+    (rays_o, rays_d [H', W', 3], float pixel grids px, py [H', W'])."""
+    _, H, W, _ = arrays.normals.shape
+    l = resolution_level
+    dev = arrays.normals.device
+    tx = torch.linspace(0, W - 1, W // l, device=dev)
+    ty = torch.linspace(0, H - 1, H // l, device=dev)
+    py, px = torch.meshgrid(ty, tx, indexing="ij")   # [H', W']
+    p = torch.stack([px, py, torch.ones_like(px)], dim=-1)
+    Kinv = arrays.intrinsics_inv[view_idx, :3, :3]
+    pose = arrays.pose_all[view_idx]
+    d_cam = p @ Kinv.T
+    d_cam = d_cam / torch.linalg.vector_norm(d_cam, dim=-1, keepdim=True)
+    rays_d = d_cam @ pose[:3, :3].T
+    rays_o = pose[:3, 3].expand_as(rays_d)
+    return rays_o, rays_d, px, py
+
+
+def lights_at_pixels(arrays: DataArrays, view_idx, light_idx, px, py):
+    """World main-light directions [N,3] of light ``light_idx`` at integer
+    pixels px, py [N]."""
+    n = arrays.normals[view_idx, py, px]
+    l_cam = lights.per_pixel_light_dirs_cam(n)[light_idx]
+    pose_r = arrays.pose_all[view_idx, :3, :3]
+    return l_cam @ pose_r.T
+
+
+def synth_images(arrays: DataArrays, view_idx):
+    """Warm-up and main supervision images of one view under every light
+    -> ([L,H,W,3], [L,H,W,3])."""
+    n = arrays.normals[view_idx]
+    a = arrays.albedos[view_idx]
+    u_warm = torch.as_tensor(lights.warmup_light_dirs_cam(), device=n.device)
+    img_warm = lights.shade(n, u_warm, a)
+    img_main = lights.shade(n, lights.per_pixel_light_dirs_cam(n), a)
+    return img_warm, img_main
+
+
 class Dataset:
     """Owns the device tensors, the host camera matrices and the mesh bbox."""
 
@@ -142,6 +190,66 @@ class Dataset:
         inv0 = np.linalg.inv(self.scale_mats_np[0])
         self.object_bbox_min = (inv0 @ object_scale_mat @ bbox_min[:, None])[:3, 0]
         self.object_bbox_max = (inv0 @ object_scale_mat @ bbox_max[:, None])[:3, 0]
+
+    @classmethod
+    def from_conf(cls, conf, no_albedo: bool = False, device="cuda") -> "Dataset":
+        """Load the IDR layout named by a ``dataset`` conf section."""
+        data_dir = conf.get_string("data_dir")
+        normal_dir = conf.get_string("normal_dir", default="normal")
+        albedo_dir = conf.get_string("albedo_dir", default="")
+        mask_dir = conf.get_string("mask_dir", default="mask")
+        render_cameras_name = conf.get_string("render_cameras_name")
+        object_cameras_name = conf.get_string("object_cameras_name")
+        if albedo_dir == "":
+            no_albedo = True
+
+        camera_dict = np.load(os.path.join(data_dir, render_cameras_name))
+        mask_files = sorted(glob(os.path.join(data_dir, mask_dir, "*.png")))
+        normal_files = sorted(glob(os.path.join(data_dir, normal_dir, "*.png")))
+        if not mask_files or len(normal_files) != len(mask_files):
+            raise FileNotFoundError(
+                f"{data_dir}: {len(mask_files)} masks and {len(normal_files)} "
+                "normal maps (need the same number, at least one)")
+        masks_np = np.stack([io.load_mask(f) for f in mask_files])
+        normals_np = np.stack([io.load_normal(f) for f in normal_files])
+        albedos_np = None
+        if not no_albedo:
+            albedo_files = sorted(glob(os.path.join(data_dir, albedo_dir, "*.png")))
+            albedos_np = np.stack([io.load_image(f) for f in albedo_files])
+
+        n = len(mask_files)
+        world_mats = [camera_dict[f"world_mat_{i}"].astype(np.float32)
+                      for i in range(n)]
+        scale_mats = [camera_dict[f"scale_mat_{i}"].astype(np.float32)
+                      for i in range(n)]
+        object_scale_mat = np.load(
+            os.path.join(data_dir, object_cameras_name))["scale_mat_0"]
+        ds = cls(normals_np, albedos_np, masks_np, world_mats, scale_mats,
+                 object_scale_mat=object_scale_mat, no_albedo=no_albedo,
+                 device=device)
+        ds.normal_files = normal_files
+        return ds
+
+    # -- validation helpers ---------------------------------------------------
+
+    def near_far_from_sphere(self, rays_o, rays_d):
+        return cam.near_far_from_sphere(rays_o, rays_d)
+
+    def image_at_ps(self, idv: int, idl: int, resolution_level: int = 1):
+        """(warm-up, main) supervision image of a view and light, resized
+        by 1/resolution_level, as host arrays."""
+        img_warm, img_main = synth_images(self.arrays, idv)
+        w, h = self.W // resolution_level, self.H // resolution_level
+        return (io.resize_image(img_warm[idl].cpu().numpy(), w, h),
+                io.resize_image(img_main[idl].cpu().numpy(), w, h))
+
+    def normal_at(self, idv: int, resolution_level: int = 1):
+        """World-space supervision normal map, resized, as a host array."""
+        n = self.arrays.normals[idv].cpu().numpy().reshape(-1, 3)
+        pose = self.pose_all_np[idv]
+        n_world = (pose[:3, :3] @ n.T).T.reshape(self.H, self.W, 3)
+        return io.resize_image(n_world, self.W // resolution_level,
+                               self.H // resolution_level)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,13 @@ package's draws: ``t_rand`` [B,1] (uniform − 0.5) and, with a background,
 guards 1e-5, cumprod 1e-7, sample_pdf weight floor 1e-5 and denominator
 floor 1e-5, cos clip [-1e3, 0], inv_s clip [1e-6, 1e6].
 
-Not ported yet: ``render`` for novel views and the mesh-extraction grid.
+Mesh extraction's front half: ``extract_fields`` evaluates −SDF on a dense
+grid in 64³-point chunks (a ragged last one), with the points made on the
+device from the bounds (``grid_chunk_points``), the f32 ``fields.sdf_only``
+with TF32 off, and the values cast to float16 on the device before the one
+fetch, as the JAX package does.
+
+Not ported yet: ``render`` for novel views.
 """
 
 from __future__ import annotations
@@ -441,3 +447,64 @@ def render_rnb(statics: ModelStatics, rcfg: RendererConfig, params,
         "gradient_error_den": ret["gradient_error_den"],
         "inside_sphere": ret["inside_sphere"],
     }
+
+
+# ---------------------------------------------------------------------------
+# SDF grid evaluation (mesh extraction front half)
+# ---------------------------------------------------------------------------
+
+def make_grid_points(bound_min, bound_max, resolution: int, device="cuda"):
+    """[R, R, R, 3] grid coordinates (x, y, z in "ij" order)."""
+    axes = [torch.linspace(float(bound_min[i]), float(bound_max[i]), resolution,
+                           device=device) for i in range(3)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
+def sdf_grid_query(sdf_cfg, sdf_params, pts, negate: bool = True):
+    """The SDF evaluation of grid extraction: f32 ``fields.sdf_only``."""
+    v = fields.sdf_only(sdf_cfg, sdf_params, pts)
+    return -v if negate else v
+
+
+def grid_chunk_points(start: int, n: int, bound_min, bound_max,
+                      resolution: int, device="cuda"):
+    """[n, 3] coordinates of the grid points with flat indices
+    [start, start + n), computed on the device from the bounds."""
+    idx = start + torch.arange(n, device=device, dtype=torch.int64)
+    bmin = torch.tensor([float(x) for x in bound_min], dtype=torch.float32,
+                        device=device)
+    bmax = torch.tensor([float(x) for x in bound_max], dtype=torch.float32,
+                        device=device)
+    r = resolution
+    ix, rem = idx // (r * r), idx % (r * r)
+    iy, iz = rem // r, rem % r
+    f = (bmax - bmin) / (r - 1)
+    return torch.stack([bmin[0] + ix.float() * f[0], bmin[1] + iy.float() * f[1],
+                        bmin[2] + iz.float() * f[2]], dim=-1)
+
+
+def extract_fields(statics: ModelStatics, params, bound_min, bound_max,
+                   resolution: int, chunk: int = 64 ** 3, negate: bool = True):
+    """(−)SDF on a dense ``resolution``³ grid -> float32 numpy [R, R, R].
+    Runs on the device of the parameters; fetched once, as float16."""
+    import numpy as np
+
+    sdf_params = params["sdf"]
+    dev = sdf_params[0]["b"].device
+    bmin = [float(x) for x in np.asarray(bound_min).reshape(-1)]
+    bmax = [float(x) for x in np.asarray(bound_max).reshape(-1)]
+    total = resolution ** 3
+    out = torch.empty(total, dtype=torch.float16, device=dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for start in range(0, total, chunk):
+                n = min(chunk, total - start)
+                pts = grid_chunk_points(start, n, bmin, bmax, resolution, dev)
+                out[start:start + n] = sdf_grid_query(
+                    statics.sdf, sdf_params, pts, negate).to(torch.float16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out.cpu().numpy().astype(np.float32).reshape(
+        resolution, resolution, resolution)

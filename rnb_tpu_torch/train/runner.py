@@ -1,0 +1,385 @@
+"""Experiment runner on one device: the training loop, checkpoints, scalar
+logs, validation images and mesh extraction.
+
+The port's counterpart of ``rnb_tpu/train/runner.py`` without its sharded,
+view-sharded and multi-process branches:
+
+  * two step functions (warm-up, main), switched at ``warm_up_iter``;
+  * every host draw is a function of (seed, step): the view order is a
+    permutation seeded by (seed, epoch), copied from the JAX package so both
+    train the same view sequence; the pixel, ``t_rand`` and ``t_out`` draws
+    of step s come from a generator seeded afresh from (seed, s). A run
+    resumed with ``is_continue`` draws what an uninterrupted one draws;
+  * the step's 0-d metric tensors stay on the device and are fetched once
+    every ``RING`` steps, so the loop does not wait on the card after each
+    step; the NaN guard reads them there;
+  * atomic checkpoints (``utils/checkpoint.py``) in the JAX package's
+    layout, ``logs/scalars.jsonl``, validation images, ``meshes/*.ply``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging as pylog
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from rnb_tpu_torch import config as cfglib
+from rnb_tpu_torch.data import dataset as ds
+from rnb_tpu_torch.models import fields, renderer as rnd
+from rnb_tpu_torch.ops import marching_cubes as mc
+from rnb_tpu_torch.train import schedules, step as steplib
+from rnb_tpu_torch.utils import checkpoint as ckptlib
+from rnb_tpu_torch.utils import io
+from rnb_tpu_torch.utils.bridge import tree_leaves
+from rnb_tpu_torch.utils.logging import ScalarLogger
+
+logger = pylog.getLogger(__name__)
+
+# the step's 0-d metric tensors, in the order of the JAX package's metrics
+# ring (its last key, lr, is a host float here)
+METRIC_KEYS = ("loss", "color_loss", "eikonal_loss", "mask_loss", "s_val",
+               "cdf", "weight_max", "psnr")
+
+
+class Runner:
+    # steps between two fetches of the metrics; NaN detection trails the
+    # live step by up to RING steps
+    RING = 64
+
+    def __init__(self, conf_path: str, mode: str = "train_rnb", case: str = "",
+                 is_continue: bool = False, no_albedo: bool = False,
+                 seed: int = 0, overrides: list[str] | None = None,
+                 device="cuda"):
+        self.conf_path = conf_path
+        self.conf = cfglib.load_conf(conf_path, case)
+        self.overrides = list(overrides or [])
+        for ov in self.overrides:
+            cfglib.apply_override(self.conf, ov)
+        self.device = torch.device(device)
+        self.base_exp_dir = self.conf.get_string("general.base_exp_dir")
+        os.makedirs(self.base_exp_dir, exist_ok=True)
+
+        self.tcfg = steplib.train_conf(self.conf)
+        self.rcfg = steplib.apply_runtime_flags(
+            rnd.renderer_conf(self.conf["model"]), self.tcfg)
+        self.statics = fields.statics_from_conf(self.conf["model"])
+        self.dataset = ds.Dataset.from_conf(self.conf["dataset"], no_albedo,
+                                            device=self.device)
+        self.no_albedo = self.dataset.no_albedo
+
+        params = fields.init_model_bundle(torch.Generator().manual_seed(seed),
+                                          self.statics, self.device)
+        self.state = steplib.init_train_state(params)
+        self.seed = seed
+        self._perm_epoch = None
+        self._perm_cache = None
+        self._gen = torch.Generator(device=self.device)
+        self._step_fns = {}
+        self._snap_good = None  # newest (step, leaves) confirmed finite
+
+        if is_continue:
+            latest = ckptlib.latest_checkpoint(
+                os.path.join(self.base_exp_dir, "checkpoints"),
+                self.tcfg.end_iter)
+            if latest is not None:
+                logger.info("Find checkpoint: %s", os.path.basename(latest))
+                ckptlib.load_checkpoint(latest, self.state)
+
+        if mode.startswith("train"):
+            self.file_backup()
+
+    @property
+    def iter_step(self) -> int:
+        return self.state.step
+
+    def get_cos_anneal_ratio(self) -> float:
+        return schedules.cos_anneal_ratio(self.iter_step, self.tcfg.anneal_end)
+
+    # -- host-side randomness, deterministic in (seed, step) ------------------
+
+    def _host_draw(self, *stream) -> np.random.Generator:
+        """A fresh Generator keyed on (seed, *stream), e.g. (step, tag)."""
+        return np.random.default_rng([self.seed, *stream])
+
+    def _view_for_step(self, it: int) -> int:
+        """View trained at step ``it``: position it % N of a permutation
+        seeded by (seed, epoch)."""
+        n = self.dataset.n_images
+        epoch = it // n
+        if self._perm_epoch != epoch:
+            self._perm_cache = self._host_draw(epoch, 0).permutation(n)
+            self._perm_epoch = epoch
+        return int(self._perm_cache[it % n])
+
+    def _step_generator(self, it: int) -> torch.Generator:
+        """The generator of step ``it``'s pixel, t_rand and t_out draws,
+        seeded afresh from (seed, it)."""
+        return self._gen.manual_seed(int(self._host_draw(it, 3).integers(2 ** 62)))
+
+    def _fixed_draws(self, n: int):
+        """One (t_rand, t_out) draw of ``n`` rays, the same for every
+        validation chunk and call."""
+        g = torch.Generator(device=self.device).manual_seed(
+            int(self._host_draw(0, 4).integers(2 ** 62)))
+        t_rand = torch.rand((n, 1), generator=g, device=self.device) - 0.5
+        t_out = None
+        if self.rcfg.n_outside > 0:
+            t_out = torch.rand((n, self.rcfg.n_outside), generator=g,
+                               device=self.device)
+        return t_rand, t_out
+
+    def _get_step_fn(self, warmup: bool):
+        if warmup not in self._step_fns:
+            self._step_fns[warmup] = steplib.make_train_step(
+                self.statics, self.rcfg, self.tcfg, warmup, self.no_albedo)
+        return self._step_fns[warmup]
+
+    # -- training -------------------------------------------------------------
+
+    def train_rnb(self) -> dict:
+        """The training loop, from the state's step to ``end_iter``.
+        Returns {"steps", "seconds", "rays_per_s"} of this call."""
+        self.writer = ScalarLogger(os.path.join(self.base_exp_dir, "logs"))
+        self.writer.meta({"conf": self.conf_path, "overrides": self.overrides,
+                          "flags": steplib.runtime_flags_dict(self.tcfg),
+                          "device": str(self.device),
+                          "torch": torch.__version__})
+        it = start_it = self.iter_step
+        t_start = t_report = time.time()
+        rays_done = 0
+        self._report_rps = 0.0
+        self._rps_at = {}      # report step -> rays/s measured at that step
+        pending = []           # (step, metrics) not fetched yet
+        self._last_snap = it
+        self._snap_good = (it, ckptlib.state_leaves(self.state))
+        try:
+            while it < self.tcfg.end_iter:
+                warmup = it < self.tcfg.warm_up_iter
+                view = self._view_for_step(it)
+                fn = self._get_step_fn(warmup)
+                self.state, metrics = fn(self.state, self.dataset.arrays, view,
+                                         self._step_generator(it))
+                it += 1
+                pending.append((it, metrics))
+                rays_done += self.tcfg.batch_size
+
+                if it % self.tcfg.report_freq == 0:
+                    dt = time.time() - t_report
+                    self._report_rps = rays_done / max(dt, 1e-9)
+                    self._rps_at[it] = self._report_rps
+                    t_report, rays_done = time.time(), 0
+                if it % self.RING == 0:
+                    self._consume(pending)
+                    pending = []
+
+                if it % self.tcfg.save_freq == 0:
+                    self.save_checkpoint()
+                if it % self.tcfg.val_freq == 0:
+                    self.validate_image()
+                if it % self.tcfg.val_mesh_freq == 0:
+                    self.validate_mesh()
+            self._consume(pending)
+        finally:
+            self._rps_at.clear()
+            self.writer.close()
+        secs = time.time() - t_start
+        steps = it - start_it
+        rps = steps * self.tcfg.batch_size / max(secs, 1e-9)
+        print(f"trained {steps} steps in {secs:.3f} s ({rps:.0f} rays/s, "
+              "checkpoints and validation included)", flush=True)
+        return {"steps": steps, "seconds": secs, "rays_per_s": rps}
+
+    def _consume(self, pending) -> None:
+        """Fetch the pending steps' metrics at once (this waits for the
+        newest of them), guard them against NaN and log them."""
+        if not pending:
+            return
+        rows = torch.stack([m[k].reshape(()).float() for _, m in pending
+                            for k in METRIC_KEYS]).cpu().numpy()
+        rows = rows.reshape(len(pending), len(METRIC_KEYS))
+        for (s, metrics), row in zip(pending, rows):
+            m = dict(zip(METRIC_KEYS, (float(v) for v in row)))
+            m["lr"] = float(metrics["lr"])
+            if not np.isfinite(m["loss"]):
+                self._nan_guard(s, m)
+            self.writer.log(s, {
+                "Loss/loss": m["loss"],
+                "Loss/color_loss": m["color_loss"],
+                "Loss/eikonal_loss": m["eikonal_loss"],
+                "Loss/mask_loss": m["mask_loss"],
+                "Statistics/s_val": m["s_val"],
+                "Statistics/cdf": m["cdf"],
+                "Statistics/weight_max": m["weight_max"],
+                "Statistics/psnr": m["psnr"],
+                "lr": m["lr"],
+            })
+            if s % self.tcfg.report_freq == 0:
+                rps = self._rps_at.pop(s, self._report_rps)
+                self.writer.log(s, {"Perf/rays_per_s": rps})
+                print(f"iter:{s:8d} loss={m['loss']:.5f} "
+                      f"color={m['color_loss']:.5f} "
+                      f"eik={m['eikonal_loss'] * self.tcfg.igr_weight:.5f} "
+                      f"mask={m['mask_loss'] * self.tcfg.mask_weight:.5f} "
+                      f"lr={m['lr']:.3e} rays/s={rps:.0f}", flush=True)
+        # every fetched step is confirmed finite and the fetch waited for
+        # the newest: the live state is a good snapshot (refreshed at most
+        # every 2000 steps: a copy of the whole state to the host)
+        end_it = pending[-1][0]
+        if end_it - self._last_snap >= 2000:
+            self._snap_good = (end_it, ckptlib.state_leaves(self.state))
+            self._last_snap = end_it
+
+    def _nan_guard(self, s: int, m: dict) -> None:
+        """Write the live state and the last confirmed-finite one, then
+        raise FloatingPointError."""
+        ckpt_dir = os.path.join(self.base_exp_dir, "checkpoints")
+        path = ckptlib.checkpoint_path(ckpt_dir, s, prefix="nan_dump_")
+        ckptlib.save_checkpoint(path, self.state)
+        good_it, good_leaves = self._snap_good
+        good_path = ckptlib.checkpoint_path(ckpt_dir, good_it, prefix="last_good_")
+        ckptlib.save_checkpoint(good_path, good_leaves)
+        raise FloatingPointError(
+            f"non-finite loss at iter {s}: {m}. NOTE the dump at {path} is "
+            f"the LIVE state (iter {self.iter_step}, up to {self.RING} steps "
+            f"PAST the NaN), diagnostic only; last confirmed-finite state "
+            f"(iter {good_it}) saved to {good_path}. Rerun with "
+            "RNB_DEBUG_NANS=1 to locate the op.")
+
+    # -- checkpointing --------------------------------------------------------
+
+    def save_checkpoint(self):
+        # NaN detection trails the live step, so a save could otherwise
+        # persist non-finite params that a resume would start from
+        if not self._params_finite():
+            logger.error("skipping checkpoint at iter %d: non-finite params "
+                         "(the NaN guard will fire on the next fetch)",
+                         self.iter_step)
+            return
+        path = ckptlib.checkpoint_path(
+            os.path.join(self.base_exp_dir, "checkpoints"), self.iter_step)
+        ckptlib.save_checkpoint(path, self.state)
+
+    def _params_finite(self) -> bool:
+        leaves = tree_leaves(self.state.params)
+        return bool(torch.stack([torch.isfinite(p).all() for p in leaves]).all())
+
+    def file_backup(self):
+        """Snapshot of the sources named by ``general.recording`` (their .py
+        files), the conf and the resolved flags, for reproducibility."""
+        dir_lis = self.conf.get_list("general.recording", default=[])
+        rec_dir = os.path.join(self.base_exp_dir, "recording")
+        os.makedirs(rec_dir, exist_ok=True)
+        for dir_name in dir_lis:
+            cur_dir = os.path.join(rec_dir, dir_name)
+            os.makedirs(cur_dir, exist_ok=True)
+            if not os.path.isdir(dir_name):
+                continue
+            for f_name in os.listdir(dir_name):
+                src = os.path.join(dir_name, f_name)
+                if f_name.endswith(".py") and os.path.isfile(src):
+                    shutil.copyfile(src, os.path.join(cur_dir, f_name))
+        shutil.copyfile(self.conf_path, os.path.join(rec_dir, "config.conf"))
+        with open(os.path.join(rec_dir, "flags.json"), "w") as f:
+            json.dump({"flags": steplib.runtime_flags_dict(self.tcfg),
+                       "overrides": self.overrides}, f, indent=1)
+
+    # -- validation: images ---------------------------------------------------
+
+    def _render_view(self, idv: int, idl: int, resolution_level: int,
+                     warmup: bool):
+        """Chunked full-view render, no grad -> (rgb, normal) [H, W, 3] host
+        arrays. The last chunk is padded with its edge ray."""
+        arrays = self.dataset.arrays
+        rays_o, rays_d, px, py = ds.gen_rays_at(arrays, idv, resolution_level)
+        H, W = rays_o.shape[:2]
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        pxi = torch.clamp(torch.round(px).long(), 0, self.dataset.W - 1).reshape(-1)
+        pyi = torch.clamp(torch.round(py).long(), 0, self.dataset.H - 1).reshape(-1)
+
+        bsz = self.tcfg.batch_size
+        n_total = rays_o.shape[0]
+        n_samples = (self.rcfg.total_samples if self.rcfg.n_importance > 0
+                     else self.rcfg.n_samples)
+        t_rand, t_out = self._fixed_draws(bsz)
+        cos_r = self.get_cos_anneal_ratio()
+
+        def chunk(x, start, end):
+            pad = bsz - (end - start)
+            x = x[start:end]
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+        out_rgb, out_normal = [], []
+        with torch.no_grad():
+            for start in range(0, n_total, bsz):
+                end = min(start + bsz, n_total)
+                o, d = chunk(rays_o, start, end), chunk(rays_d, start, end)
+                near, far = self.dataset.near_far_from_sphere(o, d)
+                if warmup:
+                    lights = arrays.lights_warmup_world[idv, idl].reshape(1, 1, 1, 3)
+                else:
+                    lights = ds.lights_at_pixels(
+                        arrays, idv, idl, chunk(pxi, start, end),
+                        chunk(pyi, start, end))[None, :, None, :]
+                out = rnd.render_rnb(self.statics, self.rcfg, self.state.params,
+                                     o, d, near, far, lights, t_rand, t_out,
+                                     cos_anneal_ratio=cos_r,
+                                     no_albedo=self.no_albedo, warmup=warmup)
+                out_rgb.append(out["color_fine"][0][:end - start])
+                out_normal.append(
+                    (out["gradients"] * out["weights"][:, :n_samples, None]
+                     * out["inside_sphere"][..., None]).sum(dim=1)[:end - start])
+        img = torch.cat(out_rgb).reshape(H, W, 3).cpu().numpy()
+        normal_img = torch.cat(out_normal).reshape(H, W, 3).cpu().numpy()
+        return img, normal_img
+
+    def validate_image(self, idv: int = -1, idl: int = -1,
+                       resolution_level: int = -1):
+        """Render a view under one light; save render‖supervision and
+        normal‖supervision normal. The view and light are drawn from
+        (seed, step), never from the training stream."""
+        rng = self._host_draw(self.iter_step, 1)
+        if idl < 0:
+            idl = int(rng.integers(self.dataset.n_lights))
+        if idv < 0:
+            idv = int(rng.integers(self.dataset.n_images))
+        if resolution_level < 0:
+            resolution_level = self.tcfg.validate_resolution_level
+        warmup = self.iter_step < self.tcfg.warm_up_iter
+        print(f"Validate: iter: {self.iter_step}, camera: {idv}, light: {idl}",
+              flush=True)
+        img, normal_img = self._render_view(idv, idl, resolution_level, warmup)
+        gt_warm, gt_main = self.dataset.image_at_ps(idv, idl, resolution_level)
+        io.save_image(
+            os.path.join(self.base_exp_dir, "validations_fine",
+                         f"{self.iter_step:08d}_0_{idv}_{idl}.png"),
+            np.concatenate([img, gt_warm if warmup else gt_main], axis=0))
+        io.save_normal(
+            os.path.join(self.base_exp_dir, "normals",
+                         f"{self.iter_step:08d}_0_{idv}.png"),
+            np.concatenate([normal_img,
+                            self.dataset.normal_at(idv, resolution_level)], axis=0))
+        return img, normal_img
+
+    # -- validation: meshes ---------------------------------------------------
+
+    def validate_mesh(self, world_space: bool = False, resolution: int = 128,
+                      threshold: float = 0.0):
+        """Extract the zero level set at ``resolution``³ and write
+        ``meshes/<iter>.ply``; world_space rescales by the first scale mat."""
+        grid = rnd.extract_fields(self.statics, self.state.params,
+                                  self.dataset.object_bbox_min,
+                                  self.dataset.object_bbox_max, resolution)
+        vertices, triangles = mc.extract_geometry(
+            grid, self.dataset.object_bbox_min, self.dataset.object_bbox_max,
+            threshold)
+        if world_space:
+            scale_mat = self.dataset.scale_mats_np[0]
+            vertices = vertices * scale_mat[0, 0] + scale_mat[:3, 3][None]
+        path = os.path.join(self.base_exp_dir, "meshes", f"{self.iter_step:08d}.ply")
+        io.write_ply(path, vertices, triangles)
+        return vertices, triangles

@@ -19,6 +19,7 @@ import rnb_tpu_torch
 from rnb_tpu_torch.data import dataset
 from rnb_tpu_torch.models import fields
 from rnb_tpu_torch.ops import nerf
+from rnb_tpu_torch.train import runner
 from rnb_tpu_torch.utils import bridge
 
 torch.set_num_threads(1)
@@ -36,7 +37,10 @@ def test_port_imports_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         rnb_tpu_torch.__path__, prefix="rnb_tpu_torch."))
     for m in ("ops.sdf_core", "ops.nerf", "ops.sdf_ablate", "train.step",
-              "tools.ablate_kernel"):
+              "tools.ablate_kernel", "train.runner", "cli", "utils.io",
+              "utils.checkpoint", "utils.logging", "ops.marching_cubes",
+              "tools.acceptance", "tools.eval_chamfer",
+              "tools.make_synthetic_case"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"
@@ -53,11 +57,42 @@ def test_port_imports_no_jax():
     fields.init_sdf_network, fields.init_rendering_network, fields.init_nerf,
     fields.init_variance, fields.init_model_bundle, dataset.Dataset,
     dataset.make_torus_scene, dataset.make_sphere_scene,
-    bridge.params_from_numpy], ids=lambda f: f.__qualname__)
+    dataset.Dataset.from_conf, bridge.params_from_numpy, runner.Runner],
+    ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     """The public constructors run on the card unless the caller asks for
     the CPU (the CPU tests pass device="cpu")."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cli_needs_cuda_unless_asked_for_the_cpu(tmp_path):
+    """Without a card the CLI exits non-zero before it reads anything; with
+    --device cpu the same command gets past that point (and here stops at
+    the missing conf file instead)."""
+    conf = str(tmp_path / "missing.conf")
+    r = _run(["-m", "rnb_tpu_torch.cli", "--conf", conf], ROOT)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
+    r = _run(["-m", "rnb_tpu_torch.cli", "--conf", conf, "--device", "cpu"], ROOT)
+    assert r.returncode != 0 and "no CUDA device" not in r.stderr
+    assert "missing.conf" in r.stderr, r.stderr
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--mode", "validate_mesh_texture"], "'validate_mesh_texture' is not in"),
+    (["--mode", "validate_image_ps"], "queue 1, item 11"),
+    (["--mode", "bogus"], "unknown mode 'bogus'"),
+    (["--shard", "2"], "queue 1, item 13"),
+])
+def test_cli_refuses_unported_modes_by_name(argv, needle):
+    r = _run(["-m", "rnb_tpu_torch.cli", "--device", "cpu", *argv], ROOT)
+    assert r.returncode != 0 and needle in r.stderr, r.stderr
+
+
+def test_case_writer_refuses_normalize(tmp_path):
+    r = _run(["-m", "rnb_tpu_torch.tools.make_synthetic_case", "--out",
+              str(tmp_path / "c"), "--normalize"], ROOT)
+    assert r.returncode != 0 and "--normalize" in r.stderr
+    assert not (tmp_path / "c").exists()
 
 
 def test_chip_smoke_fails_without_cuda():
