@@ -43,7 +43,22 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      acceptance gate (Chamfer-L1 <= 0.02), and a resume from the step-200
      checkpoint whose step-201 loss equals the first run's within 1e-6
      relative; then times the grid query and marching cubes at 128^3 and
-     512^3 on the trained weights.
+     512^3 on the trained weights;
+  7. drives the inference path on that experiment, in subprocesses of the
+     CLI: --mode validate_mesh_texture at 128^3 (vertex colours in [0, 1],
+     radius 0.35 +- 0.02, mean colour R > G > B as the case's albedo),
+     --mode validate_image_ps (3 PNGs, the PSNR of render against
+     supervision through rnb_tpu_torch.tools.compare_images, finite) and
+     --mode interpolate_0_1 (120 frames of 64x64 read back, frame k equal
+     to frame 119 - k; the time a frame and rays/s); each launches the SDF
+     core's and albedo's bf16 forwards and nothing else. Then a Runner on
+     confs/womask_rnb.conf with n_outside=4, random weights, renders a
+     novel view on the card through the bf16 NeRF forward too (finite);
+     a frame of each conf is timed with the weight norm folded once a
+     render and by every op call (in turns, equal frames) and profiled, and
+     one 64-ray chunk of `render` on the card
+     at f32 operands (the f32 routes) is held within 1e-4 of the CPU's for
+     each conf.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
@@ -552,121 +567,311 @@ def _losses(exp):
     return out
 
 
-def runner_path(dev, card):
+def runner_path(dev, card, tmp):
+    """Phase 6 in ``tmp``; -> (result, launches, the CLI's --set list)."""
     from rnb_tpu_torch.models import renderer as rnd
     from rnb_tpu_torch.ops import marching_cubes as mc
     from rnb_tpu_torch.train.runner import Runner
 
-    tmp = tempfile.mkdtemp(prefix="rnb_smoke_")
-    try:
-        case, exp = os.path.join(tmp, "sphere"), os.path.join(tmp, "exp")
-        _sub(["rnb_tpu_torch.tools.make_synthetic_case", "--out", case,
-              "--shape", "sphere", "--radius", "0.35", "--n_views", "6",
-              "--size", "256"], 300)
-        sets = [f"dataset.data_dir={case}", f"general.base_exp_dir={exp}",
-                "train.end_iter=400", "train.warm_up_iter=300",
-                "train.warm_up_end=50", "train.save_freq=200",
-                "train.val_freq=200", "train.val_mesh_freq=400",
-                "train.report_freq=100"]
-        cli = ["rnb_tpu_torch.cli", "--mode", "train_rnb", "--conf",
-               WMASK[0]]
-        # the launch counts of this run start at 0 in the new process and
-        # are printed by it at its end
-        out, run_secs = _sub(cli + ["--mesh_resolution", "128"]
-                             + [a for s in sets for a in ("--set", s)], 900)
-        counts = json.loads(next(l for l in out.splitlines()
-                                 if l.startswith('{"launches"')))["launches"]
-        log(f"[runner] launches in the CLI run: {counts}")
-        for k in WMASK_KERNELS:
-            assert counts[k] > 0, f"kernel {k} was not launched by the runner path"
-        for k in F32_ROUTE:
-            assert counts[k] == 0, f"the runner path launched the f32 route ({k})"
-        wall = next(l for l in out.splitlines() if l.startswith("trained "))
-        steps, secs = int(wall.split()[1]), float(wall.split()[4])
-        assert steps == 400, wall
+    case, exp = os.path.join(tmp, "sphere"), os.path.join(tmp, "exp")
+    _sub(["rnb_tpu_torch.tools.make_synthetic_case", "--out", case,
+          "--shape", "sphere", "--radius", "0.35", "--n_views", "6",
+          "--size", "256"], 300)
+    sets = [f"dataset.data_dir={case}", f"general.base_exp_dir={exp}",
+            "train.end_iter=400", "train.warm_up_iter=300",
+            "train.warm_up_end=50", "train.save_freq=200",
+            "train.val_freq=200", "train.val_mesh_freq=400",
+            "train.report_freq=100"]
+    cli = ["rnb_tpu_torch.cli", "--mode", "train_rnb", "--conf",
+           WMASK[0]]
+    # the launch counts of this run start at 0 in the new process and
+    # are printed by it at its end
+    out, run_secs = _sub(cli + ["--mesh_resolution", "128"]
+                         + [a for s in sets for a in ("--set", s)], 900)
+    counts = json.loads(next(l for l in out.splitlines()
+                             if l.startswith('{"launches"')))["launches"]
+    log(f"[runner] launches in the CLI run: {counts}")
+    for k in WMASK_KERNELS:
+        assert counts[k] > 0, f"kernel {k} was not launched by the runner path"
+    for k in F32_ROUTE:
+        assert counts[k] == 0, f"the runner path launched the f32 route ({k})"
+    wall = next(l for l in out.splitlines() if l.startswith("trained "))
+    steps, secs = int(wall.split()[1]), float(wall.split()[4])
+    assert steps == 400, wall
 
-        for rel in ("checkpoints/ckpt_000200.npz", "checkpoints/ckpt_000400.npz",
-                    "meshes/00000400.ply"):
-            assert os.path.isfile(os.path.join(exp, rel)), f"missing {rel}"
-        for sub in ("validations_fine", "normals"):
-            pngs = [f for f in os.listdir(os.path.join(exp, sub)) if f.endswith(".png")]
-            assert len(pngs) == 2, f"{sub}: {pngs}"
-        losses = _losses(exp)
-        assert sorted(losses) == list(range(1, 401)), "logged steps"
-        ls = np.array([losses[s] for s in range(1, 401)])
-        first, last = float(ls[:20].mean()), float(ls[-20:].mean())
-        assert np.isfinite(ls).all() and last < first, (first, last)
+    for rel in ("checkpoints/ckpt_000200.npz", "checkpoints/ckpt_000400.npz",
+                "meshes/00000400.ply"):
+        assert os.path.isfile(os.path.join(exp, rel)), f"missing {rel}"
+    for sub in ("validations_fine", "normals"):
+        pngs = [f for f in os.listdir(os.path.join(exp, sub)) if f.endswith(".png")]
+        assert len(pngs) == 2, f"{sub}: {pngs}"
+    losses = _losses(exp)
+    assert sorted(losses) == list(range(1, 401)), "logged steps"
+    ls = np.array([losses[s] for s in range(1, 401)])
+    first, last = float(ls[:20].mean()), float(ls[-20:].mean())
+    assert np.isfinite(ls).all() and last < first, (first, last)
 
-        from rnb_tpu_torch.utils.io import read_ply
-        v, f, _ = read_ply(os.path.join(exp, "meshes", "00000400.ply"))
-        r = np.linalg.norm(v, axis=-1)
-        log(f"[runner] loss first 20 {first:.5f}, last 20 {last:.5f}; mesh "
-            f"{len(v)} vertices, {len(f)} faces, radius mean {r.mean():.5f} "
-            f"std {r.std():.5f}")
-        assert abs(r.mean() - 0.35) < 0.02 and r.std() < 0.02, "mesh radius"
+    from rnb_tpu_torch.utils.io import read_ply
+    v, f, _ = read_ply(os.path.join(exp, "meshes", "00000400.ply"))
+    r = np.linalg.norm(v, axis=-1)
+    log(f"[runner] loss first 20 {first:.5f}, last 20 {last:.5f}; mesh "
+        f"{len(v)} vertices, {len(f)} faces, radius mean {r.mean():.5f} "
+        f"std {r.std():.5f}")
+    assert abs(r.mean() - 0.35) < 0.02 and r.std() < 0.02, "mesh radius"
 
-        acc_out, _ = _sub(["rnb_tpu_torch.tools.acceptance", exp, "--shape",
-                           "sphere", "--radius", "0.35", "--threshold", "0.02"],
-                          300)
-        acceptance = json.loads(acc_out.strip().splitlines()[-1])
-        log("[runner] acceptance " + json.dumps(acceptance))
+    acc_out, _ = _sub(["rnb_tpu_torch.tools.acceptance", exp, "--shape",
+                       "sphere", "--radius", "0.35", "--threshold", "0.02"],
+                      300)
+    acceptance = json.loads(acc_out.strip().splitlines()[-1])
+    log("[runner] acceptance " + json.dumps(acceptance))
 
-        # resume from the step-200 checkpoint in a fresh directory
-        exp2 = os.path.join(tmp, "exp_resume")
-        os.makedirs(os.path.join(exp2, "checkpoints"))
-        shutil.copy(os.path.join(exp, "checkpoints", "ckpt_000200.npz"),
-                    os.path.join(exp2, "checkpoints"))
-        sets2 = [s for s in sets if not s.startswith(("general.", "train.end_iter"))]
-        _sub(cli + ["--is_continue", "--mesh_resolution", "64",
-                    "--set", f"general.base_exp_dir={exp2}",
-                    "--set", "train.end_iter=201"]
-             + [a for s in sets2 for a in ("--set", s)], 600)
-        resumed = _losses(exp2)
-        assert sorted(resumed) == [201], sorted(resumed)
-        rel = abs(resumed[201] - losses[201]) / abs(losses[201])
-        log(f"[runner] step 201 loss: straight {losses[201]!r}, resumed "
-            f"{resumed[201]!r}, rel diff {rel:.3e}")
-        assert rel <= 1e-6, "the resumed step differs"
+    # resume from the step-200 checkpoint in a fresh directory
+    exp2 = os.path.join(tmp, "exp_resume")
+    os.makedirs(os.path.join(exp2, "checkpoints"))
+    shutil.copy(os.path.join(exp, "checkpoints", "ckpt_000200.npz"),
+                os.path.join(exp2, "checkpoints"))
+    sets2 = [s for s in sets if not s.startswith(("general.", "train.end_iter"))]
+    _sub(cli + ["--is_continue", "--mesh_resolution", "64",
+                "--set", f"general.base_exp_dir={exp2}",
+                "--set", "train.end_iter=201"]
+         + [a for s in sets2 for a in ("--set", s)], 600)
+    resumed = _losses(exp2)
+    assert sorted(resumed) == [201], sorted(resumed)
+    rel = abs(resumed[201] - losses[201]) / abs(losses[201])
+    log(f"[runner] step 201 loss: straight {losses[201]!r}, resumed "
+        f"{resumed[201]!r}, rel diff {rel:.3e}")
+    assert rel <= 1e-6, "the resumed step differs"
 
-        # grid query and marching cubes on the trained weights
-        runner = Runner(WMASK[0], "validate_mesh", is_continue=True,
-                        overrides=sets, device=dev)
-        assert runner.iter_step == 400
-        ds_ = runner.dataset
-        # least work of the query: the f32 multiply-adds of the SDF chain
-        # with its head cut to the sdf column, at the f32 peak
-        sdf_ws = [l["v"] for l in runner.state.params["sdf"]]
-        macs = sum(w.shape[0] * w.shape[1] for w in sdf_ws[:-1]) + sdf_ws[-1].shape[0]
-        extraction = {}
-        for res in (128, 512):
+    # grid query and marching cubes on the trained weights
+    runner = Runner(WMASK[0], "validate_mesh", is_continue=True,
+                    overrides=sets, device=dev)
+    assert runner.iter_step == 400
+    ds_ = runner.dataset
+    # least work of the query: the f32 multiply-adds of the SDF chain
+    # with its head cut to the sdf column, at the f32 peak
+    sdf_ws = [l["v"] for l in runner.state.params["sdf"]]
+    macs = sum(w.shape[0] * w.shape[1] for w in sdf_ws[:-1]) + sdf_ws[-1].shape[0]
+    extraction = {}
+    for res in (128, 512):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = rnd.extract_fields(runner.statics, runner.state.params,
+                                  ds_.object_bbox_min, ds_.object_bbox_max, res)
+        t1 = time.perf_counter()
+        verts, tris = mc.extract_geometry(grid, ds_.object_bbox_min,
+                                          ds_.object_bbox_max)
+        t2 = time.perf_counter()
+        extraction[res] = {"grid_query_s": t1 - t0,
+                           "grid_query_bound_s": 2 * macs * res ** 3 / PEAK_F32,
+                           "marching_cubes_s": t2 - t1,
+                           "vertices": len(verts), "faces": len(tris)}
+        rr = np.linalg.norm(verts, axis=-1)
+        assert abs(rr.mean() - 0.35) < 0.02 and rr.std() < 0.02, res
+        log(f"[runner] extraction {res}^3 ({card}): {extraction[res]}")
+    log(f"[runner] marching cubes built by {mc.build_info['compiler']}")
+    result = {"train_400_steps_s": secs, "rays_per_s": 400 * 512 / secs,
+              "cli_process_s": run_secs, "loss_first20": first,
+              "loss_last20": last, "mesh_radius_mean": float(r.mean()),
+              "mesh_radius_std": float(r.std()),
+              "chamfer_l1": acceptance["chamfer_l1"],
+              "step201_rel_diff": rel, "extraction": extraction}
+    log(f"[runner] {card}: wall of 400 steps {secs:.3f} s "
+        f"({result['rays_per_s']:.0f} rays/s, checkpoints and validation "
+        "included)")
+    return result, counts, sets
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the inference path
+# ---------------------------------------------------------------------------
+
+# the kernels of a forward-only render on the bf16 routes; every other
+# counter must stay at 0 there (no backward, no dW product, no f32 route)
+INFER_KERNELS = ("sdf_core_fwd", "albedo_fwd")
+
+
+def _check_infer_counts(counts, where, kernels):
+    log(f"[infer] launches in {where}: {counts}")
+    for k in kernels:
+        assert counts[k] > 0, f"{where}: kernel {k} was not launched"
+    for k, v in counts.items():
+        if k not in kernels:
+            assert v == 0, f"{where}: launched {k} {v} times (forward only, bf16)"
+
+
+def _mode(mode, sets, extra=()):
+    """One inference mode of the CLI on phase 6's experiment; -> (stdout,
+    its launch counts)."""
+    out, _ = _sub(["rnb_tpu_torch.cli", "--mode", mode, "--conf", WMASK[0], *extra]
+                  + [a for s in sets for a in ("--set", s)], 600)
+    counts = json.loads(next(l for l in out.splitlines()
+                             if l.startswith('{"launches"')))["launches"]
+    _check_infer_counts(counts, mode, INFER_KERNELS)
+    return out, counts
+
+
+def _frame_profile(runner, card, frames=5):
+    """One 64x64 novel view of ``runner`` (after a warm one): the wall per
+    frame (host clock over ``frames`` frames, each ending in its fetch) with
+    the weight norm folded once a render, as the runner does, and folded by
+    each op call, in turns (each way three times; the median counts); the
+    frames must be equal. Then from ``torch.profiler`` over one more frame
+    the device time by kernel and the idle share (1 - device / wall)."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnb_tpu_torch.models import fields
+    from rnb_tpu_torch.tools.profile_step import device_ms_by_name
+
+    ways = {"folded_once": fields.fold_params, "per_call": lambda params: params}
+
+    def timed(way):
+        with mock.patch.object(fields, "fold_params", ways[way]):
+            img = runner.render_novel_image(0, 1, 0.5, 4)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            grid = rnd.extract_fields(runner.statics, runner.state.params,
-                                      ds_.object_bbox_min, ds_.object_bbox_max, res)
-            t1 = time.perf_counter()
-            verts, tris = mc.extract_geometry(grid, ds_.object_bbox_min,
-                                              ds_.object_bbox_max)
-            t2 = time.perf_counter()
-            extraction[res] = {"grid_query_s": t1 - t0,
-                               "grid_query_bound_s": 2 * macs * res ** 3 / PEAK_F32,
-                               "marching_cubes_s": t2 - t1,
-                               "vertices": len(verts), "faces": len(tris)}
-            rr = np.linalg.norm(verts, axis=-1)
-            assert abs(rr.mean() - 0.35) < 0.02 and rr.std() < 0.02, res
-            log(f"[runner] extraction {res}^3 ({card}): {extraction[res]}")
-        log(f"[runner] marching cubes built by {mc.build_info['compiler']}")
-        result = {"train_400_steps_s": secs, "rays_per_s": 400 * 512 / secs,
-                  "cli_process_s": run_secs, "loss_first20": first,
-                  "loss_last20": last, "mesh_radius_mean": float(r.mean()),
-                  "mesh_radius_std": float(r.std()),
-                  "chamfer_l1": acceptance["chamfer_l1"],
-                  "step201_rel_diff": rel, "extraction": extraction}
-        log(f"[runner] {card}: wall of 400 steps {secs:.3f} s "
-            f"({result['rays_per_s']:.0f} rays/s, checkpoints and validation "
-            "included)")
-        return result, counts
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+            for _ in range(frames):
+                runner.render_novel_image(0, 1, 0.5, 4)
+            return img, (time.perf_counter() - t0) * 1e3 / frames
+
+    walls = {w: [] for w in ways}
+    imgs = {}
+    for way in ("per_call", "folded_once") * 3:
+        imgs[way], ms = timed(way)
+        walls[way].append(ms)
+    assert (imgs["per_call"] == imgs["folded_once"]).all(), \
+        "folding once moved the frame"
+    wall = float(np.median(walls["folded_once"]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.render_novel_image(0, 1, 0.5, 4)
+        torch.cuda.synchronize()
+    device, top = device_ms_by_name(prof, 1, 10)
+    res = {"wall_ms": wall, "wall_ms_runs": walls, "device_ms": device,
+           "idle_share": 1.0 - device / wall,
+           "rays_per_s": 64 * 64 / wall * 1e3, "kernels_ms": top}
+    log(f"[infer] {card}: {runner.conf_path} n_outside={runner.rcfg.n_outside} "
+        f"novel view 64x64: {json.dumps(res)}")
+    return res
+
+
+def _render_parity(dev, conf_spec, f32_kernels):
+    """One chunk of ``render`` (64 rays, no perturbation) on the CPU (plain
+    versions) and on the card at kernel_prec=f32 (the f32 routes), from the
+    same params and rays: the colour within F32_TOL of its norm."""
+    from rnb_tpu_torch.data import dataset as ds
+    from rnb_tpu_torch.models import fields, renderer as rnd
+    from rnb_tpu_torch.ops import _build
+    from rnb_tpu_torch.utils import bridge
+
+    statics, rcfg, _ = load(conf_spec)
+    rcfg = dataclasses.replace(rcfg, upsample_prec="f32", kernel_prec="f32")
+    scene = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4, device="cpu")
+    params = bridge.params_to_numpy(
+        fields.init_model_bundle(torch.Generator().manual_seed(3), statics, "cpu"))
+    rng = np.random.default_rng(4)
+    px, py = (torch.tensor(rng.integers(64, 192, 64)) for _ in range(2))
+    rays = ds.sample_rays_on_all_lights(scene.arrays, 1, px, py)
+    out = {}
+    for k in _build.launches:
+        _build.launches[k] = 0
+    for where in ("cpu", dev):
+        p = bridge.params_from_numpy(params, where)
+        with torch.no_grad():
+            r = rnd.render(statics, rcfg, p, *(t.to(where) for t in (
+                rays.rays_o, rays.rays_d, rays.near, rays.far)), None)
+        out[str(where)] = r["color_fine"].cpu()
+    counts = {k: _build.launches[k] for k in f32_kernels}
+    assert all(counts.values()), f"the f32 render did not run the f32 routes: {counts}"
+    mx, rel = rel_err([out[str(dev)]], [out["cpu"]])
+    log(f"[infer parity {conf_spec[0]} n_outside={rcfg.n_outside}] render colour "
+        f"max_abs_err={mx:.3e} rel_err={rel:.3e} (tol {F32_TOL:g}); f32 launches {counts}")
+    assert torch.isfinite(out[str(dev)]).all() and rel <= F32_TOL, "render differs"
+    return {"max_abs_err": mx, "rel_err": rel, "f32_launches": counts}
+
+
+def inference_path(dev, card, tmp, sets):
+    """Phase 7 on phase 6's 400-step experiment in ``tmp``."""
+    from rnb_tpu_torch.models import renderer as rnd
+    from rnb_tpu_torch.ops import _build
+    from rnb_tpu_torch.tools import compare_images
+    from rnb_tpu_torch.train.runner import Runner
+    from rnb_tpu_torch.utils import io
+
+    exp = next(s.split("=", 1)[1] for s in sets if s.startswith("general.base_exp_dir"))
+    result, launches = {}, {}
+
+    _, launches["validate_mesh_texture"] = _mode(
+        "validate_mesh_texture", sets, ["--mesh_resolution", "128"])
+    v, f, c = io.read_ply(os.path.join(exp, "meshes", "00000400.ply"))
+    assert c is not None and c.shape == (len(v), 3), "no vertex colours"
+    col = c.astype(np.float64) / 255.0
+    r = np.linalg.norm(v, axis=-1)
+    mean = col.mean(axis=0)
+    log(f"[infer] textured mesh: {len(v)} vertices, radius {r.mean():.5f} +- "
+        f"{r.std():.5f}, mean colour RGB {mean.round(4).tolist()}")
+    assert np.isfinite(v).all() and 0 <= col.min() and col.max() <= 1
+    assert abs(r.mean() - 0.35) < 0.02, "textured mesh radius"
+    assert mean[0] > mean[1] > mean[2], "vertex colours are not ordered R > G > B"
+    result["mesh_texture"] = {"vertices": len(v), "radius_mean": float(r.mean()),
+                              "mean_rgb": mean.tolist()}
+
+    _, launches["validate_image_ps"] = _mode("validate_image_ps", sets)
+    ps_dir = os.path.join(exp, "validations_ps")
+    pngs = sorted(os.listdir(ps_dir))
+    assert len(pngs) == 3, pngs
+    psnr = []
+    for name in pngs:
+        img = io.load_image(os.path.join(ps_dir, name))
+        h = img.shape[0] // 2
+        psnr.append(compare_images.mse_psnr(img[:h], img[h:])[1])
+    log(f"[infer] validate_image_ps: render vs supervision PSNR {psnr} dB "
+        "(compare_images)")
+    assert np.isfinite(psnr).all()
+    result["image_ps_psnr"] = psnr
+
+    out, launches["interpolate_0_1"] = _mode("interpolate_0_1", sets)
+    frames = io.read_avi(os.path.join(exp, "render", "00000400_0_1.avi"))
+    assert frames.shape == (120, 64, 64, 3), frames.shape
+    assert (frames == frames[::-1]).all(), "frame k differs from frame 119 - k"
+    line = next(l for l in out.splitlines() if l.startswith("rendered "))
+    frame_ms = float(line.split("(")[1].split()[0])
+    rays_s = float(line.split(", ")[-1].split()[0])
+    log(f"[infer] {card}: novel views {line}")
+    result["interpolate"] = {"frame_ms": frame_ms, "rays_per_s": rays_s}
+
+    # the frame in-process: the trained wmask weights, and womask (the
+    # background NeRF on the novel-view path) with random weights at full
+    # width on phase 6's case
+    wm = Runner(WMASK[0], "validate_mesh", is_continue=True, overrides=sets,
+                device=dev)
+    assert wm.iter_step == 400
+    result["frame_wmask"] = _frame_profile(wm, card)
+    del wm
+    wo_sets = [s for s in sets if s.startswith("dataset.")] + [
+        f"general.base_exp_dir={os.path.join(tmp, 'exp_womask')}", *WOMASK[1]]
+    runner = Runner(WOMASK[0], "validate_mesh", overrides=wo_sets, device=dev)
+    assert runner.rcfg.n_outside == 4 and runner.rcfg.kernel_prec == "bf16"
+    for k in _build.launches:
+        _build.launches[k] = 0
+    img = runner.render_novel_image(0, 1, 0.5, 4)
+    launches["womask_render_novel_image"] = dict(_build.launches)
+    _check_infer_counts(launches["womask_render_novel_image"],
+                        "womask render_novel_image", INFER_KERNELS + ("nerf_fwd",))
+    rays_o, rays_d = runner.dataset.gen_rays_between(0, 1, 0.5, 4)
+    o, d = rays_o.reshape(-1, 3)[:512], rays_d.reshape(-1, 3)[:512]
+    with torch.no_grad():
+        chunk = rnd.render(runner.statics, runner.rcfg, runner.state.params, o, d,
+                           *runner.dataset.near_far_from_sphere(o, d), None)
+    assert img.shape == (64, 64, 3) and torch.isfinite(chunk["color_fine"]).all()
+    result["frame_womask"] = _frame_profile(runner, card)
+    del runner
+
+    result["parity"] = {
+        "wmask": _render_parity(dev, WMASK, ("sdf_core_fwd_f32", "albedo_fwd_f32")),
+        "womask": _render_parity(dev, WOMASK, ("sdf_core_fwd_f32", "albedo_fwd_f32",
+                                               "nerf_fwd_f32"))}
+    return result, launches
 
 
 def main():
@@ -703,7 +908,13 @@ def main():
         summary[label] = {"slice": phases, "parity": parity,
                           "train": training_moves(dev, spec)}
     summary["ablation"], counts["sdf_fwd_ablate"] = ablation_run()
-    summary["runner"], summary["runner_launches"] = runner_path(dev, card)
+    tmp = tempfile.mkdtemp(prefix="rnb_smoke_")
+    try:
+        summary["runner"], summary["runner_launches"], sets = runner_path(dev, card, tmp)
+        summary["inference"], summary["inference_launches"] = inference_path(
+            dev, card, tmp, sets)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     log("[summary] " + json.dumps(summary))
     log(json.dumps({"kernels": [

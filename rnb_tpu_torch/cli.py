@@ -1,16 +1,21 @@
-"""Command line of the port, with the JAX package's flags:
+"""Command line of the port, with the JAX package's modes and flags:
 
-    python -m rnb_tpu_torch.cli --mode {train_rnb, validate_mesh}
+    python -m rnb_tpu_torch.cli --mode {train_rnb, validate_mesh,
+            validate_mesh_texture, validate_image_ps, interpolate_<i>_<j>}
         --conf CONF --case CASE [--mcube_threshold T] [--is_continue]
         [--no_albedo] [--shard auto|off|1] [--set PATH=VALUE ...]
         [--mesh_resolution R] [--device cuda|cpu]
 
 ``train_rnb`` trains from the conf (resuming with ``--is_continue``), then
-writes a world-space mesh at ``--mesh_resolution``; ``validate_mesh`` loads
-the newest checkpoint and writes the mesh. The run is on the CUDA card
-unless ``--device cpu`` is given; without a card the command exits non-zero
-rather than carry on on the CPU. At the end it prints one JSON line of the
-kernel launches it made, ``{"launches": {...}}``.
+writes a world-space mesh at ``--mesh_resolution``. The other modes load
+the newest checkpoint: ``validate_mesh`` writes the mesh,
+``validate_mesh_texture`` the mesh with albedo vertex colours,
+``validate_image_ps`` one view under every light, and
+``interpolate_<i>_<j>`` a video of novel views from camera i to camera j.
+The run is on the CUDA card unless ``--device cpu`` is given; without a
+card the command exits non-zero rather than carry on on the CPU. At the end
+it prints one JSON line of the kernel launches it made,
+``{"launches": {...}}``.
 """
 
 from __future__ import annotations
@@ -21,8 +26,17 @@ import logging
 import os
 import sys
 
-# modes of the JAX command line that the port does not have yet
-_LATER = ("validate_mesh_texture", "validate_image_ps", "interpolate")
+MODES = ("train_rnb", "validate_mesh", "validate_mesh_texture",
+         "validate_image_ps")
+
+
+def _interpolate_views(mode: str):
+    """(i, j) of ``interpolate_<i>_<j>``; exits naming the form otherwise."""
+    parts = mode.split("_")
+    if len(parts) != 3 or not all(p.isdigit() for p in parts[1:]):
+        sys.exit(f"mode {mode!r}: write interpolate_<i>_<j> with two view "
+                 "indices, e.g. interpolate_0_1")
+    return int(parts[1]), int(parts[2])
 
 
 def main(argv=None):
@@ -47,11 +61,10 @@ def main(argv=None):
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
 
-    if args.mode.startswith(_LATER):
-        sys.exit(f"mode {args.mode!r} is not in rnb_tpu_torch yet (ROADMAP.md, "
-                 "queue 1, item 11); this command line has train_rnb and "
-                 "validate_mesh")
-    if args.mode not in ("train_rnb", "validate_mesh"):
+    views = None
+    if args.mode.startswith("interpolate"):
+        views = _interpolate_views(args.mode)
+    elif args.mode not in MODES:
         sys.exit(f"unknown mode {args.mode!r}")
     if args.shard not in ("auto", "off", "1"):
         sys.exit(f"--shard {args.shard}: rnb_tpu_torch runs on one device; "
@@ -71,13 +84,22 @@ def main(argv=None):
     from rnb_tpu_torch.train.runner import Runner
 
     runner = Runner(args.conf, args.mode, args.case,
-                    is_continue=args.is_continue or args.mode == "validate_mesh",
+                    is_continue=args.is_continue or args.mode != "train_rnb",
                     no_albedo=args.no_albedo, overrides=args.overrides,
                     device=args.device)
+    mesh = dict(world_space=True, resolution=args.mesh_resolution,
+                threshold=args.mcube_threshold)
     if args.mode == "train_rnb":
         runner.train_rnb()
-    runner.validate_mesh(world_space=True, resolution=args.mesh_resolution,
-                         threshold=args.mcube_threshold)
+        runner.validate_mesh(**mesh)
+    elif args.mode == "validate_mesh":
+        runner.validate_mesh(**mesh)
+    elif args.mode == "validate_mesh_texture":
+        runner.validate_mesh_texture(**mesh)
+    elif args.mode == "validate_image_ps":
+        runner.validate_image_ps()
+    else:
+        runner.interpolate_view(*views)
     print(json.dumps({"launches": dict(_build.launches)}), flush=True)
 
 

@@ -251,6 +251,39 @@ class Dataset:
         return io.resize_image(n_world, self.W // resolution_level,
                                self.H // resolution_level)
 
+    def gen_rays_between(self, idx_0: int, idx_1: int, ratio: float,
+                         resolution_level: int = 1):
+        """Rays of a camera between views idx_0 and idx_1: the rotation by
+        spherical interpolation (scipy ``Slerp``), the centre blended
+        linearly, the intrinsics of view 0. The pose is computed on the
+        host; -> (rays_o, rays_d [H/l, W/l, 3]) on the dataset's device."""
+        from scipy.spatial.transform import Rotation, Slerp
+
+        l = resolution_level
+        tx = np.linspace(0, self.W - 1, self.W // l)
+        ty = np.linspace(0, self.H - 1, self.H // l)
+        px, py = np.meshgrid(tx, ty, indexing="xy")
+        p = np.stack([px, py, np.ones_like(px)], axis=-1)
+        Kinv = np.linalg.inv(self.intrinsics_all[0])[:3, :3]
+        d_cam = p @ Kinv.T
+        d_cam = d_cam / np.linalg.norm(d_cam, axis=-1, keepdims=True)
+
+        pose_0 = np.linalg.inv(self.pose_all_np[idx_0])
+        pose_1 = np.linalg.inv(self.pose_all_np[idx_1])
+        rots = Rotation.from_matrix(np.stack([pose_0[:3, :3], pose_1[:3, :3]]))
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = Slerp([0, 1], rots)(ratio).as_matrix()
+        pose[:3, 3] = ((1.0 - ratio) * pose_0 + ratio * pose_1)[:3, 3]
+        pose = np.linalg.inv(pose)
+
+        rays_d = d_cam @ pose[:3, :3].T
+        rays_o = np.broadcast_to(pose[:3, 3], rays_d.shape)
+
+        def put(a):
+            return torch.tensor(np.asarray(a, np.float32), device=self.device)
+
+        return put(rays_o), put(rays_d)
+
 
 # ---------------------------------------------------------------------------
 # synthetic scenes (test fixtures / demos)

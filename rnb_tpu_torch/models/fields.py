@@ -52,6 +52,21 @@ def fold_weight_norm(layer: Dict[str, torch.Tensor]) -> torch.Tensor:
     return v * (layer["g"][None, :] / torch.clamp_min(norm, 1e-12))
 
 
+def fold_params(params):
+    """``params`` detached, each weight-norm layer {v, g, b} replaced by
+    {w, b} with w its folded weight: for a no-grad pass over many chunks,
+    which would otherwise fold every layer again at each call (the same
+    values, computed once)."""
+    if isinstance(params, dict):
+        if "v" in params:
+            return {"w": fold_weight_norm(params).detach(),
+                    "b": params["b"].detach()}
+        return {k: fold_params(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(fold_params(v) for v in params)
+    return params.detach()
+
+
 def linear_apply(layer: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return x @ fold_weight_norm(layer) + layer["b"]
 

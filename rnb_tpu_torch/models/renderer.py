@@ -1,6 +1,6 @@
-"""NeuS volume renderer for the RNb training step, on tensors.
+"""NeuS volume renderer for the RNb training step and novel views, on tensors.
 
-Counterpart of ``rnb_tpu/models/renderer.py`` for the training path:
+Counterpart of ``rnb_tpu/models/renderer.py``:
 
   * ``sample_pdf``: inverse-CDF importance sampling with
     ``torch.searchsorted(cdf, u, right=True)`` (the count of cdf entries
@@ -20,6 +20,9 @@ Counterpart of ``rnb_tpu/models/renderer.py`` for the training path:
     from the fused albedo op (``ops.albedo``).
   * ``render_rnb``: per-light Lambertian compositing of the first
     ``n_samples`` weights; ReLU on the shading in warm-up only.
+  * ``render``: the vanilla NeuS render of novel views, the albedo
+    composited by the weights, with the background NeRF's alpha and colour
+    mixed in outside the unit sphere when ``n_outside > 0``.
 
 The stratified perturbations are inputs, so the tests can feed the JAX
 package's draws: ``t_rand`` [B,1] (uniform − 0.5) and, with a background,
@@ -32,8 +35,6 @@ grid in 64³-point chunks (a ragged last one), with the points made on the
 device from the bounds (``grid_chunk_points``), the f32 ``fields.sdf_only``
 with TF32 off, and the values cast to float16 on the device before the one
 fetch, as the JAX package does.
-
-Not ported yet: ``render`` for novel views.
 """
 
 from __future__ import annotations
@@ -276,6 +277,28 @@ def render_core_outside(statics: ModelStatics, rcfg: RendererConfig, params,
             "weights": weights}
 
 
+def sdf_feat_grad(statics: ModelStatics, params, pts, kernel_prec: str = "bf16"):
+    """(sdf [N], feature [N,F], ∇SDF [N,3]) at pts [N,3]: the fused SDF-core
+    op at the op dtype ``kernel_prec``, or the plain field for a net the
+    kernels do not take."""
+    if sdf_core.supported(statics.sdf):
+        return sdf_core.sdf_value_feat_grad_fused(
+            statics.sdf, params["sdf"], pts, _KERNEL_DTYPES[kernel_prec])
+    return fields.sdf_value_feat_grad(statics.sdf, params["sdf"], pts)
+
+
+def albedo_at(statics: ModelStatics, params, pts, normals, dirs, feature,
+              kernel_prec: str = "bf16"):
+    """Albedo [N, d_out]: the fused albedo op (mode ``no_view_dir``, which
+    drops ``dirs``) at the op dtype ``kernel_prec``, or the plain field."""
+    if albedo_op.supported(statics.color):
+        return albedo_op.albedo_apply_fused(
+            statics.color, params["color"], pts, normals, feature,
+            _KERNEL_DTYPES[kernel_prec])
+    return fields.rendering_apply(statics.color, params["color"], pts, normals,
+                                  dirs, feature)
+
+
 def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
                      sample_dist, cos_anneal_ratio, background_alpha=None,
                      need_albedo: bool = True,
@@ -292,27 +315,18 @@ def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
     dirs = rays_d[:, None, :].expand(pts.shape)
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = dirs.reshape(-1, 3)
-    dtype = _KERNEL_DTYPES[kernel_prec]
 
-    if sdf_core.supported(statics.sdf):
-        sdf, feature, gradients = sdf_core.sdf_value_feat_grad_fused(
-            statics.sdf, params["sdf"], pts_flat, dtype)
-    else:
-        sdf, feature, gradients = fields.sdf_value_feat_grad(
-            statics.sdf, params["sdf"], pts_flat)
+    sdf, feature, gradients = sdf_feat_grad(statics, params, pts_flat,
+                                            kernel_prec)
     sdf = sdf[:, None]
 
-    if not need_albedo:
+    if need_albedo:
+        sampled_albedo = albedo_at(
+            statics, params, pts_flat, gradients, dirs_flat, feature,
+            kernel_prec).reshape(batch_size, n_samples, statics.color.d_out)
+    else:
         sampled_albedo = torch.ones(batch_size, n_samples, statics.color.d_out,
                                     device=z_vals.device)
-    elif albedo_op.supported(statics.color):
-        sampled_albedo = albedo_op.albedo_apply_fused(
-            statics.color, params["color"], pts_flat, gradients, feature,
-            dtype).reshape(batch_size, n_samples, statics.color.d_out)
-    else:
-        sampled_albedo = fields.rendering_apply(
-            statics.color, params["color"], pts_flat, gradients, dirs_flat,
-            feature).reshape(batch_size, n_samples, statics.color.d_out)
 
     inv_s = torch.clamp(fields.variance_inv_s(params["variance"]), 1e-6, 1e6)
 
@@ -446,6 +460,59 @@ def render_rnb(statics: ModelStatics, rcfg: RendererConfig, params,
         "gradient_error_num": ret["gradient_error_num"],
         "gradient_error_den": ret["gradient_error_den"],
         "inside_sphere": ret["inside_sphere"],
+    }
+
+
+def render(statics: ModelStatics, rcfg: RendererConfig, params,
+           rays_o, rays_d, near, far, t_rand, t_out=None,
+           cos_anneal_ratio=1.0, background_rgb=None) -> Dict[str, torch.Tensor]:
+    """Vanilla NeuS render for novel views: the albedo field's colour
+    composited by the weights. ``t_rand=None`` renders without the
+    stratified perturbations. With ``n_outside > 0`` the SDF alpha and
+    colour hold inside the unit sphere, the background NeRF's outside it,
+    the extra outside samples are appended and the weights rebuilt; with
+    ``background_rgb`` [1,3] the rest of the transmittance shows it."""
+    if t_rand is None:
+        rcfg = dataclasses.replace(rcfg, perturb=0.0)
+    sample_dist = 2.0 / rcfg.n_samples
+    z_vals = init_z_vals(rcfg, near, far, t_rand)
+    z_vals = upsampled_z_vals(statics, rcfg, params, rays_o, rays_d, z_vals)
+
+    core = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
+                            sample_dist, cos_anneal_ratio, need_albedo=True,
+                            kernel_prec=rcfg.kernel_prec)
+    sampled_color = core["sampled_albedo"][..., :3]
+    inside = core["inside_sphere"]
+    if rcfg.n_outside > 0:
+        z_out = _outside_z_vals(rcfg, far, t_out)
+        z_feed, _ = torch.sort(torch.cat([z_vals, z_out], dim=-1), dim=-1)
+        bg = render_core_outside(statics, rcfg, params, rays_o, rays_d, z_feed,
+                                 sample_dist)
+        n = core["alpha_raw"].shape[1]
+        alpha = core["alpha_raw"] * inside + bg["alpha"][:, :n] * (1.0 - inside)
+        alpha = torch.cat([alpha, bg["alpha"][:, n:]], dim=-1)
+        bg_color = bg["sampled_color"]
+        sampled_color = (sampled_color * inside[:, :, None]
+                         + bg_color[:, :n] * (1.0 - inside)[:, :, None])
+        sampled_color = torch.cat([sampled_color, bg_color[:, n:]], dim=1)
+        weights = _exclusive_cumprod_transmittance(alpha)
+    else:
+        weights = core["weights"]
+
+    weights_sum = weights.sum(dim=-1, keepdim=True)
+    color = (sampled_color * weights[:, :sampled_color.shape[1], None]).sum(dim=1)
+    if background_rgb is not None:
+        color = color + background_rgb * (1.0 - weights_sum)
+    return {
+        "color_fine": color,
+        "s_val": core["s_val"].mean(dim=-1, keepdim=True),
+        "cdf_fine": core["cdf"],
+        "weight_sum": weights_sum,
+        "weight_max": weights.max(dim=-1, keepdim=True).values,
+        "gradients": core["gradients"],
+        "weights": weights,
+        "gradient_error": core["gradient_error"],
+        "inside_sphere": inside,
     }
 
 

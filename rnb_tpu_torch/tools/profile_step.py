@@ -29,6 +29,25 @@ from rnb_tpu_torch.tools.ablate_kernel import card
 from rnb_tpu_torch.train import step as steplib
 
 
+def device_ms_by_name(prof, runs: int, top: int):
+    """(device ms per run, {name: ms per run} of the ``top`` largest and
+    "everything else") from a finished ``torch.profiler.profile``: the self
+    device time of its device-side events (kernels, copies), annotation
+    ranges left out since they overlap the kernels."""
+    from torch.autograd import DeviceType
+
+    per = {}
+    for ev in prof.key_averages():
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not ev.is_user_annotation):
+            name = ev.key.split("(")[0].replace("void ", "")[:60]
+            per[name] = per.get(name, 0.0) + ev.self_device_time_total / 1e3 / runs
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])
+    out = dict(ranked[:top])
+    out["everything else"] = sum(v for _, v in ranked[top:])
+    return sum(per.values()), out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--conf", default="confs/wmask_rnb.conf")
@@ -41,7 +60,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device; it times the card")
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     conf = config.load_conf(args.conf)
@@ -73,16 +91,7 @@ def main(argv=None) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(args.steps)
         torch.cuda.synchronize()
-    per = {}
-    for ev in prof.key_averages():   # device-side events: kernels, copies
-        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                and not ev.is_user_annotation):   # ranges that overlap kernels
-            name = ev.key.split("(")[0].replace("void ", "")[:60]
-            per[name] = per.get(name, 0.0) + ev.self_device_time_total / 1e3 / args.steps
-    device = sum(per.values())
-    ranked = sorted(per.items(), key=lambda kv: -kv[1])
-    top = dict(ranked[:args.top])
-    top["everything else"] = sum(v for _, v in ranked[args.top:])
+    device, top = device_ms_by_name(prof, args.steps, args.top)
     res = {"card": card(), "conf": args.conf, "set": args.set,
            "flags": steplib.runtime_flags_dict(tcfg),
            "steps": args.steps, "wall_ms_per_step": wall,

@@ -14,7 +14,14 @@ view-sharded and multi-process branches:
     every ``RING`` steps, so the loop does not wait on the card after each
     step; the NaN guard reads them there;
   * atomic checkpoints (``utils/checkpoint.py``) in the JAX package's
-    layout, ``logs/scalars.jsonl``, validation images, ``meshes/*.ply``.
+    layout, ``logs/scalars.jsonl``, validation images, ``meshes/*.ply``;
+  * with ``RNB_PROFILE_DIR`` set, a ``torch.profiler`` trace of
+    ``RNB_PROFILE_STEPS`` steps from step ``RNB_PROFILE_START`` (20 and 20
+    by default), written there as a Chrome trace;
+  * the inference path: per-light validation images
+    (``validate_image_ps``), a mesh with albedo vertex colours
+    (``validate_mesh_texture``), novel views between two cameras
+    (``render_novel_image``) and a video of them (``interpolate_view``).
 """
 
 from __future__ import annotations
@@ -44,6 +51,53 @@ logger = pylog.getLogger(__name__)
 # ring (its last key, lr, is a host float here)
 METRIC_KEYS = ("loss", "color_loss", "eikonal_loss", "mask_loss", "s_val",
                "cdf", "weight_max", "psnr")
+
+
+def _pad_chunk(x, start: int, end: int, size: int):
+    """Rows [start, end) of x, padded to ``size`` rows with the last one."""
+    pad = size - (end - start)
+    x = x[start:end]
+    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+
+class _TraceWindow:
+    """The ``RNB_PROFILE_*`` trace window of the training loop: a
+    ``torch.profiler`` over steps [start, start + steps) with the CPU and,
+    on the card, the CUDA activities; one synchronize at its end, then a
+    Chrome trace in ``out_dir``."""
+
+    def __init__(self, out_dir: str, device: torch.device):
+        self.out_dir = out_dir
+        self.start = int(os.environ.get("RNB_PROFILE_START", "20"))
+        self.steps = int(os.environ.get("RNB_PROFILE_STEPS", "20"))
+        self.device = device
+        self.prof = None
+
+    def before_step(self, it: int) -> None:
+        """Open the window before step ``start``, close it before step
+        ``start + steps``."""
+        if it == self.start + self.steps:
+            self.close()
+        elif it == self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def close(self) -> None:
+        """Stop the window (also where the loop ends inside it) and write
+        the trace."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, f"trace_{self.start:08d}_{self.steps}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        logger.info("profiler trace written to %s", path)
 
 
 class Runner:
@@ -157,11 +211,15 @@ class Runner:
         pending = []           # (step, metrics) not fetched yet
         self._last_snap = it
         self._snap_good = (it, ckptlib.state_leaves(self.state))
+        prof_dir = os.environ.get("RNB_PROFILE_DIR", "")
+        trace = _TraceWindow(prof_dir, self.device) if prof_dir else None
         try:
             while it < self.tcfg.end_iter:
                 warmup = it < self.tcfg.warm_up_iter
                 view = self._view_for_step(it)
                 fn = self._get_step_fn(warmup)
+                if trace:
+                    trace.before_step(it)
                 self.state, metrics = fn(self.state, self.dataset.arrays, view,
                                          self._step_generator(it))
                 it += 1
@@ -185,6 +243,8 @@ class Runner:
                     self.validate_mesh()
             self._consume(pending)
         finally:
+            if trace:
+                trace.close()
             self._rps_at.clear()
             self.writer.close()
         secs = time.time() - t_start
@@ -293,7 +353,8 @@ class Runner:
     def _render_view(self, idv: int, idl: int, resolution_level: int,
                      warmup: bool):
         """Chunked full-view render, no grad -> (rgb, normal) [H, W, 3] host
-        arrays. The last chunk is padded with its edge ray."""
+        arrays. The last chunk is padded with its edge ray; the weight norm
+        is folded once for all chunks."""
         arrays = self.dataset.arrays
         rays_o, rays_d, px, py = ds.gen_rays_at(arrays, idv, resolution_level)
         H, W = rays_o.shape[:2]
@@ -309,12 +370,11 @@ class Runner:
         cos_r = self.get_cos_anneal_ratio()
 
         def chunk(x, start, end):
-            pad = bsz - (end - start)
-            x = x[start:end]
-            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+            return _pad_chunk(x, start, end, bsz)
 
         out_rgb, out_normal = [], []
         with torch.no_grad():
+            params = fields.fold_params(self.state.params)
             for start in range(0, n_total, bsz):
                 end = min(start + bsz, n_total)
                 o, d = chunk(rays_o, start, end), chunk(rays_d, start, end)
@@ -325,7 +385,7 @@ class Runner:
                     lights = ds.lights_at_pixels(
                         arrays, idv, idl, chunk(pxi, start, end),
                         chunk(pyi, start, end))[None, :, None, :]
-                out = rnd.render_rnb(self.statics, self.rcfg, self.state.params,
+                out = rnd.render_rnb(self.statics, self.rcfg, params,
                                      o, d, near, far, lights, t_rand, t_out,
                                      cos_anneal_ratio=cos_r,
                                      no_albedo=self.no_albedo, warmup=warmup)
@@ -365,21 +425,143 @@ class Runner:
                             self.dataset.normal_at(idv, resolution_level)], axis=0))
         return img, normal_img
 
+    def validate_image_ps(self, idv: int = -1, resolution_level: int = -1):
+        """Render one view under every light; save render‖supervision as
+        ``validations_ps/<iter>_<idv>_<idl>.png``. The view is drawn from
+        (seed, step). -> the renders, [H, W, 3] host arrays."""
+        if idv < 0:
+            idv = int(self._host_draw(self.iter_step, 2).integers(
+                self.dataset.n_images))
+        if resolution_level < 0:
+            resolution_level = self.tcfg.validate_resolution_level
+        warmup = self.iter_step < self.tcfg.warm_up_iter
+        imgs = []
+        for idl in range(self.dataset.n_lights):
+            img, _ = self._render_view(idv, idl, resolution_level, warmup)
+            gt_warm, gt_main = self.dataset.image_at_ps(idv, idl, resolution_level)
+            io.save_image(
+                os.path.join(self.base_exp_dir, "validations_ps",
+                             f"{self.iter_step:08d}_{idv}_{idl}.png"),
+                np.concatenate([img, gt_warm if warmup else gt_main], axis=0))
+            imgs.append(img)
+        return imgs
+
     # -- validation: meshes ---------------------------------------------------
+
+    def _extract(self, resolution: int, threshold: float):
+        """Zero level set at ``resolution``³, in normalized space."""
+        grid = rnd.extract_fields(self.statics, self.state.params,
+                                  self.dataset.object_bbox_min,
+                                  self.dataset.object_bbox_max, resolution)
+        return mc.extract_geometry(grid, self.dataset.object_bbox_min,
+                                   self.dataset.object_bbox_max, threshold)
+
+    def _to_world(self, vertices):
+        scale_mat = self.dataset.scale_mats_np[0]
+        return vertices * scale_mat[0, 0] + scale_mat[:3, 3][None]
+
+    def _mesh_path(self) -> str:
+        return os.path.join(self.base_exp_dir, "meshes", f"{self.iter_step:08d}.ply")
 
     def validate_mesh(self, world_space: bool = False, resolution: int = 128,
                       threshold: float = 0.0):
         """Extract the zero level set at ``resolution``³ and write
         ``meshes/<iter>.ply``; world_space rescales by the first scale mat."""
-        grid = rnd.extract_fields(self.statics, self.state.params,
-                                  self.dataset.object_bbox_min,
-                                  self.dataset.object_bbox_max, resolution)
-        vertices, triangles = mc.extract_geometry(
-            grid, self.dataset.object_bbox_min, self.dataset.object_bbox_max,
-            threshold)
+        vertices, triangles = self._extract(resolution, threshold)
         if world_space:
-            scale_mat = self.dataset.scale_mats_np[0]
-            vertices = vertices * scale_mat[0, 0] + scale_mat[:3, 3][None]
-        path = os.path.join(self.base_exp_dir, "meshes", f"{self.iter_step:08d}.ply")
-        io.write_ply(path, vertices, triangles)
+            vertices = self._to_world(vertices)
+        io.write_ply(self._mesh_path(), vertices, triangles)
         return vertices, triangles
+
+    def validate_mesh_texture(self, world_space: bool = True,
+                              resolution: int = 128, threshold: float = 0.0):
+        """``validate_mesh`` with RGB vertex colours: the albedo field at
+        the normalized-space vertices (``_vertex_albedo``), before the
+        world-space scaling. -> (vertices, triangles, albedo)."""
+        vertices, triangles = self._extract(resolution, threshold)
+        albedo = self._vertex_albedo(vertices)
+        if world_space:
+            vertices = self._to_world(vertices)
+        io.write_ply(self._mesh_path(), vertices, triangles, vertex_colors=albedo)
+        return vertices, triangles, albedo
+
+    def _vertex_albedo(self, vertices: np.ndarray,
+                       chunk: int = 100000) -> np.ndarray:
+        """Albedo [V, 3] in [0, 1] at each vertex, in chunks of ``chunk``
+        (a ragged last one): the SDF core's (feature, ∇SDF), then the albedo
+        net with the gradient standing in for the view direction, through
+        the fused ops at the conf's ``kernel_prec``."""
+        out = np.empty((len(vertices), 3), np.float32)
+        with torch.no_grad():
+            params = fields.fold_params(self.state.params)
+            for start in range(0, len(vertices), chunk):
+                pts = torch.as_tensor(
+                    np.asarray(vertices[start:start + chunk], np.float32),
+                    device=self.device)
+                _, feat, grad = rnd.sdf_feat_grad(self.statics, params, pts,
+                                                  self.rcfg.kernel_prec)
+                alb = rnd.albedo_at(self.statics, params, pts, grad, grad, feat,
+                                    self.rcfg.kernel_prec)
+                out[start:start + len(pts)] = np.clip(alb.cpu().numpy(), 0, 1)
+        return out
+
+    # -- novel views ----------------------------------------------------------
+
+    def render_novel_image(self, idx_0: int, idx_1: int, ratio: float,
+                           resolution_level: int) -> np.ndarray:
+        """The vanilla NeuS render (``renderer.render``) from a camera
+        between views idx_0 and idx_1 (``Dataset.gen_rays_between``), in
+        no-grad chunks of ``batch_size`` rays, the last one padded with its
+        edge ray; the same draws for every chunk and call, the weight norm
+        folded once for all chunks. -> uint8 [H/l, W/l, 3]."""
+        rays_o, rays_d = self.dataset.gen_rays_between(idx_0, idx_1, ratio,
+                                                       resolution_level)
+        H, W = rays_o.shape[:2]
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        bsz = self.tcfg.batch_size
+        t_rand, t_out = self._fixed_draws(bsz)
+        background_rgb = (torch.ones(1, 3, device=self.device)
+                          if self.tcfg.use_white_bkgd else None)
+        cos_r = self.get_cos_anneal_ratio()
+        out_rgb = []
+        with torch.no_grad():
+            params = fields.fold_params(self.state.params)
+            for start in range(0, rays_o.shape[0], bsz):
+                end = min(start + bsz, rays_o.shape[0])
+                o = _pad_chunk(rays_o, start, end, bsz)
+                d = _pad_chunk(rays_d, start, end, bsz)
+                near, far = self.dataset.near_far_from_sphere(o, d)
+                out = rnd.render(self.statics, self.rcfg, params,
+                                 o, d, near, far, t_rand, t_out,
+                                 cos_anneal_ratio=cos_r,
+                                 background_rgb=background_rgb)
+                out_rgb.append(out["color_fine"][:end - start])
+        img = torch.cat(out_rgb).reshape(H, W, 3).cpu().numpy()
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+    def interpolate_view(self, img_idx_0: int, img_idx_1: int,
+                         n_frames: int = 60) -> str:
+        """``n_frames`` novel views at level 4 along a sine ramp from view
+        img_idx_0 to img_idx_1, then the same frames reversed, as a 30 fps
+        video ``render/<iter>_<i0>_<i1>.avi``. The JAX package writes mp4v
+        through OpenCV; the card's machine has no OpenCV, so the port
+        writes the same frames into an uncompressed AVI of its own
+        (``utils/io.write_avi``), hence the other extension. -> the path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        images = []
+        for i in range(n_frames):
+            ratio = np.sin(((i / n_frames) - 0.5) * np.pi) * 0.5 + 0.5
+            images.append(self.render_novel_image(img_idx_0, img_idx_1, ratio,
+                                                  resolution_level=4))
+        secs = time.perf_counter() - t0
+        h, w = images[0].shape[:2]
+        print(f"rendered {n_frames} frames of {w}x{h} in {secs:.3f} s "
+              f"({secs / n_frames * 1e3:.3f} ms a frame, "
+              f"{n_frames * h * w / secs:.0f} rays/s)", flush=True)
+        images += images[::-1]
+        path = os.path.join(self.base_exp_dir, "render",
+                            f"{self.iter_step:08d}_{img_idx_0}_{img_idx_1}.avi")
+        io.write_avi(path, images, fps=30)
+        return path

@@ -290,3 +290,89 @@ def read_ply(path: str):
         face_dt = np.dtype([("n", "u1"), ("idx", "<i4", 3)])
         faces = np.fromfile(f, dtype=face_dt, count=n_f)["idx"].copy()
     return verts, faces, colors
+
+
+# ---------------------------------------------------------------------------
+# uncompressed AVI video
+# ---------------------------------------------------------------------------
+
+def _riff(tag: bytes, data: bytes) -> bytes:
+    return tag + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+
+
+def _riff_list(kind: bytes, tag: bytes, data: bytes) -> bytes:
+    return _riff(kind, tag + data)
+
+
+def write_avi(path: str, frames, fps: int = 30) -> None:
+    """uint8 RGB frames [H,W,3] (all one size) -> an uncompressed RIFF AVI:
+    one video stream of 24-bit BGR DIB frames (``00db`` chunks, each row
+    padded to 4 bytes), with an ``idx1`` index. Rows are stored top-down (a
+    negative DIB height): OpenCV's FFmpeg reader crashes on the bottom-up
+    form of such files."""
+    frames = [np.asarray(f) for f in frames]
+    if not frames:
+        raise ValueError("write_avi needs at least one frame")
+    h, w = frames[0].shape[:2]
+    for f in frames:
+        if f.dtype != np.uint8 or f.shape != (h, w, 3):
+            raise ValueError(f"frames must be uint8 [{h},{w},3], got "
+                             f"{f.dtype} {f.shape}")
+    stride = (3 * w + 3) & ~3
+    size = stride * h
+    n = len(frames)
+    avih = struct.pack("<14I", 1_000_000 // fps, size * fps, 0, 0x10, n, 0, 1,
+                       size, w, h, 0, 0, 0, 0)
+    strh = (b"vids" + b"DIB " + struct.pack("<IHHIIIIIIII", 0, 0, 0, 0, 1, fps,
+                                            0, n, size, 0xFFFFFFFF, 0)
+            + struct.pack("<4h", 0, 0, w, h))
+    strf = struct.pack("<IiiHHIIiiII", 40, w, -h, 1, 24, 0, size, 0, 0, 0, 0)
+    hdrl = _riff_list(b"LIST", b"hdrl", _riff(b"avih", avih) + _riff_list(
+        b"LIST", b"strl", _riff(b"strh", strh) + _riff(b"strf", strf)))
+    rows = np.zeros((h, stride), np.uint8)
+    chunks, index = [], []
+    offset = 4                                  # from the 'movi' tag
+    for f in frames:
+        rows[:, :3 * w] = f[:, :, ::-1].reshape(h, 3 * w)
+        chunk = _riff(b"00db", rows.tobytes())
+        index.append(b"00db" + struct.pack("<III", 0x10, offset, size))
+        chunks.append(chunk)
+        offset += len(chunk)
+    movi = _riff_list(b"LIST", b"movi", b"".join(chunks))
+    body = b"AVI " + hdrl + movi + _riff(b"idx1", b"".join(index))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def read_avi(path: str) -> np.ndarray:
+    """Reader for the files write_avi produces -> uint8 RGB [N,H,W,3]."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise ValueError(f"{path} is not an AVI file")
+    w = h = None
+    frames = []
+
+    def walk(pos, end):
+        nonlocal w, h
+        while pos + 8 <= end:
+            tag = data[pos:pos + 4]
+            n = struct.unpack_from("<I", data, pos + 4)[0]
+            body = pos + 8
+            if tag == b"LIST":
+                walk(body + 4, body + n)
+            elif tag == b"strf":
+                size, w, h, _, bits, comp = struct.unpack_from("<IiiHHI", data, body)
+                if bits != 24 or comp != 0:
+                    raise ValueError(f"{path}: only 24-bit uncompressed frames")
+            elif tag == b"00db":
+                stride = (3 * w + 3) & ~3
+                rows = np.frombuffer(data, np.uint8, stride * abs(h), body)
+                img = rows.reshape(abs(h), stride)[:, :3 * w].reshape(abs(h), w, 3)
+                # a positive DIB height stores the rows bottom-up
+                frames.append(img[::-1 if h > 0 else 1, :, ::-1])
+            pos = body + n + (n & 1)
+
+    walk(12, len(data))
+    return np.stack(frames)

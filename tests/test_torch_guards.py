@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
               "tools.ablate_kernel", "train.runner", "cli", "utils.io",
               "utils.checkpoint", "utils.logging", "ops.marching_cubes",
               "tools.acceptance", "tools.eval_chamfer",
-              "tools.make_synthetic_case"):
+              "tools.make_synthetic_case", "tools.compare_images"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"
@@ -78,14 +78,24 @@ def test_cli_needs_cuda_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--mode", "validate_mesh_texture"], "'validate_mesh_texture' is not in"),
-    (["--mode", "validate_image_ps"], "queue 1, item 11"),
+    (["--mode", "interpolate_0"], "write interpolate_<i>_<j>"),
+    (["--shard", "4"], "--shard 4: rnb_tpu_torch runs on one device"),
     (["--mode", "bogus"], "unknown mode 'bogus'"),
     (["--shard", "2"], "queue 1, item 13"),
 ])
 def test_cli_refuses_unported_modes_by_name(argv, needle):
     r = _run(["-m", "rnb_tpu_torch.cli", "--device", "cpu", *argv], ROOT)
     assert r.returncode != 0 and needle in r.stderr, r.stderr
+
+
+@pytest.mark.parametrize("mode", ["validate_mesh_texture", "validate_image_ps",
+                                  "interpolate_0_1"])
+def test_cli_inference_modes_need_cuda(tmp_path, mode):
+    """The inference modes run on the card too: without one they exit
+    non-zero unless --device cpu is given."""
+    r = _run(["-m", "rnb_tpu_torch.cli", "--mode", mode, "--conf",
+              str(tmp_path / "missing.conf")], ROOT)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
 
 
 def test_case_writer_refuses_normalize(tmp_path):
