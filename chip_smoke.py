@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(``chip_smoke.py --grid-worker CASE EXP OUT`` is one rank of phase 8's grid
+check; the smoke starts it under torch.distributed.run itself.)
+
 Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
   1. checks each kernel against its plain PyTorch version on the card, at
      its main path's point count and at a ragged one: the SDF core and
@@ -58,14 +61,33 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      render and by every op call (in turns, equal frames) and profiled, and
      one 64-ray chunk of `render` on the card
      at f32 operands (the f32 routes) is held within 1e-4 of the CPU's for
-     each conf.
+     each conf;
+  8. drives the parallel path on phase 6's case, the CLI launched by
+     python -m torch.distributed.run --standalone (subprocesses; any rank's
+     failure fails the smoke): (1) confs/wmask_rnb.conf at full width on
+     two ranks sharing the card (RNB_DIST_BACKEND=gloo), global batch 512,
+     40 steps (20 warm-up) and a 128^3 mesh through the sharded grid,
+     against the same 40 steps in one process without a group: per-step
+     losses within 1e-3 relative (bf16 kernels; the dW sums run over other
+     row counts), the ranks' parameter digests equal, each rank's own
+     counters showing the four wmask bf16 kernels and their dW products,
+     and the sharded grid at 128^3 (chip_smoke.py --grid-worker under two
+     ranks) within 1e-3 of the one-process extract_fields on the same
+     weights; (2) the same run with train.view_shard=true: each rank loads
+     only its 3 views, finite losses, one scalars.jsonl and one checkpoint
+     set; (3) confs/womask_rnb.conf with n_outside=4, 10 steps, two ranks
+     against one process within 1e-3 (the NeRF kernels under the group);
+     (4) one rank with RNB_DIST_BACKEND=nccl (world 1: the collective path
+     on NCCL), 10 steps against the one-process run within 1e-5. It prints
+     each run's wall and ms a step beside the card; two ranks on one card
+     are not a scaling figure.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
 bf16 route, its dW product and albedo, the wmask parity step for the f32
 routes of the SDF core and albedo, the womask step for the NeRF and the
 womask parity step for its f32 route, the ablation run for the ablation
-variants), `ms` / `plain_ms` are at the main-path shape with the
+variants) plus its launches in every rank of phase 8's group runs, `ms` / `plain_ms` are at the main-path shape with the
 route's operands (bf16 unless named f32; the bf16 albedo and NeRF kernels
 on the weight image their op packs once a step; for the ablation kernel:
 one launch of each of its four variants), `bound_ms` is the larger of the
@@ -83,6 +105,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -874,6 +897,274 @@ def inference_path(dev, card, tmp, sets):
     return result, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the parallel path (torch.distributed.run) through the command line
+# ---------------------------------------------------------------------------
+
+PAR_STEPS, PAR_WARM = 40, 20
+
+
+def _launch(name, ranks, conf_spec, sets, env=None, mesh_resolution=64,
+            timeout=600):
+    """``--mode train_rnb`` of the CLI on ``ranks`` processes of
+    torch.distributed.run (0: one process, no group) from the repository
+    root, with ``env`` added to the environment; any rank's failure raises
+    (torchrun exits non-zero). -> (its output with the errors, the per-rank
+    JSON lines, the chief's seconds and steps of training, and its rays/s
+    over the last report window, which leaves out the first steps)."""
+    launch = ([] if ranks == 0 else
+              ["torch.distributed.run", "--standalone", "--nproc_per_node",
+               str(ranks), "-m"])
+    args = [sys.executable, "-m", *launch, "rnb_tpu_torch.cli", "--mode",
+            "train_rnb", "--conf", conf_spec[0], "--mesh_resolution",
+            str(mesh_resolution),
+            *(a for o in (*conf_spec[1], *sets) for a in ("--set", o))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="2",
+                                                   **(env or {})),
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(args[2:])} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-12000:]}")
+    lines = _result_lines(proc.stdout)
+    assert len(lines) == max(ranks, 1), f"{len(lines)} result lines"
+    wall = next(l for l in proc.stdout.splitlines() if l.startswith("trained "))
+    window = re.findall(r"iter:\s*\d+ .*? rays/s=(\d+)", proc.stdout)[-1]
+    log(f"[parallel] {name}: {ranks or 'one'} rank(s), rc 0 in {secs:.1f} s "
+        f"with start-up; {wall}")
+    return (proc.stdout, lines, float(wall.split()[4]), int(wall.split()[1]),
+            float(window))
+
+
+def _result_lines(text):
+    """Every rank's ``{"launches": ...}`` object in ``text``, wherever a
+    line of another rank's log broke into it."""
+    dec = json.JSONDecoder()
+    return [dec.raw_decode(text, m.start())[0]
+            for m in re.finditer(r'\{"launches"', text)]
+
+
+def _par_sets(case, exp, steps, warm):
+    return [f"dataset.data_dir={case}", f"general.base_exp_dir={exp}",
+            f"train.end_iter={steps}", f"train.warm_up_iter={warm}",
+            "train.warm_up_end=50", f"train.save_freq={steps}",
+            "train.val_freq=100000", "train.val_mesh_freq=100000",
+            "train.report_freq=5"]
+
+
+def _check_ranks(lines, kernels, where):
+    """Every rank launched each kernel of ``kernels`` (its own counters),
+    no f32 route, and the ranks' parameters are equal bit for bit."""
+    for line in lines:
+        c = line["launches"]
+        log(f"[parallel] {where} rank {line['rank']} of {line['world']}: "
+            f"params {line['params_sha256'][:16]}, launches {c}")
+        for k in kernels:
+            assert c[k] > 0, f"{where}: rank {line['rank']} did not launch {k}"
+        for k in F32_ROUTE:
+            assert c[k] == 0, f"{where}: rank {line['rank']} launched {k}"
+    assert len({l["params_sha256"] for l in lines}) == 1, \
+        f"{where}: the ranks' parameters differ"
+
+
+def _losses_close(got, ref, tol, where, steps=None):
+    """Per-step relative differences of two runs' losses, logged; those of
+    ``steps`` (all by default) held within ``tol``. -> their maximum."""
+    assert sorted(got) == sorted(ref)[:len(got)], (where, sorted(got))
+    diffs = {s: abs(got[s] - ref[s]) / abs(ref[s]) for s in sorted(got)}
+    held = [diffs[s] for s in (steps or diffs)]
+    log(f"[parallel] {where}: max rel diff {max(held):.3e} over steps "
+        f"{steps or 'all'} (tol {tol:g}); by step "
+        + " ".join(f"{d:.1e}" for d in diffs.values()))
+    assert np.isfinite(list(got.values())).all() and max(held) <= tol, where
+    return max(held)
+
+
+def _moments_close(exp, ref_exp, step, tol, where):
+    """Adam's moments in the two runs' step-``step`` checkpoints within
+    ``tol`` of the reference's norm: the moments average every step's
+    gradient, so the all-reduced gradient equals the one-rank gradient."""
+    name = f"checkpoints/ckpt_{step:06d}.npz"
+    with np.load(os.path.join(exp, name)) as a, \
+            np.load(os.path.join(ref_exp, name)) as b:
+        n = int(a["__n_leaves__"])
+        P = (n - 3) // 3       # params, count, mu, nu, count, step
+        err = {}
+        for key, lo in (("params", 0), ("mu", P + 1), ("nu", 2 * P + 1)):
+            got = [a[f"leaf_{i:06d}"] for i in range(lo, lo + P)]
+            want = [b[f"leaf_{i:06d}"] for i in range(lo, lo + P)]
+            err[key] = rel_err([torch.from_numpy(x) for x in got],
+                               [torch.from_numpy(x) for x in want])[1]
+    log(f"[parallel] {where}: step-{step} checkpoints, norm-relative error "
+        f"{err} (tol {tol:g}; frozen parameters must be equal)")
+    assert err["params"] == 0.0 and max(err.values()) <= tol, where
+    return err
+
+
+def _runner_on(case, exp, device):
+    """A Runner on the newest checkpoint of ``exp`` (wmask conf)."""
+    from rnb_tpu_torch.train.runner import Runner
+
+    return Runner(WMASK[0], "validate_mesh", is_continue=True, device=device,
+                  overrides=[f"dataset.data_dir={case}",
+                             f"general.base_exp_dir={exp}"])
+
+
+def grid_worker(case, exp, out_path):
+    """One rank of phase 8's grid check: the sharded grid query at 128³ on
+    the trained weights of ``exp``; the chief saves it to ``out_path``. Run
+    under torch.distributed.run (``chip_smoke.py --grid-worker``)."""
+    from rnb_tpu_torch.parallel import mesh as meshlib
+    from rnb_tpu_torch.parallel.grid import extract_fields_sharded
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    if not meshlib.maybe_initialize_distributed("cuda"):
+        raise SystemExit("chip_smoke --grid-worker: run it under "
+                         "torch.distributed.run")
+    runner = _runner_on(case, exp, meshlib.rank_device("cuda"))
+    ds_ = runner.dataset
+    grid = extract_fields_sharded(runner.statics, runner.state.params,
+                                  ds_.object_bbox_min, ds_.object_bbox_max, 128)
+    if meshlib.is_chief():
+        np.save(out_path, grid)
+    torch.distributed.destroy_process_group()
+
+
+def parallel_path(dev, card, tmp):
+    """Phase 8 on phase 6's case in ``tmp``; -> (result, the launches of
+    every rank of the group runs, summed)."""
+    from rnb_tpu_torch.models import renderer as rnd
+
+    case = os.path.join(tmp, "sphere")
+    gloo = {"RNB_DIST_BACKEND": "gloo"}   # two ranks share the one card
+    result, launches = {}, {}
+
+    def add(lines):
+        for line in lines:
+            for k, v in line["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+
+    def timing(name, secs, steps, rays_s, ranks):
+        steady = 512 / rays_s * 1e3      # the confs' batch of 512 rays
+        result[name] = {"train_s": secs, "steps": steps,
+                        "ms_per_step": secs / steps * 1e3,
+                        "last5_ms_per_step": steady, "ranks": ranks}
+        log(f"[parallel] {card}: {name}: {steps} steps in {secs:.3f} s "
+            f"({secs / steps * 1e3:.2f} ms a step with the first), "
+            f"{steady:.2f} ms a step over the last 5, {ranks} rank(s)"
+            + (" sharing the one card" if ranks > 1 else ""))
+
+    # 8.1 replicated data, two ranks: the training run, against one
+    # process; the parameters are the same in both at steps 1 and 2 (the
+    # learning rate of step 0 is 0), after which the bf16 kernels amplify
+    # the sums' order (their operands round the weights)
+    exp1, exp0 = os.path.join(tmp, "par_rep"), os.path.join(tmp, "par_one")
+    _, lines, secs, n, rps = _launch("replicated", 2, WMASK,
+                                _par_sets(case, exp1, PAR_STEPS, PAR_WARM),
+                                gloo, mesh_resolution=128)
+    _check_ranks(lines, WMASK_KERNELS, "replicated")
+    add(lines)
+    timing("replicated_2", secs, n, rps, 2)
+    assert os.listdir(os.path.join(exp1, "meshes")) == [f"{PAR_STEPS:08d}.ply"]
+    _, _, secs, n, rps = _launch("replicated, reference", 0, WMASK,
+                            _par_sets(case, exp0, PAR_STEPS, PAR_WARM))
+    timing("one_process", secs, n, rps, 1)
+    result["replicated_rel_diff_steps_1_2"] = _losses_close(
+        _losses(exp1), _losses(exp0), 1e-5, "2 ranks vs one process", steps=[1, 2])
+    result["replicated_drift"] = {
+        s: abs(_losses(exp1)[s] - v) / abs(v) for s, v in _losses(exp0).items()}
+    out = os.path.join(tmp, "grid128.npy")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"), "--grid-worker",
+         case, exp1, out], cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="2", **gloo),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-8000:]
+    sharded = np.load(out)
+    runner = _runner_on(case, exp1, dev)
+    serial = rnd.extract_fields(runner.statics, runner.state.params,
+                                runner.dataset.object_bbox_min,
+                                runner.dataset.object_bbox_max, 128)
+    grid_err = float(np.abs(sharded - serial).max())
+    log(f"[parallel] sharded grid 128^3 (2 ranks, {time.perf_counter() - t0:.1f} s "
+        f"with start-up) vs one process: max abs diff {grid_err:.3e} (tol 1e-3)")
+    assert grid_err <= 1e-3, "the sharded grid differs"
+    result["grid_max_abs_diff"] = grid_err
+
+    # 8.1' the exact global loss, step by step: frozen parameters
+    # (learning rate 0), so every step's loss and gradient are taken at the
+    # same parameters in both runs and differ only by the order of the sums
+    frozen = ["train.learning_rate=0"]
+    exp_f2, exp_f1 = os.path.join(tmp, "par_frozen"), os.path.join(tmp, "par_frozen_one")
+    _, lines, secs, n, rps = _launch("frozen", 2, WMASK, _par_sets(
+        case, exp_f2, PAR_STEPS, PAR_WARM) + frozen, gloo)
+    _check_ranks(lines, WMASK_KERNELS, "frozen")
+    add(lines)
+    timing("frozen_2", secs, n, rps, 2)
+    _, _, secs, n, rps = _launch("frozen, reference", 0, WMASK, _par_sets(
+        case, exp_f1, PAR_STEPS, PAR_WARM) + frozen)
+    timing("frozen_one_process", secs, n, rps, 1)
+    frozen_one = _losses(exp_f1)
+    result["frozen_rel_diff"] = _losses_close(_losses(exp_f2), frozen_one, 1e-5,
+                                              "frozen, 2 ranks vs one process")
+    result["frozen_moments"] = _moments_close(exp_f2, exp_f1, PAR_STEPS, 1e-4,
+                                              "frozen, 2 ranks vs one process")
+
+    # 8.2 view-sharded, two ranks: each reads only its 3 of the 6 views
+    exp2 = os.path.join(tmp, "par_views")
+    text, lines, secs, n, rps = _launch("view-sharded", 2, WMASK,
+                                   _par_sets(case, exp2, PAR_STEPS, PAR_WARM)
+                                   + ["train.view_shard=true"], gloo)
+    _check_ranks(lines, WMASK_KERNELS, "view-sharded")
+    add(lines)
+    timing("view_sharded_2", secs, n, rps, 2)
+    loaded = sorted(re.findall(r"rank \d of 2 loads global views \[[\d, ]*\] "
+                               r"of \d+", text))
+    log(f"[parallel] view-sharded: {loaded}")
+    assert loaded == ["rank 0 of 2 loads global views [0, 1, 2] of 6",
+                      "rank 1 of 2 loads global views [3, 4, 5] of 6"], loaded
+    views = _losses(exp2)
+    assert sorted(views) == list(range(1, PAR_STEPS + 1))
+    assert np.isfinite(list(views.values())).all()
+    assert os.listdir(os.path.join(exp2, "logs")).count("scalars.jsonl") == 1
+    assert sorted(os.listdir(os.path.join(exp2, "checkpoints"))) == [
+        f"ckpt_{PAR_STEPS:06d}.npz"]
+
+    # 8.3 womask, two ranks against one process, frozen: the NeRF kernels
+    # under the group
+    exp3, exp3_one = os.path.join(tmp, "par_womask"), os.path.join(tmp, "par_womask_one")
+    _, lines, secs, n, rps = _launch("womask", 2, WOMASK,
+                                _par_sets(case, exp3, 10, 5) + frozen, gloo)
+    _check_ranks(lines, WOMASK_KERNELS, "womask")
+    add(lines)
+    timing("womask_2", secs, n, rps, 2)
+    _, _, secs, n, rps = _launch("womask, reference", 0, WOMASK,
+                            _par_sets(case, exp3_one, 10, 5) + frozen)
+    timing("womask_one_process", secs, n, rps, 1)
+    result["womask_rel_diff"] = _losses_close(_losses(exp3), _losses(exp3_one),
+                                              1e-5, "womask, frozen, 2 ranks vs one process")
+    result["womask_moments"] = _moments_close(exp3, exp3_one, 10, 1e-4,
+                                              "womask, frozen, 2 ranks vs one process")
+
+    # 8.4 NCCL at world 1: the collective path on the card's own backend,
+    # against the frozen one-process run's first 10 steps
+    exp4 = os.path.join(tmp, "par_nccl")
+    text, lines, secs, n, rps = _launch("nccl", 1, WMASK,
+                                   _par_sets(case, exp4, 10, PAR_WARM) + frozen,
+                                   {"RNB_DIST_BACKEND": "nccl"})
+    assert "backend nccl" in text, "the group did not start on NCCL"
+    _check_ranks(lines, WMASK_KERNELS, "nccl")
+    add(lines)
+    timing("nccl_1", secs, n, rps, 1)
+    result["nccl_rel_diff"] = _losses_close(_losses(exp4), frozen_one, 1e-5,
+                                            "NCCL world 1 vs one process")
+    return result, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only on a GPU")
@@ -913,13 +1204,16 @@ def main():
         summary["runner"], summary["runner_launches"], sets = runner_path(dev, card, tmp)
         summary["inference"], summary["inference_launches"] = inference_path(
             dev, card, tmp, sets)
+        summary["parallel"], summary["parallel_launches"] = parallel_path(
+            dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     log("[summary] " + json.dumps(summary))
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[k], "max_abs_err": kern[k]["max_abs_err"],
+         "launches": counts[k] + summary["parallel_launches"].get(k, 0),
+         "max_abs_err": kern[k]["max_abs_err"],
          "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
          "library_ms": kern[k]["library_ms"]}
@@ -930,4 +1224,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--grid-worker"]:
+        grid_worker(*sys.argv[2:5])
+    else:
+        main()

@@ -192,8 +192,14 @@ class Dataset:
         self.object_bbox_max = (inv0 @ object_scale_mat @ bbox_max[:, None])[:3, 0]
 
     @classmethod
-    def from_conf(cls, conf, no_albedo: bool = False, device="cuda") -> "Dataset":
-        """Load the IDR layout named by a ``dataset`` conf section."""
+    def from_conf(cls, conf, no_albedo: bool = False, device="cuda",
+                  view_subset: list[int] | None = None) -> "Dataset":
+        """Load the IDR layout named by a ``dataset`` conf section.
+
+        ``view_subset`` loads only these global view indices, in order,
+        repeats allowed (the view-sharded path: ``parallel/data.py`` gives
+        each rank its list); the files of a view not listed are never read.
+        ``global_view_indices`` and ``n_images_global`` record the choice."""
         data_dir = conf.get_string("data_dir")
         normal_dir = conf.get_string("normal_dir", default="normal")
         albedo_dir = conf.get_string("albedo_dir", default="")
@@ -210,24 +216,27 @@ class Dataset:
             raise FileNotFoundError(
                 f"{data_dir}: {len(mask_files)} masks and {len(normal_files)} "
                 "normal maps (need the same number, at least one)")
-        masks_np = np.stack([io.load_mask(f) for f in mask_files])
-        normals_np = np.stack([io.load_normal(f) for f in normal_files])
+        sel = (list(view_subset) if view_subset is not None
+               else list(range(len(mask_files))))
+        masks_np = np.stack([io.load_mask(mask_files[i]) for i in sel])
+        normals_np = np.stack([io.load_normal(normal_files[i]) for i in sel])
         albedos_np = None
         if not no_albedo:
             albedo_files = sorted(glob(os.path.join(data_dir, albedo_dir, "*.png")))
-            albedos_np = np.stack([io.load_image(f) for f in albedo_files])
+            albedos_np = np.stack([io.load_image(albedo_files[i]) for i in sel])
 
-        n = len(mask_files)
         world_mats = [camera_dict[f"world_mat_{i}"].astype(np.float32)
-                      for i in range(n)]
+                      for i in sel]
         scale_mats = [camera_dict[f"scale_mat_{i}"].astype(np.float32)
-                      for i in range(n)]
+                      for i in sel]
         object_scale_mat = np.load(
             os.path.join(data_dir, object_cameras_name))["scale_mat_0"]
         ds = cls(normals_np, albedos_np, masks_np, world_mats, scale_mats,
                  object_scale_mat=object_scale_mat, no_albedo=no_albedo,
                  device=device)
-        ds.normal_files = normal_files
+        ds.normal_files = [normal_files[i] for i in sel]
+        ds.global_view_indices = sel
+        ds.n_images_global = len(mask_files)
         return ds
 
     # -- validation helpers ---------------------------------------------------

@@ -61,15 +61,13 @@ _ONE_WAY = {
                   "'fwdmode' are left out on purpose (ROADMAP.md, queue 1)"),
     "remat": (False, "the port stores activations; remat is left out on "
               "purpose (ROADMAP.md, queue 1)"),
-    "view_shard": (False, "view-sharded placement comes with ROADMAP.md "
-                   "queue 1, item 13 (parallel)"),
 }
 
 
 def refuse_unsupported(section: str, **knobs) -> None:
     """Raise ValueError, naming the key and its value, for a runtime knob of
-    the JAX package (``core_impl``, ``remat``, ``view_shard``) set to a
-    value the port cannot honour."""
+    the JAX package (``core_impl``, ``remat``) set to a value the port
+    cannot honour."""
     for key, value in knobs.items():
         want, why = _ONE_WAY[key]
         if value != want:

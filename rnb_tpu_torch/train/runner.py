@@ -1,8 +1,8 @@
-"""Experiment runner on one device: the training loop, checkpoints, scalar
-logs, validation images and mesh extraction.
+"""Experiment runner: the training loop, checkpoints, scalar logs,
+validation images and mesh extraction, on one device or on every rank of a
+process group (``parallel/``).
 
-The port's counterpart of ``rnb_tpu/train/runner.py`` without its sharded,
-view-sharded and multi-process branches:
+The port's counterpart of ``rnb_tpu/train/runner.py``:
 
   * two step functions (warm-up, main), switched at ``warm_up_iter``;
   * every host draw is a function of (seed, step): the view order is a
@@ -18,6 +18,18 @@ view-sharded and multi-process branches:
   * with ``RNB_PROFILE_DIR`` set, a ``torch.profiler`` trace of
     ``RNB_PROFILE_STEPS`` steps from step ``RNB_PROFILE_START`` (20 and 20
     by default), written there as a Chrome trace;
+  * in a process group (a torchrun launch, ``parallel/mesh.py``), the
+    data-parallel step of ``parallel/train.py`` with the exact global loss,
+    on replicated data, or with ``train.view_shard`` and world > 1 on each
+    rank's own views, read from disk by that rank alone
+    (``parallel/data.py``). Rank r takes rows [r·B/W, (r+1)·B/W) of the
+    step's global pixel, ``t_rand`` and ``t_out`` draws, so a W-rank run on
+    replicated data is the one-rank run up to the order of its sums (the
+    port's counterpart of the JAX package's ``fold_in(axis_index)``, whose
+    threefry draws it cannot reproduce). The chief alone writes scalars,
+    checkpoints, the source backup and meshes; every rank loads the same
+    checkpoint and enters the sharded grid query (``parallel/grid.py``);
+    under view sharding every rank validates views of its own shard;
   * the inference path: per-light validation images
     (``validate_image_ps``), a mesh with albedo vertex colours
     (``validate_mesh_texture``), novel views between two cameras
@@ -39,6 +51,8 @@ from rnb_tpu_torch import config as cfglib
 from rnb_tpu_torch.data import dataset as ds
 from rnb_tpu_torch.models import fields, renderer as rnd
 from rnb_tpu_torch.ops import marching_cubes as mc
+from rnb_tpu_torch.parallel import data as pdata, mesh as meshlib
+from rnb_tpu_torch.parallel import train as ptrain
 from rnb_tpu_torch.train import schedules, step as steplib
 from rnb_tpu_torch.utils import checkpoint as ckptlib
 from rnb_tpu_torch.utils import io
@@ -108,7 +122,7 @@ class Runner:
     def __init__(self, conf_path: str, mode: str = "train_rnb", case: str = "",
                  is_continue: bool = False, no_albedo: bool = False,
                  seed: int = 0, overrides: list[str] | None = None,
-                 device="cuda"):
+                 device="cuda", shard="auto"):
         self.conf_path = conf_path
         self.conf = cfglib.load_conf(conf_path, case)
         self.overrides = list(overrides or [])
@@ -122,8 +136,29 @@ class Runner:
         self.rcfg = steplib.apply_runtime_flags(
             rnd.renderer_conf(self.conf["model"]), self.tcfg)
         self.statics = fields.statics_from_conf(self.conf["model"])
-        self.dataset = ds.Dataset.from_conf(self.conf["dataset"], no_albedo,
-                                            device=self.device)
+
+        # the shard decision comes before the data loads: under view
+        # sharding each rank reads only its own views
+        self.parallel = torch.distributed.is_initialized()
+        self.world, self.rank = meshlib.world(), meshlib.rank()
+        self._is_chief = self.rank == 0
+        meshlib.shard_width(shard, self.world)
+        if self.tcfg.batch_size % self.world:
+            raise ValueError(
+                f"train.batch_size = {self.tcfg.batch_size} does not divide "
+                f"by the world size {self.world}: every rank renders "
+                "batch_size / world rays; set a batch size that divides")
+        self.view_shard = bool(self.tcfg.view_shard and self.world > 1)
+        if self.view_shard:
+            self.dataset = pdata.load_view_sharded_dataset(
+                self.conf["dataset"], self.rank, self.world, no_albedo,
+                device=self.device)
+            self._n_view_slots = len(pdata.pad_views(
+                self.dataset.n_images_global, self.world)) // self.world
+        else:
+            self.dataset = ds.Dataset.from_conf(self.conf["dataset"], no_albedo,
+                                                device=self.device)
+            self._n_view_slots = self.dataset.n_images
         self.no_albedo = self.dataset.no_albedo
 
         params = fields.init_model_bundle(torch.Generator().manual_seed(seed),
@@ -144,7 +179,7 @@ class Runner:
                 logger.info("Find checkpoint: %s", os.path.basename(latest))
                 ckptlib.load_checkpoint(latest, self.state)
 
-        if mode.startswith("train"):
+        if mode.startswith("train") and self._is_chief:
             self.file_backup()
 
     @property
@@ -161,9 +196,10 @@ class Runner:
         return np.random.default_rng([self.seed, *stream])
 
     def _view_for_step(self, it: int) -> int:
-        """View trained at step ``it``: position it % N of a permutation
-        seeded by (seed, epoch)."""
-        n = self.dataset.n_images
+        """View trained at step ``it`` (under view sharding, a slot into
+        every rank's local views): position it % N of a permutation seeded
+        by (seed, epoch)."""
+        n = self._n_view_slots
         epoch = it // n
         if self._perm_epoch != epoch:
             self._perm_cache = self._host_draw(epoch, 0).permutation(n)
@@ -187,10 +223,24 @@ class Runner:
                                device=self.device)
         return t_rand, t_out
 
+    def _rank_draws(self, it: int) -> dict:
+        """This rank's rows [r·B/W, (r+1)·B/W) of step ``it``'s global
+        draws, taken in the one-rank step's order."""
+        _, H, W, _ = self.dataset.arrays.normals.shape
+        bsz = self.tcfg.batch_size // self.world
+        rows = slice(self.rank * bsz, (self.rank + 1) * bsz)
+        got = steplib.draws(self._step_generator(it), self.tcfg.batch_size,
+                            H, W, self.rcfg.n_outside)
+        return dict(zip(("px", "py", "t_rand", "t_out"),
+                        (None if x is None else x[rows] for x in got)))
+
     def _get_step_fn(self, warmup: bool):
         if warmup not in self._step_fns:
-            self._step_fns[warmup] = steplib.make_train_step(
-                self.statics, self.rcfg, self.tcfg, warmup, self.no_albedo)
+            make = (ptrain.make_view_sharded_train_step if self.view_shard
+                    else ptrain.make_sharded_train_step if self.parallel
+                    else steplib.make_train_step)
+            self._step_fns[warmup] = make(self.statics, self.rcfg, self.tcfg,
+                                          warmup, self.no_albedo)
         return self._step_fns[warmup]
 
     # -- training -------------------------------------------------------------
@@ -198,10 +248,11 @@ class Runner:
     def train_rnb(self) -> dict:
         """The training loop, from the state's step to ``end_iter``.
         Returns {"steps", "seconds", "rays_per_s"} of this call."""
-        self.writer = ScalarLogger(os.path.join(self.base_exp_dir, "logs"))
+        self.writer = ScalarLogger(os.path.join(self.base_exp_dir, "logs"),
+                                   enabled=self._is_chief)
         self.writer.meta({"conf": self.conf_path, "overrides": self.overrides,
                           "flags": steplib.runtime_flags_dict(self.tcfg),
-                          "device": str(self.device),
+                          "device": str(self.device), "world": self.world,
                           "torch": torch.__version__})
         it = start_it = self.iter_step
         t_start = t_report = time.time()
@@ -212,7 +263,8 @@ class Runner:
         self._last_snap = it
         self._snap_good = (it, ckptlib.state_leaves(self.state))
         prof_dir = os.environ.get("RNB_PROFILE_DIR", "")
-        trace = _TraceWindow(prof_dir, self.device) if prof_dir else None
+        trace = (_TraceWindow(prof_dir, self.device)
+                 if prof_dir and self._is_chief else None)
         try:
             while it < self.tcfg.end_iter:
                 warmup = it < self.tcfg.warm_up_iter
@@ -220,8 +272,12 @@ class Runner:
                 fn = self._get_step_fn(warmup)
                 if trace:
                     trace.before_step(it)
-                self.state, metrics = fn(self.state, self.dataset.arrays, view,
-                                         self._step_generator(it))
+                if self.parallel:
+                    self.state, metrics = fn(self.state, self.dataset.arrays,
+                                             view, **self._rank_draws(it))
+                else:
+                    self.state, metrics = fn(self.state, self.dataset.arrays,
+                                             view, self._step_generator(it))
                 it += 1
                 pending.append((it, metrics))
                 rays_done += self.tcfg.batch_size
@@ -250,13 +306,16 @@ class Runner:
         secs = time.time() - t_start
         steps = it - start_it
         rps = steps * self.tcfg.batch_size / max(secs, 1e-9)
-        print(f"trained {steps} steps in {secs:.3f} s ({rps:.0f} rays/s, "
-              "checkpoints and validation included)", flush=True)
+        if self._is_chief:
+            print(f"trained {steps} steps in {secs:.3f} s ({rps:.0f} rays/s, "
+                  "checkpoints and validation included)", flush=True)
         return {"steps": steps, "seconds": secs, "rays_per_s": rps}
 
     def _consume(self, pending) -> None:
         """Fetch the pending steps' metrics at once (this waits for the
-        newest of them), guard them against NaN and log them."""
+        newest of them), guard them against NaN and log them. The metrics
+        are global, so in a process group every rank stops at the same
+        step."""
         if not pending:
             return
         rows = torch.stack([m[k].reshape(()).float() for _, m in pending
@@ -281,6 +340,7 @@ class Runner:
             if s % self.tcfg.report_freq == 0:
                 rps = self._rps_at.pop(s, self._report_rps)
                 self.writer.log(s, {"Perf/rays_per_s": rps})
+            if s % self.tcfg.report_freq == 0 and self._is_chief:
                 print(f"iter:{s:8d} loss={m['loss']:.5f} "
                       f"color={m['color_loss']:.5f} "
                       f"eik={m['eikonal_loss'] * self.tcfg.igr_weight:.5f} "
@@ -295,14 +355,15 @@ class Runner:
             self._last_snap = end_it
 
     def _nan_guard(self, s: int, m: dict) -> None:
-        """Write the live state and the last confirmed-finite one, then
-        raise FloatingPointError."""
+        """Write the live state and the last confirmed-finite one (the chief
+        alone), then raise FloatingPointError."""
         ckpt_dir = os.path.join(self.base_exp_dir, "checkpoints")
         path = ckptlib.checkpoint_path(ckpt_dir, s, prefix="nan_dump_")
-        ckptlib.save_checkpoint(path, self.state)
         good_it, good_leaves = self._snap_good
         good_path = ckptlib.checkpoint_path(ckpt_dir, good_it, prefix="last_good_")
-        ckptlib.save_checkpoint(good_path, good_leaves)
+        if self._is_chief:
+            ckptlib.save_checkpoint(path, self.state)
+            ckptlib.save_checkpoint(good_path, good_leaves)
         raise FloatingPointError(
             f"non-finite loss at iter {s}: {m}. NOTE the dump at {path} is "
             f"the LIVE state (iter {self.iter_step}, up to {self.RING} steps "
@@ -313,6 +374,8 @@ class Runner:
     # -- checkpointing --------------------------------------------------------
 
     def save_checkpoint(self):
+        if not self._is_chief:
+            return  # the state is the same on every rank; one writer
         # NaN detection trails the live step, so a save could otherwise
         # persist non-finite params that a resume would start from
         if not self._params_finite():
@@ -401,26 +464,41 @@ class Runner:
                        resolution_level: int = -1):
         """Render a view under one light; save render‖supervision and
         normal‖supervision normal. The view and light are drawn from
-        (seed, step), never from the training stream."""
+        (seed, step), never from the training stream.
+
+        In a process group with view sharding, every rank validates a view
+        of its own shard, rotating with the step, under the file tag
+        ``p<rank>`` (padded shards can repeat a global view across ranks);
+        otherwise the data are replicated and the chief alone validates
+        (the others return (None, None))."""
         rng = self._host_draw(self.iter_step, 1)
         if idl < 0:
             idl = int(rng.integers(self.dataset.n_lights))
         if idv < 0:
-            idv = int(rng.integers(self.dataset.n_images))
+            if self.view_shard:
+                idv = (self.iter_step // max(self.tcfg.val_freq, 1)
+                       % self.dataset.n_images)
+            else:
+                idv = int(rng.integers(self.dataset.n_images))
+        if not self._is_chief and not self.view_shard:
+            return None, None
         if resolution_level < 0:
             resolution_level = self.tcfg.validate_resolution_level
         warmup = self.iter_step < self.tcfg.warm_up_iter
-        print(f"Validate: iter: {self.iter_step}, camera: {idv}, light: {idl}",
-              flush=True)
+        gidv = getattr(self.dataset, "global_view_indices",
+                       range(self.dataset.n_images))[idv]
+        tag = f"p{self.rank}" if self.world > 1 else "0"
+        print(f"Validate: iter: {self.iter_step}, camera: {gidv} (local {idv}), "
+              f"light: {idl}", flush=True)
         img, normal_img = self._render_view(idv, idl, resolution_level, warmup)
         gt_warm, gt_main = self.dataset.image_at_ps(idv, idl, resolution_level)
         io.save_image(
             os.path.join(self.base_exp_dir, "validations_fine",
-                         f"{self.iter_step:08d}_0_{idv}_{idl}.png"),
+                         f"{self.iter_step:08d}_{tag}_{gidv}_{idl}.png"),
             np.concatenate([img, gt_warm if warmup else gt_main], axis=0))
         io.save_normal(
             os.path.join(self.base_exp_dir, "normals",
-                         f"{self.iter_step:08d}_0_{idv}.png"),
+                         f"{self.iter_step:08d}_{tag}_{gidv}.png"),
             np.concatenate([normal_img,
                             self.dataset.normal_at(idv, resolution_level)], axis=0))
         return img, normal_img
@@ -428,10 +506,13 @@ class Runner:
     def validate_image_ps(self, idv: int = -1, resolution_level: int = -1):
         """Render one view under every light; save render‖supervision as
         ``validations_ps/<iter>_<idv>_<idl>.png``. The view is drawn from
-        (seed, step). -> the renders, [H, W, 3] host arrays."""
+        (seed, step). -> the renders, [H, W, 3] host arrays (the chief
+        alone renders and writes; the other ranks return [])."""
         if idv < 0:
             idv = int(self._host_draw(self.iter_step, 2).integers(
                 self.dataset.n_images))
+        if not self._is_chief:
+            return []
         if resolution_level < 0:
             resolution_level = self.tcfg.validate_resolution_level
         warmup = self.iter_step < self.tcfg.warm_up_iter
@@ -449,10 +530,19 @@ class Runner:
     # -- validation: meshes ---------------------------------------------------
 
     def _extract(self, resolution: int, threshold: float):
-        """Zero level set at ``resolution``³, in normalized space."""
-        grid = rnd.extract_fields(self.statics, self.state.params,
-                                  self.dataset.object_bbox_min,
-                                  self.dataset.object_bbox_max, resolution)
+        """Zero level set at ``resolution``³, in normalized space. In a
+        process group the grid is split over the ranks, a collective that
+        every rank enters."""
+        if self.parallel:
+            from rnb_tpu_torch.parallel.grid import extract_fields_sharded
+            grid = extract_fields_sharded(self.statics, self.state.params,
+                                          self.dataset.object_bbox_min,
+                                          self.dataset.object_bbox_max,
+                                          resolution)
+        else:
+            grid = rnd.extract_fields(self.statics, self.state.params,
+                                      self.dataset.object_bbox_min,
+                                      self.dataset.object_bbox_max, resolution)
         return mc.extract_geometry(grid, self.dataset.object_bbox_min,
                                    self.dataset.object_bbox_max, threshold)
 
@@ -466,11 +556,13 @@ class Runner:
     def validate_mesh(self, world_space: bool = False, resolution: int = 128,
                       threshold: float = 0.0):
         """Extract the zero level set at ``resolution``³ and write
-        ``meshes/<iter>.ply``; world_space rescales by the first scale mat."""
+        ``meshes/<iter>.ply`` (the chief); world_space rescales by the first
+        scale mat."""
         vertices, triangles = self._extract(resolution, threshold)
         if world_space:
             vertices = self._to_world(vertices)
-        io.write_ply(self._mesh_path(), vertices, triangles)
+        if self._is_chief:
+            io.write_ply(self._mesh_path(), vertices, triangles)
         return vertices, triangles
 
     def validate_mesh_texture(self, world_space: bool = True,
@@ -482,7 +574,9 @@ class Runner:
         albedo = self._vertex_albedo(vertices)
         if world_space:
             vertices = self._to_world(vertices)
-        io.write_ply(self._mesh_path(), vertices, triangles, vertex_colors=albedo)
+        if self._is_chief:
+            io.write_ply(self._mesh_path(), vertices, triangles,
+                         vertex_colors=albedo)
         return vertices, triangles, albedo
 
     def _vertex_albedo(self, vertices: np.ndarray,
@@ -546,7 +640,10 @@ class Runner:
         video ``render/<iter>_<i0>_<i1>.avi``. The JAX package writes mp4v
         through OpenCV; the card's machine has no OpenCV, so the port
         writes the same frames into an uncompressed AVI of its own
-        (``utils/io.write_avi``), hence the other extension. -> the path."""
+        (``utils/io.write_avi``), hence the other extension. -> the path
+        (the chief alone renders and writes; the other ranks return None)."""
+        if not self._is_chief:
+            return None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()

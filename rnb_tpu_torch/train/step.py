@@ -69,12 +69,11 @@ class TrainConfig:
     upsample_precision: str = "bf16"    # 'bf16' | 'f32' no-grad sweeps
     remat: bool = False                 # only False runs
     core_impl: str = "pallas"           # only 'pallas' runs
-    view_shard: bool = False            # only False runs
+    view_shard: bool = False            # the view-sharded step at world > 1
 
     def __post_init__(self):
         rnd.refuse_unsupported("train", remat=self.remat,
-                               core_impl=self.core_impl,
-                               view_shard=self.view_shard)
+                               core_impl=self.core_impl)
 
 
 def train_conf(conf) -> TrainConfig:
@@ -150,20 +149,71 @@ def init_train_state(params) -> TrainState:
     return TrainState(params=params, optimizer=opt)
 
 
-def _loss_terms(statics: ModelStatics, rcfg: RendererConfig, tcfg: TrainConfig,
-                params, batch: ds.RayBatch, true_rgb, lights_dir, t_rand,
-                t_out, step: int, warmup: bool, no_albedo: bool):
+def draws(generator: torch.Generator | None, bsz: int, H: int, W: int,
+          n_outside: int, px=None, py=None, t_rand=None, t_out=None):
+    """A step's random draws, each taken from ``generator`` (on the data's
+    device) unless given, in this order: pixel indices px, py [bsz], the
+    stratified shift t_rand [bsz,1] (uniform − 0.5) and, when
+    n_outside > 0, the background strata t_out [bsz,n_outside] (uniform in
+    [0,1))."""
+    if px is None or py is None:
+        px, py = ds.draw_pixels(generator, bsz, H, W)
+    if t_rand is None:
+        t_rand = torch.rand((bsz, 1), generator=generator,
+                            device=generator.device) - 0.5
+    if t_out is None and n_outside > 0:
+        t_out = torch.rand((bsz, n_outside), generator=generator,
+                           device=generator.device)
+    return px, py, t_rand, t_out
+
+
+def phase_targets(batch: ds.RayBatch, warmup: bool, bsz: int):
+    """(supervision colours [L,B,3], light directions) of the phase."""
+    if warmup:
+        return batch.rgb_warmup, batch.lights_warmup.reshape(-1, 1, 1, 3)
+    return batch.rgb, batch.lights.reshape(-1, bsz, 1, 3)
+
+
+def render_batch(statics: ModelStatics, rcfg: RendererConfig,
+                 tcfg: TrainConfig, params, batch: ds.RayBatch, lights_dir,
+                 t_rand, t_out, step: int, warmup: bool, no_albedo: bool):
+    """-> (render outputs, loss mask [B,1]: the mask, or ones when
+    mask_weight is 0)."""
     if tcfg.mask_weight > 0.0:
         mask = (batch.mask > 0.5).float()
     else:
         mask = torch.ones_like(batch.mask)
-    mask_sum = mask.sum() + 1e-5
-
     out = rnd.render_rnb(
         statics, rcfg, params, batch.rays_o, batch.rays_d, batch.near,
         batch.far, lights_dir, t_rand, t_out,
         cos_anneal_ratio=schedules.cos_anneal_ratio(step, tcfg.anneal_end),
         no_albedo=no_albedo, warmup=warmup)
+    return out, mask
+
+
+def apply_update(state: TrainState, sched) -> float:
+    """One Adam update with the gradients in place (a leaf the loss did not
+    reach gets a zero gradient, as under optax) at the schedule's learning
+    rate; advances the step. -> the learning rate."""
+    opt = state.optimizer
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    lr = sched(state.step)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    state.step += 1
+    return lr
+
+
+def _loss_terms(statics: ModelStatics, rcfg: RendererConfig, tcfg: TrainConfig,
+                params, batch: ds.RayBatch, true_rgb, lights_dir, t_rand,
+                t_out, step: int, warmup: bool, no_albedo: bool):
+    out, mask = render_batch(statics, rcfg, tcfg, params, batch, lights_dir,
+                             t_rand, t_out, step, warmup, no_albedo)
+    mask_sum = mask.sum() + 1e-5
 
     n_lights = true_rgb.shape[0]
     color_error = (out["color_fine"] - true_rgb) * mask[None]
@@ -199,10 +249,8 @@ def make_train_step(statics: ModelStatics, rcfg: RendererConfig,
                     batch_size: int | None = None):
     """Build the step of one phase:
     ``(state, arrays, view_idx, generator, px=None, py=None, t_rand=None,
-    t_out=None) -> (state, metrics)``. Draws come from ``generator`` (on the
-    data's device) unless given: pixel indices px, py [B], the stratified
-    shift t_rand [B,1] (uniform − 0.5) and, when n_outside > 0, the
-    background strata t_out [B,n_outside] (uniform in [0,1))."""
+    t_out=None) -> (state, metrics)``. Draws come from ``generator`` unless
+    given (``draws``)."""
     sched = schedules.make_lr_schedule(tcfg.learning_rate, tcfg.warm_up_end,
                                        tcfg.end_iter, tcfg.learning_rate_alpha)
     bsz = batch_size or tcfg.batch_size
@@ -211,38 +259,17 @@ def make_train_step(statics: ModelStatics, rcfg: RendererConfig,
                 generator: torch.Generator | None = None, px=None, py=None,
                 t_rand=None, t_out=None):
         _, H, W, _ = arrays.normals.shape
-        if px is None or py is None:
-            px, py = ds.draw_pixels(generator, bsz, H, W)
-        if t_rand is None:
-            t_rand = torch.rand((bsz, 1), generator=generator,
-                                device=generator.device) - 0.5
-        if t_out is None and rcfg.n_outside > 0:
-            t_out = torch.rand((bsz, rcfg.n_outside), generator=generator,
-                               device=generator.device)
+        px, py, t_rand, t_out = draws(generator, bsz, H, W, rcfg.n_outside,
+                                      px, py, t_rand, t_out)
         batch = ds.sample_rays_on_all_lights(arrays, view_idx, px, py)
-        if warmup:
-            true_rgb = batch.rgb_warmup
-            lights_dir = batch.lights_warmup.reshape(-1, 1, 1, 3)
-        else:
-            true_rgb = batch.rgb
-            lights_dir = batch.lights.reshape(-1, bsz, 1, 3)
+        true_rgb, lights_dir = phase_targets(batch, warmup, bsz)
 
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=False)
+        state.optimizer.zero_grad(set_to_none=False)
         loss, metrics = _loss_terms(statics, rcfg, tcfg, state.params, batch,
                                     true_rgb, lights_dir, t_rand, t_out,
                                     state.step, warmup, no_albedo)
         loss.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        lr = sched(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        metrics["lr"] = torch.tensor(lr)
-        state.step += 1
+        metrics["lr"] = torch.tensor(apply_update(state, sched))
         return state, metrics
 
     return step_fn

@@ -4,8 +4,9 @@ One conf text goes through both packages' parser, ``train_conf`` (the conf's
 runtime knobs, then the RNB_* environment overrides) and
 ``apply_runtime_flags(renderer_conf(...), ...)``; the resolved runtime
 fields and the renderer's ``upsample_prec`` must be equal. A knob the port
-cannot honour (``core_impl`` other than 'pallas', ``remat`` or
-``view_shard`` true) is refused by a ValueError that names it.
+cannot honour (``core_impl`` other than 'pallas', ``remat`` true) is
+refused by a ValueError that names it; ``view_shard`` parses as in the JAX
+package and selects the view-sharded step of a process group.
 """
 
 import re
@@ -59,6 +60,7 @@ CASES = {
         "train { upsample_precision = f32, matmul_precision = highest }\n"
         "model { neus_renderer { upsample_prec = bf16, remat = false,"
         " core_impl = pallas } }", "f32"),
+    "train_view_shard": ("train { view_shard = true }\nmodel { }", "bf16"),
 }
 
 
@@ -95,8 +97,6 @@ REFUSED = {   # case: (conf text, the key the message must name)
                        "neus_renderer.remat = True"),
     "train_core_impl_fwdmode": ("train { core_impl = fwdmode }\nmodel { }",
                                 "train.core_impl = 'fwdmode'"),
-    "train_view_shard": ("train { view_shard = true }\nmodel { }",
-                         "train.view_shard = True"),
 }
 
 
@@ -112,6 +112,12 @@ def test_unsupported_knob_is_refused_by_name(case):
 
 
 def test_env_knob_the_port_cannot_honour_is_refused(monkeypatch):
-    monkeypatch.setenv("RNB_VIEW_SHARD", "1")
-    with pytest.raises(ValueError, match=re.escape("train.view_shard = True")):
+    monkeypatch.setenv("RNB_CORE_IMPL", "vjp")
+    with pytest.raises(ValueError, match=re.escape("train.core_impl = 'vjp'")):
         tstep.train_conf(tconfig.parse_string("train { }"))
+
+
+def test_env_view_shard_resolves_alike(monkeypatch):
+    monkeypatch.setenv("RNB_VIEW_SHARD", "1")
+    jax_side, port = _both("train { view_shard = false }\nmodel { }")
+    assert port == jax_side and port[0]["view_shard"] is True

@@ -40,7 +40,9 @@ def test_port_imports_no_jax():
               "tools.ablate_kernel", "train.runner", "cli", "utils.io",
               "utils.checkpoint", "utils.logging", "ops.marching_cubes",
               "tools.acceptance", "tools.eval_chamfer",
-              "tools.make_synthetic_case", "tools.compare_images"):
+              "tools.make_synthetic_case", "tools.compare_images",
+              "parallel.mesh", "parallel.data", "parallel.train",
+              "parallel.grid"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"
@@ -51,6 +53,14 @@ def test_port_imports_no_jax():
             "print('clean')\n")
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0 and "clean" in r.stdout, r.stderr
+
+
+def test_port_uses_no_ddp():
+    """The parallel path all-reduces partial sums before it normalizes the
+    loss; DDP's averaging of per-rank normalized losses is another gradient
+    (rnb_tpu_torch/parallel/train.py)."""
+    for path in Path(rnb_tpu_torch.__path__[0]).rglob("*.py"):
+        assert "DistributedDataParallel" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("fn", [
@@ -79,9 +89,10 @@ def test_cli_needs_cuda_unless_asked_for_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--mode", "interpolate_0"], "write interpolate_<i>_<j>"),
-    (["--shard", "4"], "--shard 4: rnb_tpu_torch runs on one device"),
+    (["--shard", "2"], "--shard 2 asks for 2 rank(s), but this run has a "
+                       "world size of 1"),
     (["--mode", "bogus"], "unknown mode 'bogus'"),
-    (["--shard", "2"], "queue 1, item 13"),
+    (["--shard", "0"], "argument --shard: '0'"),
 ])
 def test_cli_refuses_unported_modes_by_name(argv, needle):
     r = _run(["-m", "rnb_tpu_torch.cli", "--device", "cpu", *argv], ROOT)
