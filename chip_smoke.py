@@ -80,14 +80,34 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      (4) one rank with RNB_DIST_BACKEND=nccl (world 1: the collective path
      on NCCL), 10 steps against the one-process run within 1e-5. It prints
      each run's wall and ms a step beside the card; two ranks on one card
-     are not a scaling figure.
+     are not a scaling figure;
+  9. runs phases 2-3 for confs/wmask_rnb_noalbedo.conf and
+     confs/womask_rnb_noalbedo.conf (n_outside=4) with no_albedo: finite
+     losses, the card step within 1e-4 of the CPU's, no albedo kernel
+     launched on either route, the SDF core (and NeRF) as often as in the
+     albedo confs' steps; writes a 612x512, 8-view degraded torus at
+     (0.15, -0.1, 0.08) with make_synthetic_case --normalize (the
+     normalization on the card), normalizes un-normalized copies of it
+     in-process on the card and on the CPU and through python -m
+     rnb_tpu_torch.preprocess.preprocess_cameras: all four scale mats
+     within 1e-9 of the CPU's relative to its norm, scale != 1, centre
+     within 0.05 of the world centre; trains the wmask no-albedo conf on
+     it through the CLI for 400 steps (300 warm-up): no albedo kernel
+     launched, the colour net of the last checkpoint bit-identical to its
+     initial value and the SDF net moved; writes the world-space mesh with
+     --mode validate_mesh at 128^3 (bounding-box centre within 0.05 of the
+     world centre), runs python -m rnb_tpu_torch.tools.eval_chamfer on it
+     against the analytic torus (finite) and
+     python -m rnb_tpu_torch.tools.inspect_cameras on the case (8 views).
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
 bf16 route, its dW product and albedo, the wmask parity step for the f32
 routes of the SDF core and albedo, the womask step for the NeRF and the
 womask parity step for its f32 route, the ablation run for the ablation
-variants) plus its launches in every rank of phase 8's group runs, `ms` / `plain_ms` are at the main-path shape with the
+variants) plus its launches in every rank of phase 8's group runs and in
+phase 9 (the no-albedo steps, parity steps and CLI run), `ms` /
+`plain_ms` are at the main-path shape with the
 route's operands (bf16 unless named f32; the bf16 albedo and NeRF kernels
 on the weight image their op packs once a step; for the ablation kernel:
 one launch of each of its four variants), `bound_ms` is the larger of the
@@ -121,6 +141,9 @@ MAIN_N, RAGGED_N = 512 * 128, 65573
 NERF_N, NERF_RAGGED_N = 512 * (128 + 4), 67617
 WMASK = ("confs/wmask_rnb.conf", ())
 WOMASK = ("confs/womask_rnb.conf", ("model.neus_renderer.n_outside=4",))
+WMASK_NOALB = ("confs/wmask_rnb_noalbedo.conf", ())
+WOMASK_NOALB = ("confs/womask_rnb_noalbedo.conf",
+                ("model.neus_renderer.n_outside=4",))
 WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "sdf_dw_gemm", "albedo_fwd",
                  "albedo_bwd", "albedo_dw_gemm")
 WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd", "nerf_dw_gemm")
@@ -130,6 +153,14 @@ WMASK_F32 = ("sdf_core_fwd_f32", "sdf_core_bwd_f32", "albedo_fwd_f32",
              "albedo_bwd_f32")
 WOMASK_F32 = WMASK_F32 + ("nerf_fwd_f32", "nerf_bwd_f32")
 F32_ROUTE = WOMASK_F32
+# no_albedo: the albedo net is never run, on either route
+ALBEDO_KERNELS = ("albedo_fwd", "albedo_bwd", "albedo_dw_gemm",
+                  "albedo_fwd_f32", "albedo_bwd_f32")
+WMASK_NOALB_KERNELS = tuple(k for k in WMASK_KERNELS if k not in ALBEDO_KERNELS)
+WOMASK_NOALB_KERNELS = tuple(k for k in WOMASK_KERNELS if k not in ALBEDO_KERNELS)
+WMASK_NOALB_F32 = tuple(k for k in WMASK_F32 if k not in ALBEDO_KERNELS)
+WOMASK_NOALB_F32 = tuple(k for k in WOMASK_F32 if k not in ALBEDO_KERNELS)
+CENTER = (0.15, -0.1, 0.08)        # phase 9's off-origin torus
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12   # H100 SXM data sheet
 
@@ -411,7 +442,15 @@ def _flat_alb(r):
 # phase 2: the training step of a shipped conf
 # ---------------------------------------------------------------------------
 
-def slice_run(dev, conf_spec, kernels):
+def _scene_arrays(scene, no_albedo):
+    """The scene's arrays; with no_albedo its albedos are ones, as the
+    loader gives them."""
+    if not no_albedo:
+        return scene.arrays
+    return scene.arrays._replace(albedos=torch.ones_like(scene.arrays.albedos))
+
+
+def slice_run(dev, conf_spec, kernels, no_albedo=False):
     from rnb_tpu_torch.data import dataset as ds
     from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.ops import _build
@@ -419,7 +458,8 @@ def slice_run(dev, conf_spec, kernels):
 
     statics, rcfg, tcfg = load(conf_spec)
     assert (rcfg.total_samples, tcfg.batch_size) == (128, 512)
-    scene = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4, device=dev)
+    arrays = _scene_arrays(ds.make_sphere_scene(
+        n_views=6, H=256, W=256, radius=0.4, device=dev), no_albedo)
     params = fields.init_model_bundle(torch.Generator().manual_seed(0), statics, dev)
     state = steplib.init_train_state(params)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -427,7 +467,8 @@ def slice_run(dev, conf_spec, kernels):
     for k in _build.launches:
         _build.launches[k] = 0
     for warmup in (True, False):
-        fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=warmup, no_albedo=False)
+        fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=warmup,
+                                     no_albedo=no_albedo)
         losses = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -435,7 +476,7 @@ def slice_run(dev, conf_spec, kernels):
             if i == 1:
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-            state, m = fn(state, scene.arrays, i % scene.n_images, gen)
+            state, m = fn(state, arrays, i % 6, gen)
             losses.append(m["loss"])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -452,6 +493,9 @@ def slice_run(dev, conf_spec, kernels):
         assert counts[k] > 0, f"kernel {k} was not launched by the main path"
     for k in F32_ROUTE:   # the step runs bf16: the tensor-core routes only
         assert counts[k] == 0, f"the main path launched the f32 route ({k})"
+    if no_albedo:
+        for k in ALBEDO_KERNELS:
+            assert counts[k] == 0, f"a no-albedo step launched {k}"
     return phases, counts
 
 
@@ -459,7 +503,7 @@ def slice_run(dev, conf_spec, kernels):
 # phase 3: one step on the CPU (plain versions) vs on the card (kernels)
 # ---------------------------------------------------------------------------
 
-def slice_parity(dev, conf_spec, f32_kernels):
+def slice_parity(dev, conf_spec, f32_kernels, no_albedo=False):
     from rnb_tpu_torch.data import dataset as ds
     from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.ops import _build
@@ -484,10 +528,11 @@ def slice_parity(dev, conf_spec, f32_kernels):
         _build.launches[k] = 0
     for where in ("cpu", dev):
         p = bridge.params_from_numpy(bridge.params_to_numpy(params), where)
-        arrays = ds.DataArrays(*(a.to(where) for a in scene.arrays))
+        arrays = ds.DataArrays(*(a.to(where) for a in
+                                 _scene_arrays(scene, no_albedo)))
         state = steplib.init_train_state(p)
         fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=False,
-                                     no_albedo=False, batch_size=B)
+                                     no_albedo=no_albedo, batch_size=B)
         state, m = fn(state, arrays, 2, px=px.to(where), py=py.to(where),
                       t_rand=t_rand.to(where), t_out=t_out.to(where))
         leaves = bridge.tree_leaves(state.params)
@@ -496,6 +541,9 @@ def slice_parity(dev, conf_spec, f32_kernels):
     counts = {k: _build.launches[k] for k in f32_kernels}
     log(f"[parity] f32-route launches in the card step: {counts}")
     assert all(counts.values()), "the f32 step did not run the f32 routes"
+    if no_albedo:
+        for k in ALBEDO_KERNELS:
+            assert _build.launches[k] == 0, f"a no-albedo step launched {k}"
     (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(dev)]
     lr = tcfg.learning_rate
     _, grad_rel = rel_err(gg, gc)
@@ -1165,6 +1213,164 @@ def parallel_path(dev, card, tmp):
     return result, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: scene normalization, a no-albedo run on the normalized non-square
+# case through the command line, the Chamfer and camera tools
+# ---------------------------------------------------------------------------
+
+def _scale_mat(case):
+    with np.load(os.path.join(case, "cameras.npz")) as c:
+        return np.asarray(c["scale_mat_0"], np.float64)
+
+
+def _unnormalized_copy(src, dst):
+    """``src`` with identity scale mats: the case as it was written before
+    its normalization (which rewrites only the scale mats)."""
+    shutil.copytree(src, dst)
+    with np.load(os.path.join(src, "cameras.npz")) as c:
+        cams = {k: (np.eye(4, dtype=c[k].dtype) if k.startswith("scale_mat")
+                    else c[k]) for k in c.files}
+    np.savez(os.path.join(dst, "cameras.npz"), **cams)
+
+
+def _torus_ply(path, center, R=0.5, r=0.22, n_u=400, n_v=160):
+    """The analytic torus as a triangle mesh (a u x v grid of quads)."""
+    from rnb_tpu_torch.utils.io import write_ply
+
+    u, v = np.meshgrid(np.linspace(0, 2 * np.pi, n_u, endpoint=False),
+                       np.linspace(0, 2 * np.pi, n_v, endpoint=False),
+                       indexing="ij")
+    verts = np.stack([(R + r * np.cos(v)) * np.cos(u),
+                      (R + r * np.cos(v)) * np.sin(u), r * np.sin(v)],
+                     -1).reshape(-1, 3) + np.asarray(center)
+    i, j = np.meshgrid(np.arange(n_u), np.arange(n_v), indexing="ij")
+    a, b = i * n_v + j, ((i + 1) % n_u) * n_v + j
+    c, d = ((i + 1) % n_u) * n_v + (j + 1) % n_v, i * n_v + (j + 1) % n_v
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    write_ply(path, verts.astype(np.float32), faces.astype(np.int32))
+
+
+def normalized_noalbedo_path(dev, card, tmp):
+    """Phase 9 in ``tmp``; -> (result, the CLI run's launches)."""
+    from rnb_tpu_torch.preprocess.preprocess_cameras import get_normalization
+    from rnb_tpu_torch.train.runner import Runner
+    from rnb_tpu_torch.utils.bridge import tree_leaves
+    from rnb_tpu_torch.utils.io import read_ply
+
+    t_phase = time.perf_counter()
+    result = {}
+    where_dev = torch.device(dev).type
+    on = ["--device", where_dev]
+    # (1) the 612x512 capture, written un-normalized and normalized on the
+    # card by the case writer's --normalize; then the same normalization
+    # in-process, on the card and on the CPU, of un-normalized copies
+    case = os.path.join(tmp, "torus_ns")
+    _, secs = _sub(["rnb_tpu_torch.tools.make_synthetic_case", "--out", case,
+                    "--shape", "torus", "--degrade", "--n_views", "8",
+                    "--width", "612", "--height", "512", "--center",
+                    *map(str, CENTER), "--normalize", *on], 600)
+    result["write_and_normalize_s"] = secs
+    s_tool = _scale_mat(case)
+    mats = {}
+    for label, where in (("card", where_dev), ("cpu", "cpu")):
+        copy = os.path.join(tmp, f"torus_ns_{label}")
+        _unnormalized_copy(case, copy)
+        assert np.array_equal(_scale_mat(copy), np.eye(4))
+        t0 = time.perf_counter()
+        get_normalization(copy, refine_hull=True, device=where)
+        result[f"normalize_{label}_s"] = time.perf_counter() - t0
+        mats[label] = _scale_mat(copy)
+    # the CLI of the normalization itself, on the card, on a third copy
+    copy = os.path.join(tmp, "torus_ns_cli")
+    _unnormalized_copy(case, copy)
+    _sub(["rnb_tpu_torch.preprocess.preprocess_cameras", "--source_dir", copy,
+          "--refine_visual_hull", *on], 300)
+    mats["cli"] = _scale_mat(copy)
+    norm = np.linalg.norm(mats["cpu"])
+    diffs = {k: float(np.linalg.norm(m - mats["cpu"]) / norm)
+             for k, m in (("tool", s_tool), ("card", mats["card"]),
+                          ("cli", mats["cli"]))}
+    scale, t = float(s_tool[0, 0]), s_tool[:3, 3]
+    log(f"[normalize] 612x512, 8 views ({card}): card {result['normalize_card_s']:.3f} s, "
+        f"CPU {result['normalize_cpu_s']:.3f} s in-process; scale {scale!r}, "
+        f"t {t.tolist()}; relative differences to the CPU's: {diffs}")
+    assert max(diffs.values()) <= 1e-9, "card and CPU normalizations differ"
+    assert abs(scale - 1.0) > 0.05 and np.abs(t).max() > 0.05, "not normalized"
+    assert np.abs(t - np.asarray(CENTER)).max() < 0.05, "normalization centre"
+    result.update(scale=scale, t=t.tolist(), rel_diff_to_cpu=diffs)
+
+    # (2) 400 steps of the no-albedo conf on it through the CLI
+    exp = os.path.join(tmp, "exp_ns")
+    sets = [f"dataset.data_dir={case}", f"general.base_exp_dir={exp}",
+            "train.end_iter=400", "train.warm_up_iter=300",
+            "train.warm_up_end=50", "train.save_freq=200",
+            "train.val_freq=200", "train.val_mesh_freq=400",
+            "train.report_freq=100"]
+    setargs = [a for x in sets for a in ("--set", x)]
+    cli = ["rnb_tpu_torch.cli", "--conf", WMASK_NOALB[0], *on]
+    out, run_secs = _sub(cli + ["--mode", "train_rnb", "--mesh_resolution",
+                                "64"] + setargs, 900)
+    counts = json.loads(next(l for l in out.splitlines()
+                             if l.startswith('{"launches"')))["launches"]
+    log(f"[noalbedo] launches in the CLI run: {counts}")
+    for k in WMASK_NOALB_KERNELS:
+        assert counts[k] > 0, f"kernel {k} was not launched by the no-albedo run"
+    for k in ALBEDO_KERNELS + F32_ROUTE:
+        assert counts[k] == 0, f"the no-albedo run launched {k}"
+    wall = next(l for l in out.splitlines() if l.startswith("trained "))
+    steps, secs = int(wall.split()[1]), float(wall.split()[4])
+    assert steps == 400, wall
+    ls = np.array([v for _, v in sorted(_losses(exp).items())])
+    assert len(ls) == 400 and np.isfinite(ls).all(), "no-albedo losses"
+
+    # the colour net as initialised (the runner's seed), bit for bit
+    init = Runner(WMASK_NOALB[0], "validate_mesh", overrides=sets[:1] + [
+        f"general.base_exp_dir={os.path.join(tmp, 'exp_ns_init')}"], device=dev)
+    trained = Runner(WMASK_NOALB[0], "validate_mesh", is_continue=True,
+                     overrides=sets, device=dev)
+    assert trained.iter_step == 400
+    assert trained.no_albedo and init.no_albedo
+    for a, b in zip(tree_leaves(trained.state.params["color"]),
+                    tree_leaves(init.state.params["color"])):
+        assert torch.equal(a, b), "the colour net moved in a no-albedo run"
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(
+        tree_leaves(trained.state.params["sdf"]),
+        tree_leaves(init.state.params["sdf"])))
+    assert moved > 0, "the SDF net did not move"
+    del init, trained
+
+    # (3) the world-space mesh at 128^3 through --mode validate_mesh
+    _sub(cli + ["--mode", "validate_mesh", "--mesh_resolution", "128"]
+         + setargs, 300)
+    mesh = os.path.join(exp, "meshes", "00000400.ply")
+    v, f, _ = read_ply(mesh)
+    centre = (v.min(0) + v.max(0)) / 2
+    log(f"[noalbedo] world-space mesh: {len(v)} vertices, bbox centre "
+        f"{centre.tolist()} (object at {CENTER})")
+    assert np.abs(centre - np.asarray(CENTER)).max() < 0.05, "mesh centre"
+
+    # (4) the Chamfer CLI against the analytic torus, the camera tool
+    gt = os.path.join(tmp, "torus_gt.ply")
+    _torus_ply(gt, CENTER)
+    ch_out, _ = _sub(["rnb_tpu_torch.tools.eval_chamfer", mesh, gt,
+                      "--n_points", "20000", "--json"], 300)
+    chamfer = json.loads(ch_out.strip().splitlines()[-1])
+    assert all(np.isfinite(x) for x in chamfer.values()), chamfer
+    cams_out, _ = _sub(["rnb_tpu_torch.tools.inspect_cameras",
+                        os.path.join(case, "cameras.npz")], 120)
+    assert "8 views" in cams_out.splitlines()[0], cams_out
+
+    result.update(steps=steps, train_s=secs, cli_process_s=run_secs,
+                  loss_first20=float(ls[:20].mean()),
+                  loss_last20=float(ls[-20:].mean()),
+                  mesh_bbox_centre=centre.tolist(),
+                  chamfer_l1=chamfer["chamfer_l1"],
+                  wall_s=time.perf_counter() - t_phase)
+    log(f"[phase 9] {card}: {result}")
+    return result, counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only on a GPU")
@@ -1197,7 +1403,25 @@ def main():
         parity, f32_counts = slice_parity(dev, spec, f32_kernels)
         counts.update({k: v for k, v in f32_counts.items() if k not in counts})
         summary[label] = {"slice": phases, "parity": parity,
-                          "train": training_moves(dev, spec)}
+                          "train": training_moves(dev, spec),
+                          "launches": run_counts}
+    # phase 9's no-albedo steps: phases 2-3 of the two no-albedo confs; the
+    # SDF core (and NeRF) launch as in the albedo confs' steps, the albedo
+    # kernels never
+    noalb_launches = {}
+    for label, spec, kernels, f32_kernels, ref in (
+            ("wmask_noalbedo", WMASK_NOALB, WMASK_NOALB_KERNELS,
+             WMASK_NOALB_F32, "wmask"),
+            ("womask_noalbedo", WOMASK_NOALB, WOMASK_NOALB_KERNELS,
+             WOMASK_NOALB_F32, "womask")):
+        phases, run_counts = slice_run(dev, spec, kernels, no_albedo=True)
+        for k in kernels:
+            assert run_counts[k] == summary[ref]["launches"][k], (label, k)
+        parity, f32_counts = slice_parity(dev, spec, f32_kernels, no_albedo=True)
+        summary[label] = {"slice": phases, "parity": parity}
+        for c in (run_counts, f32_counts):
+            for k, n in c.items():
+                noalb_launches[k] = noalb_launches.get(k, 0) + n
     summary["ablation"], counts["sdf_fwd_ablate"] = ablation_run()
     tmp = tempfile.mkdtemp(prefix="rnb_smoke_")
     try:
@@ -1206,13 +1430,16 @@ def main():
             dev, card, tmp, sets)
         summary["parallel"], summary["parallel_launches"] = parallel_path(
             dev, card, tmp)
+        summary["normalized_noalbedo"], noalb_cli = normalized_noalbedo_path(
+            dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     log("[summary] " + json.dumps(summary))
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[k] + summary["parallel_launches"].get(k, 0),
+         "launches": (counts[k] + summary["parallel_launches"].get(k, 0)
+                      + noalb_launches.get(k, 0) + noalb_cli.get(k, 0)),
          "max_abs_err": kern[k]["max_abs_err"],
          "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],

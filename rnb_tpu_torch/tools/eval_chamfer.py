@@ -1,11 +1,21 @@
-"""Chamfer distance between point sets (the port's copy of
-``sample_surface``, ``nn_distances`` and ``chamfer`` of
-``tools/eval_chamfer.py``): N points sampled uniformly by area on each
-surface; d(P→Q) is the mean distance of P's samples to the nearest of Q's
-(accuracy), d(Q→P) the completeness, Chamfer-L1 = (d(P→Q) + d(Q→P)) / 2.
+"""Chamfer-distance mesh evaluation (the port's copy of
+``tools/eval_chamfer.py``), the DiLiGenT-MV protocol:
+
+    python -m rnb_tpu_torch.tools.eval_chamfer PRED.ply GT.ply
+        [--n_points 100000] [--scale 1.0] [--max_dist inf] [--seed 0] [--json]
+
+N points sampled uniformly by area on each surface; d(P→Q) is the mean
+distance of P's samples to the nearest of Q's (accuracy), d(Q→P) the
+completeness, Chamfer-L1 = (d(P→Q) + d(Q→P)) / 2, in input units x
+``--scale`` (DiLiGenT-MV meshes are in mm, so 1); ``--max_dist`` clips
+outlier correspondences. The nearest-neighbour search is scipy's
+``cKDTree`` on the host. PLY files are read with ``utils.io.read_ply``.
 """
 
 from __future__ import annotations
+
+import argparse
+import json
 
 import numpy as np
 
@@ -46,3 +56,49 @@ def chamfer(points_a: np.ndarray, points_b: np.ndarray,
         "accuracy_median": float(np.median(d_ab)),
         "completeness_median": float(np.median(d_ba)),
     }
+
+
+def chamfer_between_meshes(pred_vf, gt_vf, n_points: int = 100000,
+                           scale: float = 1.0, max_dist: float = np.inf,
+                           seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    pa = sample_surface(np.asarray(pred_vf[0], np.float64) * scale,
+                        np.asarray(pred_vf[1]), n_points, rng)
+    pb = sample_surface(np.asarray(gt_vf[0], np.float64) * scale,
+                        np.asarray(gt_vf[1]), n_points, rng)
+    return chamfer(pa, pb, max_dist=max_dist)
+
+
+def _load_mesh(path: str):
+    """(vertices, faces) of a PLY file."""
+    from rnb_tpu_torch.utils.io import read_ply
+    v, f, _ = read_ply(path)
+    return v, f
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Chamfer-distance mesh evaluation")
+    ap.add_argument("pred")
+    ap.add_argument("gt")
+    ap.add_argument("--n_points", type=int, default=100000)
+    ap.add_argument("--scale", type=float, default=1.0,
+                    help="unit scale applied to both meshes before measuring")
+    ap.add_argument("--max_dist", type=float, default=np.inf,
+                    help="clip correspondence distances (outlier robustness)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json", action="store_true")
+    args = ap.parse_args(argv)
+
+    res = chamfer_between_meshes(_load_mesh(args.pred), _load_mesh(args.gt),
+                                 n_points=args.n_points, scale=args.scale,
+                                 max_dist=args.max_dist, seed=args.seed)
+    if args.json:
+        print(json.dumps(res))
+    else:
+        for k, v in res.items():
+            print(f"{k:22s} {v:.6f}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -5,19 +5,21 @@
 
     python -m rnb_tpu_torch.tools.make_synthetic_case --out data/sphere
         [--shape sphere|torus] [--radius R] [--n_views V] [--size S]
-        [--degrade] [--seed N]
+        [--degrade] [--seed N] [--width W --height H] [--center X Y Z]
+        [--normalize [--device cuda|cpu]]
 
 The port's copy of ``tools/make_synthetic_case.py`` (``write_case``,
 ``degrade_capture``): the scenes come from ``rnb_tpu_torch.data.dataset``
-on the CPU, the PNGs from ``rnb_tpu_torch.utils.io``. ``--normalize`` (scene
-normalization by ``preprocess/``) is not ported yet and exits non-zero.
+on the CPU, the PNGs from ``rnb_tpu_torch.utils.io``. ``--normalize``
+writes the case un-normalized (identity scale mats), then normalizes it
+with ``rnb_tpu_torch.preprocess.preprocess_cameras`` (visual-hull refined)
+on ``--device``, the card by default.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 
 import numpy as np
 
@@ -90,11 +92,9 @@ def write_case(out_dir: str, n_views: int = 8, H: int = 128, W: int = 128,
                shape: str = "sphere", degrade: bool = False,
                normal_noise_deg: float = 3.0, mask_morph_px: int = 2,
                focal_err: float = 0.002, center=(0.0, 0.0, 0.0),
-               normalize: bool = False) -> str:
-    """Write the scene: 16-bit maps for a clean capture, 8-bit degraded."""
-    if normalize:
-        raise ValueError("normalize=True (scene normalization by preprocess/) "
-                         "is not in rnb_tpu_torch yet; see ROADMAP.md, queue 1")
+               normalize: bool = False, device="cuda") -> str:
+    """Write the scene: 16-bit maps for a clean capture, 8-bit degraded;
+    with ``normalize``, then normalize it on ``device``."""
     if shape == "torus":
         scene = ds.make_torus_scene(n_views=n_views, H=H, W=W, center=center,
                                     device="cpu")
@@ -128,6 +128,14 @@ def write_case(out_dir: str, n_views: int = 8, H: int = 128, W: int = 128,
                       albedos[i], bit_depth=bit_depth)
         io.save_image(os.path.join(out_dir, "mask", f"{i:03d}.png"),
                       np.stack([masks[i]] * 3, axis=-1))
+
+    if normalize:
+        from rnb_tpu_torch.preprocess.preprocess_cameras import get_normalization
+        # refine_hull: the epipolar estimate's scale (the std of the
+        # interval end points) is ~0.5x a torus's radius, which would put
+        # the object outside the unit sphere; the visual hull bounds it at
+        # ~0.4-0.5 of the sphere
+        get_normalization(out_dir, seed=seed, refine_hull=True, device=device)
     return out_dir
 
 
@@ -142,7 +150,10 @@ def main(argv=None):
     ap.add_argument("--center", type=float, nargs=3, default=(0.0, 0.0, 0.0),
                     help="world-space object center (torus only)")
     ap.add_argument("--normalize", action="store_true",
-                    help="not ported yet: exits non-zero")
+                    help="write un-normalized, then run the scene "
+                         "normalization (non-identity scale mats)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="device of the normalization")
     ap.add_argument("--radius", type=float, default=0.4)
     ap.add_argument("--shape", default="sphere", choices=["sphere", "torus"])
     ap.add_argument("--degrade", action="store_true",
@@ -153,16 +164,18 @@ def main(argv=None):
     ap.add_argument("--focal_err", type=float, default=0.002)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.normalize:
-        sys.exit("--normalize is not in rnb_tpu_torch yet (it runs preprocess/; "
-                 "ROADMAP.md, queue 1); write the case without it")
+    if args.normalize and args.device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device for --normalize: pass --device cpu")
     path = write_case(args.out, args.n_views,
                       args.height or args.size, args.width or args.size,
                       args.radius, seed=args.seed, shape=args.shape,
                       degrade=args.degrade,
                       normal_noise_deg=args.normal_noise_deg,
                       mask_morph_px=args.mask_morph_px,
-                      focal_err=args.focal_err, center=tuple(args.center))
+                      focal_err=args.focal_err, center=tuple(args.center),
+                      normalize=args.normalize, device=args.device)
     print(f"wrote synthetic case to {path}"
           + (" (degraded capture)" if args.degrade else ""))
 

@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it never pulls in JAX or the JAX package, and
-chip_smoke.py refuses to run (non-zero exit, no result line) without a
+"""Guards of the PyTorch port: it never pulls in JAX, the JAX package, PIL
+or OpenCV (the H100 machine has none of them), the offline scripts that
+predate it run without them too, and chip_smoke.py refuses to run (non-zero exit, no result line) without a
 CUDA device or without the package beside it, as the kernel-ablation tool
 (rnb_tpu_torch.tools.ablate_kernel) does without a CUDA device."""
 
@@ -19,12 +20,15 @@ import rnb_tpu_torch
 from rnb_tpu_torch.data import dataset
 from rnb_tpu_torch.models import fields
 from rnb_tpu_torch.ops import nerf
+from rnb_tpu_torch.preprocess import preprocess_cameras
+from rnb_tpu_torch.tools import make_synthetic_case
 from rnb_tpu_torch.train import runner
 from rnb_tpu_torch.utils import bridge
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "rnb_tpu", "PIL", "cv2")
 
 
 def _run(args, cwd, timeout=120):
@@ -42,13 +46,15 @@ def test_port_imports_no_jax():
               "tools.acceptance", "tools.eval_chamfer",
               "tools.make_synthetic_case", "tools.compare_images",
               "parallel.mesh", "parallel.data", "parallel.train",
-              "parallel.grid"):
+              "parallel.grid", "preprocess.preprocess_cameras",
+              "tools.inspect_cameras", "tools.validate_precision",
+              "tools.run_parity_matrix", "tools.run_parity_worldspace"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'rnb_tpu' or m.startswith('rnb_tpu.'))\n"
+            "import chip_smoke\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BLOCKED!r})\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     r = _run(["-c", code], ROOT)
@@ -67,7 +73,10 @@ def test_port_uses_no_ddp():
     fields.init_sdf_network, fields.init_rendering_network, fields.init_nerf,
     fields.init_variance, fields.init_model_bundle, dataset.Dataset,
     dataset.make_torus_scene, dataset.make_sphere_scene,
-    dataset.Dataset.from_conf, bridge.params_from_numpy, runner.Runner],
+    dataset.Dataset.from_conf, bridge.params_from_numpy, runner.Runner,
+    preprocess_cameras.estimate_normalization,
+    preprocess_cameras.refine_visual_hull, preprocess_cameras.get_normalization,
+    make_synthetic_case.write_case],
     ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     """The public constructors run on the card unless the caller asks for
@@ -110,10 +119,45 @@ def test_cli_inference_modes_need_cuda(tmp_path, mode):
 
 
 def test_case_writer_refuses_normalize(tmp_path):
+    """--normalize runs the scene normalization on the card: without one
+    the writer exits non-zero before it writes anything."""
     r = _run(["-m", "rnb_tpu_torch.tools.make_synthetic_case", "--out",
               str(tmp_path / "c"), "--normalize"], ROOT)
     assert r.returncode != 0 and "--normalize" in r.stderr
     assert not (tmp_path / "c").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "rnb_tpu_torch.preprocess.preprocess_cameras", "--source_dir", "x"],
+    ["-m", "rnb_tpu_torch.tools.validate_precision"],
+], ids=["preprocess_cameras", "validate_precision"])
+def test_offline_entry_points_need_cuda(argv):
+    """The normalization and the precision check run on the card unless
+    --device cpu is given: without one they exit non-zero."""
+    r = _run(argv, ROOT)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
+    assert "Preprocessing" not in r.stdout
+
+
+@pytest.mark.parametrize("script", ["sdm2idr.py", "organize_data.py",
+                                    "sfm_cameras_to_npz.py"])
+def test_offline_scripts_run_without_jax_pil_cv2(script):
+    """The L0 scripts before the port's normalization (SDM-UniPS output ->
+    IDR layout, VisualSFM cameras -> cameras.npz) need numpy, scipy and the
+    standard library only: their --help runs with jax, rnb_tpu, PIL and cv2
+    refused by the import system."""
+    code = ("import runpy, sys\n"
+            "class Refuse:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            f"        if name.split('.')[0] in {BLOCKED!r}:\n"
+            "            raise ImportError('refused: ' + name)\n"
+            "sys.meta_path.insert(0, Refuse())\n"
+            f"sys.argv = [{script!r}, '--help']\n"
+            f"runpy.run_path({str(ROOT / 'preprocess' / script)!r}, "
+            "run_name='__main__')\n")
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr
+    assert "usage" in r.stdout.lower(), r.stdout
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -432,8 +432,3 @@ def test_write_case_degraded_torus_within_one_level(tmp_path):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         else:
             assert diff.max() <= 1, (k, diff.max())
-
-
-def test_write_case_refuses_normalize(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tcase.write_case(str(tmp_path / "t"), n_views=2, H=8, W=8, normalize=True)

@@ -18,6 +18,7 @@ from rnb_tpu.models.renderer import RendererConfig as JRendererConfig
 from rnb_tpu.train import step as jstep
 from rnb_tpu_torch.data import dataset as tds
 from rnb_tpu_torch.models import fields as tfields
+from rnb_tpu_torch.models import renderer as trnd
 from rnb_tpu_torch.models.renderer import RendererConfig as TRendererConfig
 from rnb_tpu_torch.train import step as tstep
 from rnb_tpu_torch.utils import bridge
@@ -60,8 +61,15 @@ def scenes():
     return jds.make_sphere_scene(**kw), tds.make_sphere_scene(**kw, device="cpu")
 
 
+@pytest.mark.parametrize("no_albedo", [False, True])
 @pytest.mark.parametrize("warmup", [True, False])
-def test_two_steps_match_jax(scenes, warmup):
+def test_two_steps_match_jax(scenes, warmup, no_albedo, monkeypatch):
+    """With no_albedo both packages shade with ones, the port never calls
+    the albedo op, and the colour net leaves both steps bit-identical."""
+    if no_albedo:
+        def refuse(*a, **k):
+            raise AssertionError("albedo op called with no_albedo")
+        monkeypatch.setattr(trnd, "albedo_at", refuse)
     jscene, tscene = scenes
     for a, b in zip(jscene.arrays, tscene.arrays):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-6)
@@ -72,11 +80,11 @@ def test_two_steps_match_jax(scenes, warmup):
     params = jfields.init_model_bundle(jax.random.PRNGKey(0), jstatics)
     jstate = jstep.init_train_state(params, jtcfg)
     jfn = jstep.make_train_step(jstatics, JRendererConfig(**RENDER), jtcfg,
-                                warmup=warmup, no_albedo=False, donate=False)
+                                warmup=warmup, no_albedo=no_albedo, donate=False)
 
     tstate = tstep.init_train_state(bridge.params_from_numpy(jax.device_get(params), device="cpu"))
     tfn = tstep.make_train_step(tstatics, TRendererConfig(**RENDER, kernel_prec="f32"),
-                                ttcfg, warmup=warmup, no_albedo=False)
+                                ttcfg, warmup=warmup, no_albedo=no_albedo)
 
     base_key = jax.random.PRNGKey(42)
     for s in range(2):
@@ -113,3 +121,14 @@ def test_two_steps_match_jax(scenes, warmup):
                                        atol=2 * lr + 1e-7)
             du_t, du_j = a.numpy() - o.numpy(), b - o.numpy()
             assert np.abs(du_t - du_j).mean() <= 0.01 * lr + 1e-9
+        if no_albedo:
+            _assert_color_frozen(params, jstate, tstate)
+
+
+def _assert_color_frozen(params, jstate, tstate):
+    """The colour net, bit for bit as initialised, in both packages."""
+    init = jax.tree_util.tree_leaves(jax.device_get(params)["color"])
+    for a, b, c in zip(init, jax.tree_util.tree_leaves(jstate.params["color"]),
+                       bridge.tree_leaves(tstate.params["color"])):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+        np.testing.assert_array_equal(c.detach().numpy(), np.asarray(a))

@@ -143,16 +143,16 @@ def test_render_rnb_with_background(scenes, model, warmup):
                                    rtol=2e-4, atol=2e-5, err_msg=k)
 
 
-def _step_pair(scenes, model, warmup, n_steps, check):
+def _step_pair(scenes, model, warmup, n_steps, check, no_albedo=False):
     jscene, tscene = scenes
     jstatics, tstatics, params = model
     jtcfg, ttcfg = jstep.TrainConfig(**TRAIN), tstep.TrainConfig(**TRAIN)
     jstate = jstep.init_train_state(params, jtcfg)
     jfn = jstep.make_train_step(jstatics, jrnd.RendererConfig(**RENDER), jtcfg,
-                                warmup=warmup, no_albedo=False, donate=False)
+                                warmup=warmup, no_albedo=no_albedo, donate=False)
     tstate = tstep.init_train_state(bridge.params_from_numpy(params, device="cpu"))
     tfn = tstep.make_train_step(tstatics, trnd.RendererConfig(**RENDER, kernel_prec="f32"),
-                                ttcfg, warmup=warmup, no_albedo=False)
+                                ttcfg, warmup=warmup, no_albedo=no_albedo)
     base_key = jax.random.PRNGKey(42)
     for s in range(n_steps):
         view = s % jscene.n_images
@@ -164,10 +164,18 @@ def _step_pair(scenes, model, warmup, n_steps, check):
         check(s, jstate, jm, tstate, tm, old)
 
 
+@pytest.mark.parametrize("no_albedo", [False, True])
 @pytest.mark.parametrize("warmup", [True, False])
-def test_two_womask_steps_match_jax(scenes, model, warmup):
+def test_two_womask_steps_match_jax(scenes, model, warmup, no_albedo,
+                                    monkeypatch):
     """Two steps at mask_weight=0 and n_outside=4, with the bounds of
-    tests/test_torch_step.py."""
+    tests/test_torch_step.py. With no_albedo the port never calls the
+    albedo op and the colour net stays bit-identical in both packages."""
+    if no_albedo:
+        def refuse(*a, **k):
+            raise AssertionError("albedo op called with no_albedo")
+        monkeypatch.setattr(trnd, "albedo_at", refuse)
+
     def check(s, jstate, jm, tstate, tm, old):
         for k, v in jm.items():
             np.testing.assert_allclose(tm[k].item(), float(v), rtol=1e-4,
@@ -190,8 +198,15 @@ def test_two_womask_steps_match_jax(scenes, model, warmup):
                                        atol=2 * lr + 1e-7)
             du_t, du_j = a.numpy() - o.numpy(), b - o.numpy()
             assert np.abs(du_t - du_j).mean() <= 0.01 * lr + 1e-9
+        if no_albedo:
+            init = jax.tree_util.tree_leaves(model[2]["color"])
+            for a, b, c in zip(init,
+                               jax.tree_util.tree_leaves(jstate.params["color"]),
+                               bridge.tree_leaves(tstate.params["color"])):
+                np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+                np.testing.assert_array_equal(c.detach().numpy(), np.asarray(a))
 
-    _step_pair(scenes, model, warmup, 2, check)
+    _step_pair(scenes, model, warmup, 2, check, no_albedo)
 
 
 def test_background_gradient_reaches_trunk_and_alpha_only(scenes, model):
