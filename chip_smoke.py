@@ -98,15 +98,31 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      --mode validate_mesh at 128^3 (bounding-box centre within 0.05 of the
      world centre), runs python -m rnb_tpu_torch.tools.eval_chamfer on it
      against the analytic torus (finite) and
-     python -m rnb_tpu_torch.tools.inspect_cameras on the case (8 views).
+     python -m rnb_tpu_torch.tools.inspect_cameras on the case (8 views);
+ 10. drives the resume-and-launch tools as a user would, in subprocesses,
+     in three lanes at once on the one card, on phase 6's case (the gate
+     tool writes a copy of its own): python -m
+     rnb_tpu_torch.tools.run_e2e at a cut
+     schedule (600 steps, 400 warm-up, a checkpoint every 200, SIGTERM to
+     the trainer once ckpt_000200.npz exists, the resume from it with
+     "Find checkpoint" logged, a 128^3 mesh, the sphere gate at 0.02);
+     rnb_tpu_torch/jobs/train_h100.sh with N_ITERATIONS=20 (20 logged
+     steps, the tee'd log); rnb_tpu_torch/jobs/train_h100_multi.sh with
+     two ranks sharing the card (gloo by the backend rule, 20 steps,
+     equal parameter digests); python -m
+     rnb_tpu_torch.tools.multinode_smoke with one rank a node on the
+     card (RNB_DIST_BACKEND=gloo; frozen parameters): two nodes within
+     1e-5 of one process, view sharding, a two-node resume within 1e-6;
+     each run that ends launches the wmask bf16 kernels and no f32 route.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
 bf16 route, its dW product and albedo, the wmask parity step for the f32
 routes of the SDF core and albedo, the womask step for the NeRF and the
 womask parity step for its f32 route, the ablation run for the ablation
-variants) plus its launches in every rank of phase 8's group runs and in
-phase 9 (the no-albedo steps, parity steps and CLI run), `ms` /
+variants) plus its launches in every rank of phase 8's group runs, in
+phase 9 (the no-albedo steps, parity steps and CLI run) and in phase 10's
+runs that end (the killed leg prints none), `ms` /
 `plain_ms` are at the main-path shape with the
 route's operands (bf16 unless named f32; the bf16 albedo and NeRF kernels
 on the weight image their op packs once a step; for the ablation kernel:
@@ -115,7 +131,10 @@ least bytes (inputs read once, outputs written once) over 3.35 TB/s and the
 least multiply-adds over the peak of their type (989 TFLOP/s bf16 on the
 tensor cores, 67 TFLOP/s f32 on the CUDA cores), from this run's shapes,
 and `library_ms` the time of torch.matmul on the dW product's operands
-(null where no single PyTorch call computes the kernel's function).
+(null where no single PyTorch call computes the kernel's function). The
+summary line also holds the albedo's 3 and the NeRF's 11 dW products at
+their shapes (65,536 and 67,584 rows), each held against its plain
+product and timed beside one torch.matmul a product.
 Any failed check raises; there is no fallback: without a CUDA device it
 exits non-zero.
 """
@@ -313,6 +332,29 @@ def check_kernel(results, name, n, dtype, kern, plain, timed, ins=(),
             + (f", library {r['library_ms']:.3f} ms" if library is not None else ""))
 
 
+def check_dw_products(results, name, lay, gen, dev):
+    """Every dW product of one bf16 backward (``wg.dw_products`` on the
+    layers of ``lay``, counter ``name``) against the plain products, timed
+    beside one torch.matmul a layer on the same bf16 operand rows."""
+    from rnb_tpu_torch.ops import wg
+
+    rows = (lay["a_len"] - lay["a_off"][-1]) // lay["kp"][-1]
+    a = torch.randn(lay["a_len"], generator=gen).to(dev, torch.bfloat16)
+    b = torch.randn(lay["b_len"], generator=gen).to(dev, torch.bfloat16)
+    ops = [(a[ao:ao + rows * kp].view(rows, kp), b[bo:bo + rows * np_].view(rows, np_),
+            i, o) for ao, bo, kp, np_, i, o in zip(
+                lay["a_off"], lay["bb_off"], lay["kp"], lay["np"],
+                lay["in_dims"], lay["out_dims"])]
+    check_kernel(results, name, rows, torch.bfloat16,
+                 lambda: wg.dw_products(a, b, lay, rows, name),
+                 lambda: [wg.dw_gemm_plain(x, y, i, o) for x, y, i, o in ops],
+                 True, [t for x, y, i, o in ops for t in (x[:, :i], y[:, :o])],
+                 sum(rows * i * o for _, _, i, o in ops),
+                 library=lambda: [torch.matmul(x[:, :i].T, y[:, :o])
+                                  for x, y, i, o in ops])
+    results[name]["products"] = len(ops)
+
+
 # ---------------------------------------------------------------------------
 # phase 1: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -396,6 +438,13 @@ def kernel_checks(dev):
                  lambda: [sdf_core.dw_gemm_plain(a, b, 256, 256)], True,
                  [a, b], 256 * 256 * k, library=lambda: torch.matmul(a.T, b))
     del a, b
+
+    # the dW products of the albedo's (3) and the NeRF's (11) bf16 backward
+    # at their layers' shapes over the main path's rows, beside one
+    # torch.matmul a layer on the same operands (their sum is library_ms)
+    for name, lay in (("albedo_dw_gemm", albedo.wg_layout(aw, MAIN_N)),
+                      ("nerf_dw_gemm", nerf.wg_layout(ncfg, nw, NERF_N))):
+        check_dw_products(results, name, lay, gen, dev)
 
     for n in (NERF_N, NERF_RAGGED_N):
         # pts4 = [x/r, 1/r] with |x| > 1, as render_core_outside feeds it,
@@ -612,30 +661,31 @@ def ablation_run():
 # phase 6: the runner path through the command line
 # ---------------------------------------------------------------------------
 
-def _sub(args, timeout, ok_rcs=(0,)):
-    """Run ``python -m <args>`` from the repository root; its output, and
-    its return code checked against ``ok_rcs``."""
+def _sub(args, timeout, ok_rcs=(0,), cwd=ROOT, env=None,
+         run=(sys.executable, "-m")):
+    """Run ``python -m <args>`` (``run`` + ``args``) in ``cwd``, with
+    ``env`` added to this process's environment; -> (its output, its
+    seconds), its return code checked against ``ok_rcs``."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
-                          capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run([*run, *args], cwd=cwd, capture_output=True,
+                          text=True, timeout=timeout,
+                          env={**os.environ, **env} if env else None)
     secs = time.perf_counter() - t0
     tail = "\n".join(proc.stdout.splitlines()[-12:])
-    log(f"[runner] python -m {args[0]} ... rc={proc.returncode} in {secs:.1f} s"
-        f"\n{tail}")
+    log(f"[runner] {' '.join(run)} {args[0]} ... rc={proc.returncode} in "
+        f"{secs:.1f} s\n{tail}")
     if proc.returncode not in ok_rcs:
-        raise RuntimeError(f"python -m {' '.join(args)} exited {proc.returncode}:"
-                           f"\n{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+        raise RuntimeError(f"{' '.join([*run, *args])} exited {proc.returncode}:"
+                           f"\n{proc.stdout[-8000:]}\n{proc.stderr[-8000:]}")
     return proc.stdout, secs
 
 
 def _losses(exp):
-    out = {}
-    with open(os.path.join(exp, "logs", "scalars.jsonl")) as f:
-        for line in f:
-            rec = json.loads(line)
-            if "Loss/loss" in rec:
-                out[rec["step"]] = rec["Loss/loss"]
-    return out
+    """The per-step losses of the one process that wrote ``exp``'s stream."""
+    from rnb_tpu_torch.tools.run_e2e import loss_segments
+
+    (seg,) = loss_segments(os.path.join(exp, "logs", "scalars.jsonl"))
+    return seg
 
 
 def runner_path(dev, card, tmp):
@@ -960,6 +1010,8 @@ def _launch(name, ranks, conf_spec, sets, env=None, mesh_resolution=64,
     (torchrun exits non-zero). -> (its output with the errors, the per-rank
     JSON lines, the chief's seconds and steps of training, and its rays/s
     over the last report window, which leaves out the first steps)."""
+    from rnb_tpu_torch.tools.run_e2e import result_lines
+
     launch = ([] if ranks == 0 else
               ["torch.distributed.run", "--standalone", "--nproc_per_node",
                str(ranks), "-m"])
@@ -976,7 +1028,7 @@ def _launch(name, ranks, conf_spec, sets, env=None, mesh_resolution=64,
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(args[2:])} exited {proc.returncode}:\n"
                            f"{proc.stdout[-12000:]}")
-    lines = _result_lines(proc.stdout)
+    lines = result_lines(proc.stdout)
     assert len(lines) == max(ranks, 1), f"{len(lines)} result lines"
     wall = next(l for l in proc.stdout.splitlines() if l.startswith("trained "))
     window = re.findall(r"iter:\s*\d+ .*? rays/s=(\d+)", proc.stdout)[-1]
@@ -984,14 +1036,6 @@ def _launch(name, ranks, conf_spec, sets, env=None, mesh_resolution=64,
         f"with start-up; {wall}")
     return (proc.stdout, lines, float(wall.split()[4]), int(wall.split()[1]),
             float(window))
-
-
-def _result_lines(text):
-    """Every rank's ``{"launches": ...}`` object in ``text``, wherever a
-    line of another rank's log broke into it."""
-    dec = json.JSONDecoder()
-    return [dec.raw_decode(text, m.start())[0]
-            for m in re.finditer(r'\{"launches"', text)]
 
 
 def _par_sets(case, exp, steps, warm):
@@ -1371,6 +1415,147 @@ def normalized_noalbedo_path(dev, card, tmp):
     return result, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the kill-and-resume gate, the launch scripts, two nodes
+# ---------------------------------------------------------------------------
+
+E2E_STEPS, E2E_WARM, E2E_KILL = 600, 400, 200
+
+
+def _p10_env(extra=None):
+    """Phase 10's tools run in its work directory: the package importable,
+    this interpreter first on PATH (the launch scripts call ``python``),
+    two host threads a process (three lanes share the host)."""
+    return {"PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "2",
+            "PATH": os.path.dirname(sys.executable) + os.pathsep + os.environ["PATH"],
+            **(extra or {})}
+
+
+def _check_counts(counts, where):
+    """The wmask path's bf16 kernels each launched, no f32 route."""
+    log(f"[phase 10] {where}: launches {counts}")
+    for k in WMASK_KERNELS:
+        assert counts[k] > 0, f"{where}: {k} was not launched"
+    for k in F32_ROUTE:
+        assert counts[k] == 0, f"{where}: the f32 route launched ({k})"
+
+
+def _e2e_lane(card, work):
+    """10.1 the kill-and-resume gate at a cut schedule on a 256x256 sphere
+    of its own (phase 6's): SIGTERM once the step-200 checkpoint exists, a
+    resume to 600 (crossing the warm-up end at 400) with a 128^3 mesh, the
+    sphere gate at phase 6's 0.02. -> (result, launch counts)."""
+    out, secs = _sub([
+        "rnb_tpu_torch.tools.run_e2e",
+        "--kill_at_ckpt", str(E2E_KILL), "--iters", str(E2E_STEPS),
+        "--warmup", str(E2E_WARM), "--case", "sphere_e2e", "--shape", "sphere",
+        "--radius", "0.35", "--n_views", "6", "--size", "256",
+        "--mesh_resolution", "128", "--threshold", "0.02",
+        "--set", f"train.save_freq={E2E_KILL}"], 600, cwd=work, env=_p10_env())
+    rec = json.loads(out.strip().splitlines()[-1])
+    log(f"[phase 10] run_e2e record: {json.dumps(rec)}")
+    assert rec["accepted"] and rec["card"] == card, rec["failures"]
+    assert rec["leg1"]["rc"] == -15, "the first leg did not end by SIGTERM"
+    assert rec["resumed_from"] == rec["find_checkpoint"] == E2E_KILL
+    assert rec["resumed_steps"] == [E2E_KILL + 1, E2E_STEPS]
+    assert rec["resumed_crosses_warmup"] and rec["kill_inside_warmup"]
+    _check_counts(rec["launches"], "run_e2e, the resumed leg")
+    return {"s": secs, "chamfer_l1": rec["chamfer_l1"],
+            "resumed_from": rec["resumed_from"],
+            "killed_after_step": rec["killed_after_step"],
+            "overlap": rec["overlap"], "leg1_s": rec["leg1"]["wall_s"],
+            "leg2_s": rec["leg2"]["wall_s"]}, [rec["launches"]]
+
+
+def _scripts_lane(work):
+    """10.2 the one-card launch script, 20 steps (10 warm-up) mapped from
+    the environment, its log tee'd under the current directory; 10.3 the
+    multi-card script with two ranks sharing the card (gloo by the backend
+    rule: two local ranks, one card). -> (result, launch counts)."""
+    from rnb_tpu_torch.tools.multinode_smoke import free_port
+    from rnb_tpu_torch.tools.run_e2e import loss_segments, result_lines
+
+    def steps(exp):
+        (seg,) = loss_segments(os.path.join(work, exp, "logs", "scalars.jsonl"))
+        return sorted(seg)
+
+    jobs = ROOT / "rnb_tpu_torch" / "jobs"
+    sets = ["--mesh_resolution", "64", "--set", "train.report_freq=10"]
+    env = {"N_ITERATIONS": "20", "WARM_UP_ITER": "10"}
+    result, counts = {}, []
+    out, result["train_h100_s"] = _sub([
+        str(jobs / "train_h100.sh"), "sphere", str(ROOT / WMASK[0]),
+        *sets, "--set", "general.base_exp_dir=exp/one_card"], 600, cwd=work,
+        env=_p10_env(env), run=("bash",))
+    (line,) = result_lines(out)
+    _check_counts(line["launches"], "train_h100.sh")
+    counts.append(line["launches"])
+    assert steps("exp/one_card") == list(range(1, 21))
+    (tee,) = os.listdir(os.path.join(work, "exp", "sphere", "logs_launch"))
+    assert "trained 20 steps" in open(os.path.join(
+        work, "exp", "sphere", "logs_launch", tee)).read()
+
+    out, result["train_h100_multi_s"] = _sub([
+        str(jobs / "train_h100_multi.sh"), "sphere", str(ROOT / WMASK[0]),
+        *sets, "--set", "general.base_exp_dir=exp/multi_card"], 600, cwd=work,
+        env=_p10_env(dict(env, NPROC_PER_NODE="2", MASTER_PORT=str(free_port()))),
+        run=("bash",))
+    lines = result_lines(out)
+    assert sorted((l["rank"], l["world"]) for l in lines) == [(0, 2), (1, 2)]
+    assert lines[0]["params_sha256"] == lines[1]["params_sha256"]
+    for l in lines:
+        _check_counts(l["launches"], f"train_h100_multi.sh rank {l['rank']}")
+        counts.append(l["launches"])
+    assert steps("exp/multi_card") == list(range(1, 21))
+    return result, counts
+
+
+def _multinode_lane(work):
+    """10.4 two nodes of one rank each on the one card. Each node counts
+    one local rank, so the backend rule would pick NCCL, which refuses two
+    ranks on one device: gloo is set. The tool compares two nodes with one
+    process at frozen parameters on the card (at the conf's rate the bf16
+    runs drift from step 3, as in phase 8), and the stopped-and-resumed
+    nodes with a straight two-node run at the conf's rate.
+    -> (result, launch counts)."""
+    out, secs = _sub(["rnb_tpu_torch.tools.multinode_smoke", "--case",
+                      "data/sphere"], 900, cwd=work,
+                     env=_p10_env({"RNB_DIST_BACKEND": "gloo"}))
+    res = json.loads(out.strip().splitlines()[-1])
+    counts = res.pop("launches")
+    _check_counts(counts, "multinode_smoke, all ranks")
+    assert res["two_vs_one"] <= 1e-5 and res["resume_vs_straight"] <= 1e-6, res
+    return dict(res, s=secs), [counts]
+
+
+def resume_launch_path(card, tmp):
+    """Phase 10 in ``tmp``, on phase 6's sphere case; -> (result, the
+    launches of its CLI runs that ran to their end, summed). Its three
+    lanes run at once, each in processes of its own on the one card, so
+    the phase takes its longest lane's time; their walls are walls on a
+    shared card and host."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    work = os.path.join(tmp, "p10")
+    os.makedirs(os.path.join(work, "data"))
+    os.symlink(os.path.join(tmp, "sphere"), os.path.join(work, "data", "sphere"))
+    t_phase = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        lanes = {"e2e": pool.submit(_e2e_lane, card, work),
+                 "scripts": pool.submit(_scripts_lane, work),
+                 "multinode": pool.submit(_multinode_lane, work)}
+        done = {name: f.result() for name, f in lanes.items()}
+    result = {name: r for name, (r, _) in done.items()}
+    launches = {}
+    for _, counts in done.values():
+        for c in counts:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase 10] {card}: {json.dumps(result)}")
+    return result, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only on a GPU")
@@ -1393,7 +1578,8 @@ def main():
         log(f"[ptxas] {name}: {rep}")
 
     kern = kernel_checks(dev)
-    summary = {"card": card}
+    summary = {"card": card, "dw_products": {
+        k: kern[k] for k in ("albedo_dw_gemm", "nerf_dw_gemm")}}
     counts = {}
     for label, spec, kernels, f32_kernels in (
             ("wmask", WMASK, WMASK_KERNELS, WMASK_F32),
@@ -1432,6 +1618,7 @@ def main():
             dev, card, tmp)
         summary["normalized_noalbedo"], noalb_cli = normalized_noalbedo_path(
             dev, card, tmp)
+        summary["resume_launch"], p10 = resume_launch_path(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1439,7 +1626,8 @@ def main():
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (counts[k] + summary["parallel_launches"].get(k, 0)
-                      + noalb_launches.get(k, 0) + noalb_cli.get(k, 0)),
+                      + noalb_launches.get(k, 0) + noalb_cli.get(k, 0)
+                      + p10.get(k, 0)),
          "max_abs_err": kern[k]["max_abs_err"],
          "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],

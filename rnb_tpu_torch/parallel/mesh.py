@@ -11,8 +11,14 @@ ranks, one process and one device a rank, launched by
 ``maybe_initialize_distributed`` joins the group when torchrun's
 ``WORLD_SIZE`` is set, or when ``RNB_DISTRIBUTED=1`` as in the JAX package
 (then ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE`` come
-from the caller). The backend is chosen once, by rule, before the group
-starts, never after a failure, and logged:
+from the caller, and on the card also ``LOCAL_RANK`` and
+``LOCAL_WORLD_SIZE``, as torchrun sets them: this rank's place among the
+ranks of its host, and their number). A rank on the card of a group of more
+than one rank without them raises a ValueError naming both, before it
+touches a card: the global rank and world say nothing of how many ranks a
+host holds, and a guess would put every rank of every host on ``cuda:0``.
+The backend is chosen once, by rule, before the group starts, never after
+a failure, and logged:
 
   * ``RNB_DIST_BACKEND`` wins when it is set;
   * gloo on the CPU;
@@ -41,17 +47,30 @@ logger = logging.getLogger(__name__)
 TIMEOUT = timedelta(minutes=5)
 
 
-def _local_world() -> int:
-    return int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+def _local(name: str) -> int:
+    """torchrun's ``LOCAL_RANK`` or ``LOCAL_WORLD_SIZE`` of a rank on the
+    card: 0 and 1 outside a group of more than one rank; raises a
+    ValueError naming both where such a group leaves one unset."""
+    if name in os.environ:
+        return int(os.environ[name])
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise ValueError(
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']} but {name} is unset: a "
+            "rank on the card needs LOCAL_RANK and LOCAL_WORLD_SIZE (its "
+            "place among its host's ranks, and their number) to pick its "
+            "card; launch with python -m torch.distributed.run, or set both")
+    return 0 if name == "LOCAL_RANK" else 1
 
 
 def choose_backend(device_kind: str) -> str:
     """The backend by the rules of the module docstring."""
-    shared = device_kind == "cuda" and _local_world() > torch.cuda.device_count()
+    shared = (device_kind == "cuda"
+              and _local("LOCAL_WORLD_SIZE") > torch.cuda.device_count())
     asked = os.environ.get("RNB_DIST_BACKEND", "")
     if asked == "nccl" and (device_kind != "cuda" or shared):
         where = ("on the CPU" if device_kind != "cuda" else
-                 f"with {_local_world()} ranks on {torch.cuda.device_count()} "
+                 f"with {_local('LOCAL_WORLD_SIZE')} ranks on "
+                 f"{torch.cuda.device_count()} "
                  "card(s)")
         raise ValueError(f"RNB_DIST_BACKEND=nccl {where}: NCCL needs a card of "
                          "its own for every rank; set RNB_DIST_BACKEND=gloo")
@@ -68,7 +87,7 @@ def maybe_initialize_distributed(device_kind: str = "cuda") -> bool:
         return True
     if "WORLD_SIZE" not in os.environ and os.environ.get("RNB_DISTRIBUTED", "0") != "1":
         return False
-    backend = choose_backend(device_kind)
+    backend = choose_backend(device_kind)   # checks LOCAL_* on the card
     if device_kind == "cuda":
         torch.cuda.set_device(rank_device("cuda"))
     dist.init_process_group(backend, timeout=TIMEOUT)
@@ -92,11 +111,12 @@ def is_chief() -> bool:
 
 def rank_device(device_kind: str) -> torch.device:
     """This rank's device: ``cuda:{LOCAL_RANK % device_count}``, or the CPU
-    when ``device_kind`` is ``"cpu"``."""
+    when ``device_kind`` is ``"cpu"``. Raises as ``_local`` does."""
     if device_kind == "cpu":
         return torch.device("cpu")
-    local = int(os.environ.get("LOCAL_RANK", "0"))
-    return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
+    _local("LOCAL_WORLD_SIZE")
+    return torch.device("cuda",
+                        _local("LOCAL_RANK") % max(torch.cuda.device_count(), 1))
 
 
 def shard_width(shard, n_ranks: int) -> int:

@@ -69,13 +69,18 @@ def schedule_overrides(iters: int, warmup: int) -> list:
             "--set", "train.report_freq=500"]
 
 
-def run(cmd, **kw):
-    """Run a command in the current directory with the package importable."""
-    print("+", " ".join(cmd), flush=True)
+def subprocess_env() -> dict:
+    """This environment with the package importable from any directory."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (ROOT, env.get("PYTHONPATH", "")) if p)
-    return subprocess.run(cmd, env=env, **kw)
+    return env
+
+
+def run(cmd, **kw):
+    """Run a command in the current directory with the package importable."""
+    print("+", " ".join(cmd), flush=True)
+    return subprocess.run(cmd, env=subprocess_env(), **kw)
 
 
 def make_case(case: str, flags: list) -> None:

@@ -59,14 +59,15 @@ def adam_state_from_numpy(optimizer: torch.optim.Adam, params: Any,
 
 
 def adam_state_to_numpy(optimizer: torch.optim.Adam, params: Any):
-    """(mu, nu, count) trees shaped like ``params``; a parameter Adam has
-    not stepped yet reads as zero moments."""
+    """(mu, nu, count) trees shaped like ``params``, copies that later
+    steps leave alone; a parameter Adam has not stepped yet reads as zero
+    moments."""
     def moment(key):
         def get(p):
             st = optimizer.state.get(p, {})
             t = st.get(key)
             return (np.zeros(tuple(p.shape), np.float32) if t is None
-                    else t.detach().cpu().numpy())
+                    else t.detach().cpu().numpy().copy())
         return tree_map(get, params)
 
     steps = [int(optimizer.state[p]["step"]) for p in tree_leaves(params)

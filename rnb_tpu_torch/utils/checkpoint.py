@@ -29,8 +29,11 @@ from rnb_tpu_torch.utils import bridge
 
 
 def state_leaves(state) -> list:
-    """The state's leaves as host numpy arrays, in the layout above."""
-    params = [p.detach().cpu().numpy() for p in bridge.tree_leaves(state.params)]
+    """The state's leaves as host numpy arrays of their own, in the layout
+    above: a snapshot that later steps leave alone (for a CPU tensor
+    ``.cpu().numpy()`` shares its memory, and Adam updates in place)."""
+    params = [p.detach().cpu().numpy().copy()
+              for p in bridge.tree_leaves(state.params)]
     mu, nu, count = bridge.adam_state_to_numpy(state.optimizer, state.params)
     step = np.asarray(state.step, np.int32)
     return (params + [np.asarray(count, np.int32)] + bridge.tree_leaves(mu)

@@ -48,7 +48,9 @@ def test_port_imports_no_jax():
               "parallel.mesh", "parallel.data", "parallel.train",
               "parallel.grid", "preprocess.preprocess_cameras",
               "tools.inspect_cameras", "tools.validate_precision",
-              "tools.run_parity_matrix", "tools.run_parity_worldspace"):
+              "tools.run_parity_matrix", "tools.run_parity_worldspace",
+              "tools.run_e2e", "tools.multinode_smoke",
+              "tools.predict_scaling"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"

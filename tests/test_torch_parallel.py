@@ -269,6 +269,40 @@ def test_backend_rule(monkeypatch, device, local_world, cards, asked, want):
         assert tmesh.choose_backend(device) == want
 
 
+def test_rnb_distributed_needs_local_placement_on_the_card(monkeypatch):
+    """RNB_DISTRIBUTED=1 on two hosts of four cards, rank 5 of 8, without
+    torchrun's LOCAL_*: no guess (a local world of 8, gloo, cuda:0) but a
+    ValueError naming both variables, raised before any card is set; with
+    them, the rank's card and NCCL."""
+    for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "RNB_DIST_BACKEND"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("RNB_DISTRIBUTED", "1")
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    monkeypatch.setenv("RANK", "5")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+
+    def must_not_run(*args, **kw):
+        raise AssertionError("reached past the placement check")
+
+    monkeypatch.setattr(torch.cuda, "set_device", must_not_run)
+    monkeypatch.setattr(tmesh.dist, "init_process_group", must_not_run)
+    both = "LOCAL_RANK and LOCAL_WORLD_SIZE"
+    for call in (lambda: tmesh.choose_backend("cuda"),
+                 lambda: tmesh.rank_device("cuda"),
+                 lambda: tmesh.maybe_initialize_distributed("cuda")):
+        with pytest.raises(ValueError, match=both):
+            call()
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(ValueError, match=both):
+        tmesh.rank_device("cuda")
+    # the CPU needs no card, hence no local placement
+    assert tmesh.choose_backend("cpu") == "gloo"
+    assert tmesh.rank_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert tmesh.rank_device("cuda") == torch.device("cuda", 1)
+    assert tmesh.choose_backend("cuda") == "nccl"
+
+
 def test_from_conf_view_subset_equals_jax(tmp_path):
     """Dataset.from_conf(view_subset=...) loads the listed views in order,
     repeats allowed, as the JAX package's, and records them."""

@@ -20,7 +20,10 @@ from rnb_tpu import cli as jcli
 from rnb_tpu.train.runner import Runner as JRunner
 from rnb_tpu.utils import checkpoint as jckpt
 from rnb_tpu.utils import io as jio
+from rnb_tpu_torch.train import step as tstep
 from rnb_tpu_torch.train.runner import Runner as TRunner
+from rnb_tpu_torch.utils import checkpoint as tckpt
+from rnb_tpu_torch.utils.bridge import tree_leaves
 from rnb_tpu_torch.utils import io as tio
 from test_runner import CONF_TMPL
 
@@ -142,6 +145,65 @@ def test_nan_guard_raises_and_dumps(tmp_path, case_dir):
     # the save at 2 was skipped (non-finite params); the guard dumped the
     # live state and the snapshot taken when the loop started
     assert names == ["last_good_000000.npz", "nan_dump_000001.npz"], names
+
+
+def _npz_leaves(path):
+    with np.load(path) as data:
+        return [data[f"leaf_{i:06d}"] for i in range(int(data["__n_leaves__"]))]
+
+
+def test_nan_guard_last_good_is_the_step0_state(tmp_path, case_dir):
+    """Parameters poisoned after step 2: the guard fires at iter 3 and its
+    last_good_000000.npz holds the state the loop started from, all finite,
+    leaf by leaf (as the JAX runner's host copy does), not the live state
+    that Adam updates in place."""
+    conf, exp = _write_conf(tmp_path, case_dir, end_iter=3, save_freq=100,
+                            val_freq=100, val_mesh_freq=100)
+    runner = TRunner(conf, device="cpu")
+    step0 = [np.array(x, copy=True) for x in tckpt.state_leaves(runner.state)]
+    get_step_fn, calls = runner._get_step_fn, []
+
+    def poisoning(warmup):
+        fn = get_step_fn(warmup)
+
+        def step(*args):
+            out = fn(*args)
+            calls.append(1)
+            if len(calls) == 2:
+                with torch.no_grad():
+                    runner.state.params["sdf"][1]["v"].fill_(float("nan"))
+            return out
+        return step
+
+    runner._get_step_fn = poisoning
+    with pytest.raises(FloatingPointError, match="non-finite loss at iter 3"):
+        runner.train_rnb()
+    good = _npz_leaves(os.path.join(exp, "checkpoints", "last_good_000000.npz"))
+    assert len(good) == len(step0)
+    assert all(np.isfinite(x).all() for x in good)
+    for i, (a, b) in enumerate(zip(good, step0)):
+        np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+
+
+def test_state_leaves_is_a_snapshot():
+    """An earlier state_leaves is unchanged by a later Adam update, here one
+    with NaN gradients, on CPU tensors."""
+    params = {"sdf": [{"b": torch.zeros(3), "v": torch.ones(4, 3)}],
+              "variance": torch.full((1,), 0.3)}
+    state = tstep.init_train_state(params)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = torch.full_like(p, 0.5)
+    tstep.apply_update(state, lambda step: 1e-2)   # moments exist from here
+    snap = tckpt.state_leaves(state)
+    before = [np.array(x, copy=True) for x in snap]
+    for p in leaves:
+        p.grad = torch.full_like(p, float("nan"))
+    tstep.apply_update(state, lambda step: 1e-2)
+    assert not torch.isfinite(params["sdf"][0]["v"]).any()
+    assert len(snap) == 3 * len(leaves) + 3
+    for i, (a, b) in enumerate(zip(snap, before)):
+        np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
 
 
 def test_cli_validate_mesh_of_a_jax_checkpoint(tmp_path, case_dir):
