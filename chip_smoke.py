@@ -113,7 +113,22 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      rnb_tpu_torch.tools.multinode_smoke with one rank a node on the
      card (RNB_DIST_BACKEND=gloo; frozen parameters): two nodes within
      1e-5 of one process, view sharding, a two-node resume within 1e-6;
-     each run that ends launches the wmask bf16 kernels and no f32 route.
+     each run that ends launches the wmask bf16 kernels and no f32 route;
+ 11. runs the measuring tools through their main(argv) in this process, at
+     a cut depth: rnb_tpu_torch.tools.bench (RNB_BENCH_ITERS=10, the
+     view-sharded row on a one-rank NCCL group, the batch curve at 2048
+     and 8192 with its peak memory; MFU in (0, 100]), bench_step at
+     batches 512 and 2048, roofline at --iters 10 (every region, the
+     residual, the share of the bf16 peak), tune_kernel at ring depths 3
+     and 4 and split counts 64 and 32 (the tune library, built beside
+     phases 1-10: both depths bit for bit the production kernels and
+     within 1e-2 of the plain version), bench_scaling at width 1 (one
+     torchrun rank on NCCL, no efficiency figure), and consolidate_parity
+     on phase 10's directory (the cut e2e gate's row passes, the other
+     five gates are missing rows); every time finite and positive, every
+     line with the card. At the build it holds the production SDF-core
+     kernels' ptxas lines against the note in csrc/sdf_core.cu and checks
+     that the production library holds no tune instance.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
@@ -121,8 +136,12 @@ bf16 route, its dW product and albedo, the wmask parity step for the f32
 routes of the SDF core and albedo, the womask step for the NeRF and the
 womask parity step for its f32 route, the ablation run for the ablation
 variants) plus its launches in every rank of phase 8's group runs, in
-phase 9 (the no-albedo steps, parity steps and CLI run) and in phase 10's
-runs that end (the killed leg prints none), `ms` /
+phase 9 (the no-albedo steps, parity steps and CLI run), in phase 10's
+runs that end (the killed leg prints none) and in phase 11's tools; the
+tune instances phase 11 launched (sdf_core_fwd_rs3, ...: the SDF core's
+sweeps at ring depth 3 and 4 from the tune library) follow, with the
+sweep's own error and CUDA-event time and the plain time and bound of the
+production kernel whose work they do; `ms` /
 `plain_ms` are at the main-path shape with the
 route's operands (bf16 unless named f32; the bf16 albedo and NeRF kernels
 on the weight image their op packs once a step; for the ablation kernel:
@@ -150,7 +169,9 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -838,8 +859,6 @@ def _frame_profile(runner, card, frames=5):
     each op call, in turns (each way three times; the median counts); the
     frames must be equal. Then from ``torch.profiler`` over one more frame
     the device time by kernel and the idle share (1 - device / wall)."""
-    from unittest import mock
-
     from torch.profiler import ProfilerActivity, profile
 
     from rnb_tpu_torch.models import fields
@@ -1556,6 +1575,168 @@ def resume_launch_path(card, tmp):
     return result, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the measuring tools
+# ---------------------------------------------------------------------------
+
+# the tune instances phase 11 launches: (counter, kernel of phase 1 whose
+# work it does, its TPU kernel)
+SMOKE_DEPTHS = (3, 4)
+TUNE_KERNELS = {f"sdf_core_{d}_rs{rs}": (f"sdf_core_{d}", KERNELS[f"sdf_core_{d}"][1])
+                for rs in SMOKE_DEPTHS for d in ("fwd", "bwd")}
+
+
+def _positive(x, what):
+    assert isinstance(x, float) and np.isfinite(x) and x > 0, f"{what}: {x}"
+
+
+def measuring_tools(card, tune_build, work):
+    """Phase 11: the six measuring tools through their main(argv), in this
+    process (each start would cost 15-25 s), at a cut depth; consolidate_
+    parity on ``work``, phase 10's directory with the cut e2e gate's
+    record. -> (result, the tune rows by counter)."""
+    from rnb_tpu_torch.ops import _build
+    from rnb_tpu_torch.tools import (bench, bench_scaling, bench_step,
+                                     consolidate_parity, roofline,
+                                     tune_kernel)
+
+    result, t_phase = {}, time.perf_counter()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, RNB_BENCH_ITERS="10"):
+        r = bench.main([])
+    assert r["card"] == card
+    for k in ("value", "warmup_phase_rays_per_s_per_chip",
+              "view_shard_rays_per_s_per_chip"):
+        _positive(r[k], f"bench {k}")
+    assert 0 < r["mfu"]["mfu_executed_pct"] <= 100, r["mfu"]
+    assert [b["batch"] for b in r["batch_curve"]] == [2048, 8192]
+    for b in r["batch_curve"]:
+        _positive(b["rays_per_s_per_chip"], f"bench batch {b['batch']}")
+        _positive(b["peak_mem_gb"], f"bench batch {b['batch']} memory")
+    result["bench"] = {"s": time.perf_counter() - t0, "rays_per_s": r["value"],
+                       "warmup": r["warmup_phase_rays_per_s_per_chip"],
+                       "view_shard": r["view_shard_rays_per_s_per_chip"],
+                       "mfu_executed_pct": r["mfu"]["mfu_executed_pct"],
+                       "batch_curve": r["batch_curve"],
+                       "peak_mem_gb": r["peak_mem_gb"]}
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, RNB_SWEEP_BATCHES="512,2048",
+                         RNB_SWEEP_ITERS="10"):
+        r = bench_step.main([])
+    assert [row["batch"] for row in r["rows"]] == [512, 2048]
+    for row in r["rows"]:
+        assert row["card"] == card
+        for k in ("ms_per_step", "rays_per_s", "compile_s", "loss3"):
+            _positive(row[k], f"bench_step {row['batch']} {k}")
+    result["bench_step"] = {"s": time.perf_counter() - t0, "ms_per_step": {
+        row["batch"]: row["ms_per_step"] for row in r["rows"]}}
+
+    t0 = time.perf_counter()
+    r = roofline.main(["--iters", "10"])
+    assert r["env"]["card"] == card and r["env"]["ring_depth"] == 4
+    for k in ("step_main", "step_warm", "core_fwd", "core_fwd_bwd",
+              "upsample_render_fwd", "color_fwd", "adam", "data_sample"):
+        _positive(r[k]["ms"], f"roofline {k}")
+    assert np.isfinite(r["residual"]["ms"])
+    assert 0 < r["step_main"]["pct_bf16_peak"] <= 100, r["step_main"]
+    result["roofline"] = {"s": time.perf_counter() - t0,
+                          **{k: v["ms"] for k, v in r.items() if "ms" in v}}
+
+    t0 = time.perf_counter()
+    tune_build.result()   # the tune library, built beside phase 1 onwards
+    tune_ptxas = _build.ptxas_summary("sdf_", kind="tune")
+    for name, rep in tune_ptxas.items():
+        log(f"[ptxas tune] {name}: {rep}")
+    for name, want in PTXAS_NOTE.items():   # the same production instances
+        assert not tune_ptxas or _ptxas_numbers(tune_ptxas[name]) == want, name
+    r = tune_kernel.main(["--iters", "10", "--fwd_rs", *map(str, SMOKE_DEPTHS),
+                          "--bwd_rs", *map(str, SMOKE_DEPTHS),
+                          "--splits", "64", "32"])
+    assert not r["failed"], r["failed"]
+    assert r["card"] == card
+    tune_rows = {}
+    for row in r["rows"]:
+        if row["axis"] == "splits":
+            _positive(row["ms"], f"tune splits {row['splits']}")
+            continue
+        d = "fwd" if row["axis"] == "fwd" else "bwd"
+        tune_rows[f"sdf_core_{d}_rs{row['rs']}"] = dict(
+            row, ms=row["ms"] if d == "fwd" else row["bwd_ms"])
+        assert row["rel_err"] <= BF16_TOL, row
+        assert row["bitwise_equal_production"], row
+    for k in TUNE_KERNELS:
+        _positive(tune_rows[k]["ms"], f"tune {k}")
+    result["tune_kernel"] = {"s": time.perf_counter() - t0,
+                             "fastest": r["fastest"], "ms": r["ms"],
+                             "dw_matmul_ms": r["dw_matmul_ms"]}
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, RNB_SCALING_ITERS="10"):
+        r = bench_scaling.main([])
+    assert r["widths"] == [1] and r["scaling_efficiency_vs_1dev"] is None, r
+    row = r["rows"][0]
+    assert row["card"] == card and row["backend"] == "nccl", row
+    _positive(row["rays_per_s"], "bench_scaling width 1")
+    assert np.isfinite(row["loss"])
+    result["bench_scaling"] = {"s": time.perf_counter() - t0,
+                               "rays_per_s": row["rays_per_s"],
+                               "note": r["note"]}
+
+    t0 = time.perf_counter()
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        r = consolidate_parity.main([])
+        with open(os.path.join("exp", "e2e.json")) as f:
+            e2e = json.load(f)
+    finally:
+        os.chdir(here)
+    rows = {g["gate"]: g for g in r["gates"]}
+    assert rows["e2e"]["status"] == "pass" and rows["e2e"]["card"] == card
+    assert rows["e2e"]["chamfer_l1"] == e2e["chamfer_l1"]
+    assert rows["e2e"]["threshold"] == e2e["acceptance"]["threshold"]
+    assert r["missing"] == [g for g in rows if g != "e2e"]
+    assert not r["all_accepted"]
+    result["consolidate_parity"] = {"s": time.perf_counter() - t0,
+                                    "e2e": rows["e2e"]["chamfer_l1"],
+                                    "missing": r["missing"]}
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase 11] {card}: {json.dumps(result)}")
+    return result, tune_rows
+
+
+# ptxas's report of the production SDF-core kernels (the note in
+# csrc/sdf_core.cu): the tensor-core sweeps exactly, the f32 ones no worse
+PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 4>": (128, 80, 84),
+              "sdf_bwd_wg_kernel<4>": (128, 28, 28)}
+PTXAS_F32 = {"sdf_fwd_kernel<0>": (128, 72), "sdf_bwd_kernel": (72, 0)}
+
+
+def _ptxas_numbers(rep):
+    return tuple(int(x) for x in re.findall(r"(\d+) (?:registers|B)", rep))
+
+
+def check_ptxas(report):
+    """Log the production build's ptxas lines and hold the SDF core's
+    against the source's note; the production library holds no instance
+    at another ring depth."""
+    for name, rep in report.items():
+        log(f"[ptxas] {name}: {rep}")
+    if not report:
+        log("[ptxas] the library was built before this process: no report")
+        return
+    for name, want in PTXAS_NOTE.items():
+        assert _ptxas_numbers(report[name]) == want, (name, report[name])
+    for name, (regs, spill) in PTXAS_F32.items():
+        got = _ptxas_numbers(report[name])
+        assert got[0] <= regs and max(got[1:]) <= spill, (name, report[name])
+    other = [n for n in report if re.match(r"sdf_(fwd|bwd)_wg_kernel<.*\b[356]>", n)]
+    assert not other, f"tune instances in the production library: {other}"
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only on a GPU")
@@ -1569,13 +1750,16 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    # phase 11's tune library builds beside the production one and phases 1-10
+    tune_pool = ThreadPoolExecutor(1)
+    tune_build = tune_pool.submit(_build.library, "tune")
     t0 = time.perf_counter()
     _build.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"({_build.build_info['path']})")
-    for name, rep in _build.ptxas_summary("sdf_", "dw_gemm", "albedo_",
-                                          "nerf_").items():
-        log(f"[ptxas] {name}: {rep}")
+        f"({_build.build_info['main']['path']})")
+    check_ptxas(_build.ptxas_summary("sdf_", "dw_gemm", "albedo_", "nerf_"))
+    assert not hasattr(_build.library(), "rnb_sdf_fwd_wg_tune"), \
+        "the production library holds the tune entries"
 
     kern = kernel_checks(dev)
     summary = {"card": card, "dw_products": {
@@ -1619,20 +1803,41 @@ def main():
         summary["normalized_noalbedo"], noalb_cli = normalized_noalbedo_path(
             dev, card, tmp)
         summary["resume_launch"], p10 = resume_launch_path(card, tmp)
+        for k in _build.launches:
+            _build.launches[k] = 0
+        summary["measuring_tools"], tune_rows = measuring_tools(
+            card, tune_build, os.path.join(tmp, "p10"))
+        p11 = dict(_build.launches)
+        log(f"[phase 11] launches {p11}")
+        for k in (*WMASK_KERNELS, *TUNE_KERNELS):
+            assert p11[k] > 0, f"phase 11 did not launch {k}"
+        assert all(p11[k] == 0 for k in F32_ROUTE), p11
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        tune_pool.shutdown()
 
     log("[summary] " + json.dumps(summary))
-    log(json.dumps({"kernels": [
+    rows = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (counts[k] + summary["parallel_launches"].get(k, 0)
                       + noalb_launches.get(k, 0) + noalb_cli.get(k, 0)
-                      + p10.get(k, 0)),
+                      + p10.get(k, 0) + p11[k]),
          "max_abs_err": kern[k]["max_abs_err"],
          "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
          "library_ms": kern[k]["library_ms"]}
-        for k, (src, rep) in KERNELS.items()]}))
+        for k, (src, rep) in KERNELS.items()]
+    # the tune instances (phase 11): the work of the production kernel they
+    # stand for, so its plain time and bound; their time and error from the
+    # sweep's own check and timing in this run
+    rows += [
+        {"name": k, "route": "cuda", "source": KERNELS[base][0], "replaces": rep,
+         "launches": p11[k], "max_abs_err": tune_rows[k]["max_abs_err"],
+         "ms": tune_rows[k]["ms"], "plain_ms": kern[base]["plain_ms"],
+         "bound_ms": kern[base]["bound_ms"], "bound_by": kern[base]["bound_by"],
+         "library_ms": None}
+        for k, (base, rep) in TUNE_KERNELS.items()]
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

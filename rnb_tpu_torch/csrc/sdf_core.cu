@@ -48,10 +48,11 @@
 // product per layer over bf16 operand rows. What bounds it after that is
 // the CUDA-core epilogue between the products (PERF.md, kernel table).
 //
-// ptxas (-Xptxas -v, in _build.build_info["log"]; chip_smoke.py prints it):
-//   sdf_fwd_wg_kernel<SDF_FULL>  128 registers, 80 B spill stores, 84 B
+// ptxas (-Xptxas -v, in _build.build_info["main"]["log"]; chip_smoke.py
+// prints it; the production instances are those at ring depth WG_RS = 4):
+//   sdf_fwd_wg_kernel<SDF_FULL, 4>  128 registers, 80 B spill stores, 84 B
 //                                spill loads; 78,848 B dynamic shared memory
-//   sdf_bwd_wg_kernel            128 registers, 28 B spill stores / loads;
+//   sdf_bwd_wg_kernel<4>         128 registers, 28 B spill stores / loads;
 //                                119,808 B dynamic shared memory
 //   rnb_dw_gemm_kernel           128 registers, no spill; 98,304 B
 //   sdf_fwd_kernel<SDF_FULL>     128 registers, 72 B spill (f32 route)
@@ -78,7 +79,7 @@ static __global__ void __launch_bounds__(RNB_NT, 2)
 sdf_fwd_kernel(const float* __restrict__ pts, long long n,
                const float* __restrict__ w, const float* __restrict__ wt,
                const float* __restrict__ b, RnbNet net, int multires,
-               float scale, int bf, float c16, float* __restrict__ rec,
+               float scale, float c16, float* __restrict__ rec,
                int rec_ld, float* __restrict__ sdf, float* __restrict__ feat,
                float* __restrict__ grad) {
   constexpr int P = RNB_P;
@@ -123,7 +124,7 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
   }
   __syncthreads();
   for (int idx = tid; idx < P * LDE; idx += blockDim.x) {
-    sE16[idx] = rnb_rnd(sE[idx], bf);
+    sE16[idx] = sE[idx];
     sBarE[idx] = 0.0f;
   }
   __syncthreads();
@@ -138,7 +139,7 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
       for (int idx = tid; idx < P * in; idx += blockDim.x) {
         const int p = idx / in, i = idx % in;
         const float v = i < hd ? hin[p * ldin + i] : sE16[p * LDE + i - hd];
-        spare[p * LD + i] = rnb_rnd(v * c16, bf);
+        spare[p * LD + i] = v * c16;
       }
       __syncthreads();
       hin = spare;
@@ -160,11 +161,11 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
           if (MODE != SDF_PRIMAL_ONLY && row < n)
             rec[((long long)l * n + row) * rec_ld + c] = zb;
           if constexpr (MODE == SDF_NO_ACT) {
-            dst[p * LD + c] = rnb_rnd(zb * 0.25f, bf);
+            dst[p * LD + c] = zb * 0.25f;
           } else {
             float s, h;
             rnb_softplus100_pair(zb, &s, &h);
-            dst[p * LD + c] = rnb_rnd(h, bf);
+            dst[p * LD + c] = h;
           }
         } else if (row < n) {
           if (c == 0) sdf[row] = zb / scale;
@@ -212,7 +213,7 @@ sdf_fwd_kernel(const float* __restrict__ pts, long long n,
       float s, h;
       if constexpr (MODE == SDF_NO_ACT) s = zb * 0.5f;
       else rnb_softplus100_pair(zb, &s, &h);
-      spare[p * LD + j] = rnb_rnd(cur[p * LD + j] * s, bf);
+      spare[p * LD + j] = cur[p * LD + j] * s;
     }
     __syncthreads();
     const float* WT = wt + net.w_off[l];
@@ -259,7 +260,7 @@ static __global__ void __launch_bounds__(RNB_NT)
 sdf_bwd_kernel(const float* __restrict__ pts, long long n,
                const float* __restrict__ w, const float* __restrict__ wt,
                const float* __restrict__ b, RnbNet net, int multires,
-               float scale, int bf, float c16, const float* __restrict__ csdf,
+               float scale, float c16, const float* __restrict__ csdf,
                const float* __restrict__ cfeat,
                const float* __restrict__ cgrad, float* __restrict__ rec_z,
                float* __restrict__ rec_t, int rec_ld,
@@ -288,14 +289,14 @@ sdf_bwd_kernel(const float* __restrict__ pts, long long n,
     const float cg = row < n ? cgrad[row * 3 + d] : 0.0f;
     float* e = sE16 + p * LDE;
     float* t = sT16 + p * LDE;
-    e[d] = rnb_rnd(u, bf);
-    t[d] = rnb_rnd(cg, bf);
+    e[d] = u;
+    t[d] = cg;
     float s = sinf(u), c = cosf(u), f = 1.0f;
     for (int k = 0; k < multires; ++k) {
-      e[3 + 6 * k + d] = rnb_rnd(s, bf);
-      e[6 + 6 * k + d] = rnb_rnd(c, bf);
-      t[3 + 6 * k + d] = rnb_rnd(cg * (f * c), bf);
-      t[6 + 6 * k + d] = rnb_rnd(cg * (-f * s), bf);
+      e[3 + 6 * k + d] = s;
+      e[6 + 6 * k + d] = c;
+      t[3 + 6 * k + d] = cg * (f * c);
+      t[6 + 6 * k + d] = cg * (-f * s);
       if (k + 1 < multires) {
         const float s2 = 2.0f * s * c;
         c = 1.0f - 2.0f * s * s;
@@ -320,8 +321,8 @@ sdf_bwd_kernel(const float* __restrict__ pts, long long n,
         const int p = idx / in, i = idx % in;
         const float v = i < hd ? hin[p * ldin + i] : sE16[p * LDE + i - hd];
         const float tv = i < hd ? tin[p * ldin + i] : sT16[p * LDE + i - hd];
-        hs[p * LD + i] = rnb_rnd(v * c16, bf);
-        ts[p * LD + i] = rnb_rnd(tv * c16, bf);
+        hs[p * LD + i] = v * c16;
+        ts[p * LD + i] = tv * c16;
       }
       __syncthreads();
       hin = hs; tin = ts; ldin = LD;
@@ -354,8 +355,8 @@ sdf_bwd_kernel(const float* __restrict__ pts, long long n,
         }
         float s, h;
         rnb_softplus100_pair(zb, &s, &h);
-        hs[p * LD + c] = rnb_rnd(h, bf);
-        ts[p * LD + c] = rnb_rnd(tacc[p] * s, bf);
+        hs[p * LD + c] = h;
+        ts[p * LD + c] = tacc[p] * s;
       }
     }
     __syncthreads();
@@ -390,8 +391,8 @@ sdf_bwd_kernel(const float* __restrict__ pts, long long n,
         B[row * out + j] = z;
         B[(n + row) * out + j] = t;
       }
-      Z[p * LD + j] = rnb_rnd(z, bf);
-      Tb[p * LD + j] = rnb_rnd(t, bf);
+      Z[p * LD + j] = z;
+      Tb[p * LD + j] = t;
     }
     if (l == 0) break;
     __syncthreads();
@@ -426,7 +427,7 @@ template <int MODE>
 static int sdf_fwd_launch(const float* pts, long long n, const float* w,
                           const float* wt, const float* b, const int* in_dims,
                           const int* out_dims, const int* skip, int n_layers,
-                          int multires, float scale, int bf, float c16,
+                          int multires, float scale, float c16,
                           float* rec, int rec_ld, float* sdf, float* feat,
                           float* grad, void* stream) {
   RnbNet net;
@@ -439,7 +440,7 @@ static int sdf_fwd_launch(const float* pts, long long n, const float* w,
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
   sdf_fwd_kernel<MODE><<<grid, RNB_NT, smem, (cudaStream_t)stream>>>(
-      pts, n, w, wt, b, net, multires, scale, bf, c16, rec, rec_ld, sdf, feat,
+      pts, n, w, wt, b, net, multires, scale, c16, rec, rec_ld, sdf, feat,
       grad);
   return (int)cudaGetLastError();
 }
@@ -448,11 +449,11 @@ extern "C" int rnb_sdf_fwd(const float* pts, long long n, const float* w,
                            const float* wt, const float* b,
                            const int* in_dims, const int* out_dims,
                            const int* skip, int n_layers, int multires,
-                           float scale, int bf, float c16, float* rec,
+                           float scale, float c16, float* rec,
                            int rec_ld, float* sdf, float* feat, float* grad,
                            void* stream) {
   return sdf_fwd_launch<SDF_FULL>(pts, n, w, wt, b, in_dims, out_dims, skip,
-                                  n_layers, multires, scale, bf, c16, rec,
+                                  n_layers, multires, scale, c16, rec,
                                   rec_ld, sdf, feat, grad, stream);
 }
 
@@ -463,12 +464,12 @@ extern "C" int rnb_sdf_fwd_ablate(int mode, const float* pts, long long n,
                                   const float* b, const int* in_dims,
                                   const int* out_dims, const int* skip,
                                   int n_layers, int multires, float scale,
-                                  int bf, float c16, float* rec, int rec_ld,
+                                  float c16, float* rec, int rec_ld,
                                   float* sdf, float* feat, float* grad,
                                   void* stream) {
 #define RNB_SDF_FWD_ARGS                                                      \
-  pts, n, w, wt, b, in_dims, out_dims, skip, n_layers, multires, scale, bf,  \
-      c16, rec, rec_ld, sdf, feat, grad, stream
+  pts, n, w, wt, b, in_dims, out_dims, skip, n_layers, multires, scale, c16, \
+      rec, rec_ld, sdf, feat, grad, stream
   switch (mode) {
     case SDF_FULL: return sdf_fwd_launch<SDF_FULL>(RNB_SDF_FWD_ARGS);
     case SDF_NO_PE: return sdf_fwd_launch<SDF_NO_PE>(RNB_SDF_FWD_ARGS);
@@ -484,7 +485,7 @@ extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,
                            const float* wt, const float* b,
                            const int* in_dims, const int* out_dims,
                            const int* skip, int n_layers, int multires,
-                           float scale, int bf, float c16, const float* csdf,
+                           float scale, float c16, const float* csdf,
                            const float* cfeat, const float* cgrad,
                            float* rec_z, float* rec_t, int rec_ld,
                            float* abuf, float* bbuf, float* partial,
@@ -500,13 +501,13 @@ extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned grid = (unsigned)((n + RNB_P - 1) / RNB_P);
   sdf_bwd_kernel<<<grid, RNB_NT, smem, st>>>(
-      pts, n, w, wt, b, net, multires, scale, bf, c16, csdf, cfeat, cgrad,
+      pts, n, w, wt, b, net, multires, scale, c16, csdf, cfeat, cgrad,
       rec_z, rec_t, rec_ld, abuf, bbuf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < n_layers; ++l) {
     err = rnb_reduce_layer(abuf + net.a_off[l], bbuf + net.bb_off[l], 2 * n,
-                           n, in_dims[l], out_dims[l], bf, splits, partial,
+                           n, in_dims[l], out_dims[l], 0, splits, partial,
                            dw + net.w_off[l], db + net.b_off[l], st);
     if (err != cudaSuccess) return (int)err;
   }
@@ -586,14 +587,16 @@ __device__ __forceinline__ float wg_softplus100(float z) {
   return h;
 }
 
-template <int MODE>
+// RS: the ring's stages (WG_RS in production; the tune library's
+// instances take 3-6, RNB_TUNE below).
+template <int MODE, int RS = WG_RS>
 static __global__ void __launch_bounds__(WG_NT, 2)
 sdf_fwd_wg_kernel(const float* __restrict__ pts, long long n,
                   const rnb_bf16* __restrict__ w, const float* __restrict__ b,
                   RnbWgNet net, int multires, float scale, float c16,
                   float* __restrict__ rec, float* __restrict__ sdf,
                   float* __restrict__ feat, float* __restrict__ grad) {
-  constexpr int RS = WG_RS;
+  static_assert(RS >= 3, "pipe_run waits for all but RS - 3 copy groups");
   extern __shared__ __align__(128) unsigned char wg_smem[];
   rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][256]
   rnb_bf16* ring = X + WG_M * 256;
@@ -876,6 +879,7 @@ __device__ __forceinline__ void wg_rows_out(const rnb_bf16* Ta,
   }
 }
 
+template <int RS = WG_RS>
 static __global__ void __launch_bounds__(WG_BWG * 128, 1)
 sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
                   const rnb_bf16* __restrict__ w, const float* __restrict__ b,
@@ -886,7 +890,7 @@ sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
                   float* __restrict__ rec_t, rnb_bf16* __restrict__ abuf,
                   rnb_bf16* __restrict__ bbuf, float* __restrict__ dbp,
                   int db_len) {
-  constexpr int RS = WG_RS;
+  static_assert(RS >= 3, "pipe_run waits for all but RS - 3 copy groups");
   constexpr int NT = WG_BWG * 128, NW = 256 / WG_BWG;  // threads, columns a wg
   extern __shared__ __align__(128) unsigned char wg_smem[];
   rnb_bf16* H = reinterpret_cast<rnb_bf16*>(wg_smem);  // primal tile [64][272]
@@ -1206,21 +1210,21 @@ static int rnb_make_wg_net(RnbWgNet* net, const int* in_dims,
   return 0;
 }
 
-template <int MODE>
+template <int MODE, int RS = WG_RS>
 static int sdf_fwd_wg_launch(const float* pts, long long n,
                              const rnb_bf16* w, const float* b,
                              const RnbWgNet& net, int multires, float scale,
                              float c16, float* rec, float* sdf, float* feat,
                              float* grad, cudaStream_t st) {
   const int smem =
-      (int)(sizeof(rnb_bf16) * (WG_M * 256 + WG_RS * WG_STG) +
+      (int)(sizeof(rnb_bf16) * (WG_M * 256 + RS * WG_STG) +
             sizeof(float) * WG_M * WG_EP);
   cudaError_t err = cudaFuncSetAttribute(
-      sdf_fwd_wg_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sdf_fwd_wg_kernel<MODE, RS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((n + WG_M - 1) / WG_M);
-  sdf_fwd_wg_kernel<MODE><<<grid, WG_NT, smem, st>>>(
+  sdf_fwd_wg_kernel<MODE, RS><<<grid, WG_NT, smem, st>>>(
       pts, n, w, b, net, multires, scale, c16, rec, sdf, feat, grad);
   return (int)cudaGetLastError();
 }
@@ -1254,6 +1258,40 @@ extern "C" int rnb_sdf_fwd_wg(int mode, const float* pts, long long n,
 #undef RNB_WG_FWD_ARGS
 }
 
+template <int RS = WG_RS>
+static int sdf_bwd_wg_launch(const float* pts, long long n, const void* w,
+                             const float* b, const int* out_dims,
+                             const RnbWgNet& net, int multires, float scale,
+                             float c16, const float* csdf, const float* cfeat,
+                             const float* cgrad, float* rec_z, float* rec_t,
+                             void* abuf, void* bbuf, float* dbp, float* db,
+                             cudaStream_t st) {
+  const int smem =
+      (int)(sizeof(rnb_bf16) * (2 * WG_M * WG_TW + RS * WG_STG +
+                                2 * WG_M * WG_EP) +
+            sizeof(float) * 4 * 256);
+  cudaError_t err = cudaFuncSetAttribute(
+      sdf_bwd_wg_kernel<RS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + WG_M - 1) / WG_M;
+  int db_len = 0;
+  for (int l = 0; l < net.n_layers; ++l) db_len += out_dims[l];
+  sdf_bwd_wg_kernel<RS><<<(unsigned)tiles, WG_BWG * 128, smem, st>>>(
+      pts, n, static_cast<const rnb_bf16*>(w), b, net, multires, scale, c16,
+      csdf, cfeat, cgrad, rec_z, rec_t, static_cast<rnb_bf16*>(abuf),
+      static_cast<rnb_bf16*>(bbuf), dbp, db_len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rnb_sum_splits_kernel<<<(unsigned)((db_len + 255) / 256), 256, 0, st>>>(
+      dbp, (int)tiles, db_len, db);
+  return (int)cudaGetLastError();
+}
+
+#define RNB_WG_BWD_ARGS                                                     \
+  pts, n, w, b, out_dims, net, multires, scale, c16, csdf, cfeat, cgrad,    \
+      rec_z, rec_t, abuf, bbuf, dbp, db, (cudaStream_t)stream
+
 // The bf16 backward sweep: fills the bf16 dW scratch (A rows at a_off, B
 // rows at bb_off, 2n rows of pad16(width) each) and writes db; the wrapper
 // then runs rnb_dw_gemm per layer. rec_z / rec_t as rec of rnb_sdf_fwd_wg;
@@ -1273,26 +1311,7 @@ extern "C" int rnb_sdf_bwd_wg(const float* pts, long long n, const void* w,
   if (rnb_make_wg_net(&net, in_dims, out_dims, skip, hd, w_off, a_off, bb_off,
                       n_layers))
     return (int)cudaErrorInvalidValue;
-  const int smem =
-      (int)(sizeof(rnb_bf16) * (2 * WG_M * WG_TW + WG_RS * WG_STG +
-                                2 * WG_M * WG_EP) +
-            sizeof(float) * 4 * 256);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdf_bwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long tiles = (n + WG_M - 1) / WG_M;
-  int db_len = 0;
-  for (int l = 0; l < n_layers; ++l) db_len += out_dims[l];
-  sdf_bwd_wg_kernel<<<(unsigned)tiles, WG_BWG * 128, smem, st>>>(
-      pts, n, static_cast<const rnb_bf16*>(w), b, net, multires, scale, c16,
-      csdf, cfeat, cgrad, rec_z, rec_t, static_cast<rnb_bf16*>(abuf),
-      static_cast<rnb_bf16*>(bbuf), dbp, db_len);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rnb_sum_splits_kernel<<<(unsigned)((db_len + 255) / 256), 256, 0, st>>>(
-      dbp, (int)tiles, db_len, db);
-  return (int)cudaGetLastError();
+  return sdf_bwd_wg_launch<>(RNB_WG_BWD_ARGS);
 }
 
 // dw[M, N] = Σ_k a[k, :M]ᵀ b[k, :N] over K rows (bf16 in, f32 out), in
@@ -1321,6 +1340,73 @@ extern "C" int rnb_dw_gemm(const void* a, int lda, const void* b, int ldb,
       partial, splits, mn, dw);
   return (int)cudaGetLastError();
 }
+
+// The tile sweep's instances (rnb_tpu_torch/tools/tune_kernel.py): the
+// production sweeps at ring depths 3-6, SDF_FULL. They are built only into
+// the tune library (ops/_build.py library("tune"), nvcc -DRNB_TUNE); the
+// production library holds the WG_RS instances alone. A depth below 3 is
+// invalid (pipe_run waits for all but RS - 3 copy groups); depth 6 takes
+// 95,744 B of shared memory in the forward, under the half of an SM that
+// keeps two blocks there, and 136,704 B in the backward. Depth WG_RS is the
+// production instance itself. Another depth returns cudaErrorInvalidValue.
+#ifdef RNB_TUNE
+#define RNB_TUNE_CASES(CALL) \
+  case 3: return CALL(3);    \
+  case 4: return CALL(4);    \
+  case 5: return CALL(5);    \
+  case 6: return CALL(6);
+
+// rnb_sdf_fwd_wg's arguments but the mode (SDF_FULL), after the depth rs.
+extern "C" int rnb_sdf_fwd_wg_tune(int rs, const float* pts, long long n,
+                                   const void* w, const float* b,
+                                   const int* in_dims, const int* out_dims,
+                                   const int* skip, const int* hd,
+                                   const long long* w_off, int n_layers,
+                                   int multires, float scale, float c16,
+                                   float* rec, float* sdf, float* feat,
+                                   float* grad, void* stream) {
+  RnbWgNet net;
+  if (rnb_make_wg_net(&net, in_dims, out_dims, skip, hd, w_off, nullptr,
+                      nullptr, n_layers))
+    return (int)cudaErrorInvalidValue;
+  const rnb_bf16* wb = static_cast<const rnb_bf16*>(w);
+  cudaStream_t st = (cudaStream_t)stream;
+#define RNB_FWD_AT(RS)                                                     \
+  sdf_fwd_wg_launch<SDF_FULL, RS>(pts, n, wb, b, net, multires, scale, c16, \
+                                  rec, sdf, feat, grad, st)
+  switch (rs) {
+    RNB_TUNE_CASES(RNB_FWD_AT)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RNB_FWD_AT
+}
+
+// rnb_sdf_bwd_wg's arguments after the depth rs.
+extern "C" int rnb_sdf_bwd_wg_tune(int rs, const float* pts, long long n,
+                                   const void* w, const float* b,
+                                   const int* in_dims, const int* out_dims,
+                                   const int* skip, const int* hd,
+                                   const long long* w_off,
+                                   const long long* a_off,
+                                   const long long* bb_off, int n_layers,
+                                   int multires, float scale, float c16,
+                                   const float* csdf, const float* cfeat,
+                                   const float* cgrad, float* rec_z,
+                                   float* rec_t, void* abuf, void* bbuf,
+                                   float* dbp, float* db, void* stream) {
+  RnbWgNet net;
+  if (rnb_make_wg_net(&net, in_dims, out_dims, skip, hd, w_off, a_off, bb_off,
+                      n_layers))
+    return (int)cudaErrorInvalidValue;
+#define RNB_BWD_AT(RS) sdf_bwd_wg_launch<RS>(RNB_WG_BWD_ARGS)
+  switch (rs) {
+    RNB_TUNE_CASES(RNB_BWD_AT)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RNB_BWD_AT
+}
+#undef RNB_TUNE_CASES
+#endif  // RNB_TUNE
 
 extern "C" const char* rnb_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -6,6 +6,13 @@ headers, so a build takes seconds). The build happens at first use, into
 ``build/kernels/`` at the repository root, keyed by a hash of the sources
 and flags; a process that finds the library already built loads it.
 
+``library("tune")`` is a second library, for the tile sweep
+(``rnb_tpu_torch.tools.tune_kernel``) only: ``csrc/sdf_core.cu`` alone
+under ``-DRNB_TUNE``, which adds the SDF core's tensor-core sweeps at other
+ring depths (``rnb_sdf_fwd_wg_tune``, ``rnb_sdf_bwd_wg_tune``) beside the
+production entries, into ``librnb_kernels_tune_<hash>.so``. The
+production library never holds those instances.
+
 Every C entry returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on anything but 0. ``launches`` counts, per wrapper, the
 launches of its kernel (each wrapper adds one where it launches).
@@ -20,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +39,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the ring depths the tune library's instances take (csrc/sdf_core.cu,
+# RNB_TUNE); production runs csrc/wg_pipe.cuh's WG_RS
+TUNE_DEPTHS = (3, 4, 5, 6)
 
 # sdf_core_fwd / sdf_core_bwd, albedo_fwd / albedo_bwd and nerf_fwd /
 # nerf_bwd count the bf16 route (tensor-core kernels), the *_f32 keys the
@@ -42,12 +53,17 @@ launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
             "albedo_fwd": 0, "albedo_bwd": 0, "albedo_fwd_f32": 0,
             "albedo_bwd_f32": 0, "albedo_dw_gemm": 0, "nerf_fwd": 0,
             "nerf_bwd": 0, "nerf_fwd_f32": 0, "nerf_bwd_f32": 0,
-            "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0}
+            "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0,
+            # the tune library's SDF-core sweeps, by ring depth
+            **{f"sdf_core_{d}_rs{rs}": 0 for d in ("fwd", "bwd")
+               for rs in TUNE_DEPTHS}}
 
-# filled by the first library() call of the process
-build_info = {"seconds": None, "path": None, "log": ""}
+# filled by the first library(kind) call of the process, per kind
+build_info = {kind: {"seconds": None, "path": None, "log": ""}
+              for kind in ("main", "tune")}
 
-_lib = None
+_libs = {}
+_locks = {"main": threading.Lock(), "tune": threading.Lock()}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,16 +74,16 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 
 _SIGNATURES = {
     # pts, n, w, wt, b, in_dims, out_dims, skip, n_layers, multires, scale,
-    # bf, c16, rec, rec_ld, sdf, feat, grad, stream
-    "rnb_sdf_fwd": (_P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F, _I, _F,
+    # c16, rec, rec_ld, sdf, feat, grad, stream
+    "rnb_sdf_fwd": (_P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F, _F,
                     _P, _I, _P, _P, _P, _P),
     # mode, then the arguments of rnb_sdf_fwd
     "rnb_sdf_fwd_ablate": (_I, _P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F,
-                           _I, _F, _P, _I, _P, _P, _P, _P),
+                           _F, _P, _I, _P, _P, _P, _P),
     # pts, n, w, wt, b, in_dims, out_dims, skip, n_layers, multires, scale,
-    # bf, c16, csdf, cfeat, cgrad, rec_z, rec_t, rec_ld, abuf, bbuf, partial,
+    # c16, csdf, cfeat, cgrad, rec_z, rec_t, rec_ld, abuf, bbuf, partial,
     # splits, dw, db, stream
-    "rnb_sdf_bwd": (_P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F, _I, _F,
+    "rnb_sdf_bwd": (_P, _LL, _P, _P, _P, _IP, _IP, _IP, _I, _I, _F, _F,
                     _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
     # mode, pts, n, w (bf16 image), b, in_dims, out_dims, skip, hd, w_off,
     # n_layers, multires, scale, c16, rec, sdf, feat, grad, stream
@@ -119,6 +135,13 @@ _SIGNATURES = {
                         _LLP, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
+# the tune library's entries: the depth, then rnb_sdf_fwd_wg's arguments but
+# the mode, or rnb_sdf_bwd_wg's
+_TUNE_SIGNATURES = {
+    "rnb_sdf_fwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_fwd_wg"][1:]),
+    "rnb_sdf_bwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
+}
+
 
 def _nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -129,66 +152,86 @@ def _nvcc() -> str:
                        "rnb_tpu_torch are built from source at first use")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(kind: str = "main"):
+    """(sources, headers) of a library: every .cu for the production one,
+    sdf_core.cu alone for the tune one."""
+    srcs = ([CSRC / "sdf_core.cu"] if kind == "tune"
+            else sorted(CSRC.glob("*.cu")))
+    return srcs, sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    srcs, hdrs = _sources()
+def _flags(kind: str):
+    return NVCC_FLAGS + (("-DRNB_TUNE",) if kind == "tune" else ())
+
+
+def _digest(kind: str = "main") -> str:
+    h = hashlib.sha256(" ".join(_flags(kind)).encode())
+    srcs, hdrs = _sources(kind)
     for f in srcs + hdrs:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib
-    if _lib is None:
-        _lib = _load()
-    return _lib
+def library(kind: str = "main") -> ctypes.CDLL:
+    """The kernel library (``"main"``, or the tile sweep's ``"tune"``),
+    built on first use. Two kinds may build at once, from two threads."""
+    if kind not in _locks:
+        raise ValueError(f"no kernel library {kind!r}; main or tune")
+    with _locks[kind]:
+        if kind not in _libs:
+            _libs[kind] = _load(kind)
+    return _libs[kind]
 
 
-def _load() -> ctypes.CDLL:
-    out = BUILD_DIR / f"librnb_kernels_{_digest()}.so"
+def _load(kind: str) -> ctypes.CDLL:
+    stem = "librnb_kernels_tune" if kind == "tune" else "librnb_kernels"
+    out = BUILD_DIR / f"{stem}_{_digest(kind)}.so"
+    info = build_info[kind]
     t0 = time.perf_counter()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        srcs, _ = _sources()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        srcs, _ = _sources(kind)
+        cmd = [_nvcc(), *_flags(kind), "-o", str(tmp), *map(str, srcs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_info["log"] = proc.stdout + proc.stderr
+        info["log"] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_info['log']}")
+                               f"{' '.join(cmd)}\n{info['log']}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    for name, args in _SIGNATURES.items():
+    sigs = dict(_SIGNATURES)
+    if kind == "tune":
+        sigs = {k: sigs[k] for k in ("rnb_sdf_fwd_wg", "rnb_sdf_bwd_wg")}
+        sigs.update(_TUNE_SIGNATURES)
+    for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
     lib.rnb_error_string.argtypes = [ctypes.c_int]
     lib.rnb_error_string.restype = ctypes.c_char_p
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["path"] = str(out)
+    info["seconds"] = time.perf_counter() - t0
+    info["path"] = str(out)
     return lib
 
 
-def ptxas_summary(*keys: str) -> dict:
-    """ptxas's report (``-Xptxas -v``) of this process's build, for each
-    kernel whose name holds one of ``keys``: {name: "R registers, S B spill
-    stores, L B spill loads"}. Empty when the library was already built."""
+def ptxas_summary(*keys: str, kind: str = "main") -> dict:
+    """ptxas's report (``-Xptxas -v``) of this process's build of library
+    ``kind``, for each kernel whose name holds one of ``keys``: {name: "R
+    registers, S B spill stores, L B spill loads"}, the name with its
+    integer template arguments (``sdf_fwd_wg_kernel<0, 4>``). Empty when
+    the library was already built."""
     out = {}
     for m in re.finditer(r"Compiling entry function '(_Z(\d+)\w*)'(.*?)"
                          r"(?=Compiling entry function|\Z)",
-                         build_info["log"], re.S):
+                         build_info[kind]["log"], re.S):
         mangled, n, body = m.group(1), int(m.group(2)), m.group(3)
         head = len(m.group(2)) + 2
         name = mangled[head:head + n]
-        mode = re.match(r"ILi(\d+)E", mangled[head + n:])
-        name += f"<{mode.group(1)}>" if mode else ""
+        targs = re.match(r"I((?:Li\d+E)+)E", mangled[head + n:])
+        if targs:
+            name += "<" + ", ".join(re.findall(r"Li(\d+)E", targs.group(1))) + ">"
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         if any(k in name for k in keys) and regs and spill:
@@ -197,9 +240,9 @@ def ptxas_summary(*keys: str) -> dict:
     return out
 
 
-def check(rc: int, what: str) -> None:
+def check(rc: int, what: str, kind: str = "main") -> None:
     if rc != 0:
-        msg = library().rnb_error_string(rc).decode()
+        msg = library(kind).rnb_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 

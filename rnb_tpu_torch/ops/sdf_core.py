@@ -233,7 +233,7 @@ def launch_fwd(cfg: SDFConfig, pts, ws, bs, entry="rnb_sdf_fwd", lead=()):
             *lead, pts.data_ptr(), n, wflat.data_ptr(), wtflat.data_ptr(),
             bflat.data_ptr(), _build.int_array(in_dims),
             _build.int_array(out_dims), _build.int_array(skip), L,
-            cfg.multires, cfg.scale, 0, _c16(dtype), rec.data_ptr(), rec_ld,
+            cfg.multires, cfg.scale, _c16(dtype), rec.data_ptr(), rec_ld,
             sdf.data_ptr(), feat.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry)
@@ -275,13 +275,19 @@ def _check_wg(lay: dict):
             f"and no skip at the last layer; got in {ins}, out {outs}")
 
 
-def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0):
+def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
+                  depth: int | None = None):
     """bf16 route: launch ``rnb_sdf_fwd_wg`` (``mode``: the C SdfMode, 0 =
-    the production kernel). -> (sdf, feat, grad)."""
+    the production kernel), or with a ring ``depth`` the tune library's
+    ``rnb_sdf_fwd_wg_tune`` (mode 0 only; a depth it was not built for
+    raises). -> (sdf, feat, grad)."""
     _check_args(cfg, pts, ws, bs)
     lay = wg_layout(cfg, ws)
     _check_wg(lay)
-    lib = _build.library()
+    kind = "main" if depth is None else "tune"
+    if depth is not None and mode != 0:
+        raise ValueError("the tune library's forward runs mode 0 only")
+    lib = _build.library(kind)
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
     dev = pts.device
@@ -292,16 +298,18 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0):
     sdf = torch.empty(n, device=dev)
     feat = torch.empty(n, lay["out_dims"][-1] - 1, device=dev)
     grad = torch.empty(n, 3, device=dev)
+    entry, lead = (("rnb_sdf_fwd_wg", mode) if depth is None
+                   else ("rnb_sdf_fwd_wg_tune", depth))
     with torch.cuda.device(dev):
-        rc = lib.rnb_sdf_fwd_wg(
-            mode, pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
+        rc = getattr(lib, entry)(
+            lead, pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
             _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
             _build.int_array(lay["skip"]), _build.int_array(lay["hd"]),
             _build.ll_array(lay["w_off"]), L, cfg.multires, cfg.scale,
             _c16(torch.bfloat16), rec.data_ptr(), sdf.data_ptr(),
             feat.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rnb_sdf_fwd_wg")
+    _build.check(rc, entry, kind)
     return sdf, feat, grad
 
 
@@ -332,13 +340,14 @@ def _cotangents(pts, c_sdf, c_feat, c_grad, d_feat):
     return cots
 
 
-def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
+def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, depth=None):
     _check_args(cfg, pts, ws, bs)
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
     lay = wg_layout(cfg, ws, n)
     _check_wg(lay)
-    lib = _build.library()
+    kind = "main" if depth is None else "tune"
+    lib = _build.library(kind)
     cots = _cotangents(pts, c_sdf, c_feat, c_grad, lay["out_dims"][-1] - 1)
     dev = pts.device
     image = pack_weights(ws, lay)
@@ -350,9 +359,11 @@ def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
     bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
     dbp = torch.empty(tiles * bflat.numel(), device=dev)
     db = torch.empty(bflat.numel(), device=dev)
+    entry, lead = (("rnb_sdf_bwd_wg", ()) if depth is None
+                   else ("rnb_sdf_bwd_wg_tune", (depth,)))
     with torch.cuda.device(dev):
-        rc = lib.rnb_sdf_bwd_wg(
-            pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
+        rc = getattr(lib, entry)(
+            *lead, pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
             _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
             _build.int_array(lay["skip"]), _build.int_array(lay["hd"]),
             _build.ll_array(lay["w_off"]), _build.ll_array(lay["a_off"]),
@@ -361,7 +372,7 @@ def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
             cots[2].data_ptr(), rec_z.data_ptr(), rec_t.data_ptr(),
             abuf.data_ptr(), bbuf.data_ptr(), dbp.data_ptr(), db.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rnb_sdf_bwd_wg")
+    _build.check(rc, entry, kind)
     del rec_z, rec_t
     dws = wg.dw_products(abuf, bbuf, lay, 2 * n, "sdf_dw_gemm")
     return dws, _build.unflat(db, [tuple(b.shape) for b in bs])
@@ -392,7 +403,7 @@ def _bwd_f32(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
             pts.data_ptr(), n, wflat.data_ptr(), wtflat.data_ptr(),
             bflat.data_ptr(), _build.int_array(in_dims),
             _build.int_array(out_dims), _build.int_array(skip), L,
-            cfg.multires, cfg.scale, 0, _c16(dtype), cots[0].data_ptr(),
+            cfg.multires, cfg.scale, _c16(dtype), cots[0].data_ptr(),
             cots[1].data_ptr(), cots[2].data_ptr(), rec_z.data_ptr(),
             rec_t.data_ptr(), rec_ld, abuf.data_ptr(), bbuf.data_ptr(),
             partial.data_ptr(), splits, dw.data_ptr(), db.data_ptr(),
@@ -400,6 +411,25 @@ def _bwd_f32(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
     _build.check(rc, "rnb_sdf_bwd")
     return (_build.unflat(dw, [tuple(w.shape) for w in ws]),
             _build.unflat(db, [tuple(b.shape) for b in bs]))
+
+
+def sdf_core_fwd_tune(cfg: SDFConfig, pts, ws, bs, depth: int):
+    """The bf16 forward at ring depth ``depth``, from the tune library (the
+    tile sweep's; CUDA tensors only). Counts under
+    ``sdf_core_fwd_rs{depth}``."""
+    out = launch_fwd_wg(cfg, pts, ws, bs, depth=depth)
+    _build.launches[f"sdf_core_fwd_rs{depth}"] += 1
+    return out
+
+
+def sdf_core_bwd_tune(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
+                      depth: int):
+    """The bf16 backward sweep at ring depth ``depth``, from the tune
+    library, then the production dW products. Counts under
+    ``sdf_core_bwd_rs{depth}``. -> (dws, dbs)."""
+    out = _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, depth)
+    _build.launches[f"sdf_core_bwd_rs{depth}"] += 1
+    return out
 
 
 class _SDFCore(torch.autograd.Function):

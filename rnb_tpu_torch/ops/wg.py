@@ -19,6 +19,7 @@ import torch
 from rnb_tpu_torch.ops import _build
 
 TILE = 64            # points per block of the tensor-core sweep kernels
+RING_DEPTH = 4       # their cp.async ring's stages, WG_RS of csrc/wg_pipe.cuh
 DW_ROWS = 64         # rows per stage of the dW product
 
 
@@ -65,23 +66,30 @@ def dw_gemm_plain(a, b, m: int, n: int):
     return a[:, :m].float().T @ b[:, :n].float()
 
 
-def dw_gemm_splits(m: int, n: int, k: int):
+def dw_gemm_splits(m: int, n: int, k: int, splits: int | None = None):
     """(splits, rows per split) of the dW product: about two blocks an SM on
-    the card's 132 SMs, each split a multiple of 64 rows."""
-    tiles = -(-m // 128) * -(-n // 128)
-    splits = max(1, min(-(-264 // tiles), -(-k // (8 * DW_ROWS))))
+    the card's 132 SMs, each split a multiple of 64 rows. A given
+    ``splits`` (the tile sweep's) replaces that count; its chunk is rounded
+    up to 64 rows the same way, so fewer splits may result."""
+    if splits is None:
+        tiles = -(-m // 128) * -(-n // 128)
+        splits = max(1, min(-(-264 // tiles), -(-k // (8 * DW_ROWS))))
+    elif splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
     chunk = -(-k // splits)
     chunk = -(-chunk // DW_ROWS) * DW_ROWS
     return -(-k // chunk), chunk
 
 
-def dw_gemm(a, b, m: int, n: int, partial=None, *, counter: str):
+def dw_gemm(a, b, m: int, n: int, partial=None, *, counter: str,
+            splits: int | None = None):
     """dW [m, n] = a[:, :m]ᵀ · b[:, :n] summed over the rows of the [K, lda]
     and [K, ldb] bf16 operands (lda, ldb multiples of 8): the tensor-core
     split-K kernel (``rnb_dw_gemm``) for CUDA tensors, deterministic, which
     adds one to ``_build.launches[counter]``; ``dw_gemm_plain`` for CPU
     tensors. ``partial`` is an optional f32 scratch of at least
-    splits·m·n floats."""
+    splits·m·n floats; ``splits`` as ``dw_gemm_splits`` takes it (None:
+    the production choice)."""
     if not a.is_cuda:
         return dw_gemm_plain(a, b, m, n)
     if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2
@@ -91,7 +99,7 @@ def dw_gemm(a, b, m: int, n: int, partial=None, *, counter: str):
         raise ValueError("dw_gemm takes two contiguous [K, 8j] bf16 matrices "
                          "of the same row count")
     k = a.shape[0]
-    splits, chunk = dw_gemm_splits(m, n, k)
+    splits, chunk = dw_gemm_splits(m, n, k, splits)
     if partial is None or partial.numel() < splits * m * n:
         partial = torch.empty(splits * m * n, device=a.device)
     dw = torch.empty(m, n, device=a.device)

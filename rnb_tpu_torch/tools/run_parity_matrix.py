@@ -22,7 +22,8 @@ analytic torus:
 ``data/<case>``, ``exp/<case>/<variant>`` and the record lie under the
 current directory, as the CLI's conf paths do. Each record adds the
 training wall and the median ms a warm-up and a main step (from the
-runner's ``Perf/rays_per_s``). Prints one JSON line a variant and a
+runner's ``Perf/rays_per_s``); the record names the card (nvidia-smi's
+name and power limit, or ``cpu``). Prints one JSON line a variant and a
 summary; exit 0 when all are accepted.
 """
 
@@ -37,6 +38,8 @@ import sys
 import time
 
 import numpy as np
+
+from rnb_tpu_torch.tools.ablate_kernel import card
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -193,6 +196,7 @@ def main(argv=None):
                      f"{args.mesh_resolution}^3 extraction, Chamfer-L1 vs "
                      "CLEAN analytic surface; rnb_tpu_torch on "
                      f"{args.device}"),
+        "card": "cpu" if args.device == "cpu" else card(),
         "all_accepted": all(r.get("accepted") for r in records.values()),
         "variants": records,
     })

@@ -31,6 +31,7 @@ import os
 
 import numpy as np
 
+from rnb_tpu_torch.tools.ablate_kernel import card
 from rnb_tpu_torch.tools.run_parity_matrix import (make_case, run_variant,
                                                    write_record)
 
@@ -78,6 +79,7 @@ def main(argv=None):
         "scale_mat_scale": scale,
         "scale_mat_t": [float(x) for x in scale_mat[:3, 3]],
         "threshold_world": SPEC["threshold"],
+        "card": "cpu" if args.device == "cpu" else card(),
         "wmask_rnb": rec,
         "all_accepted": bool(rec.get("accepted")),
     })

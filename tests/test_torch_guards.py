@@ -50,7 +50,9 @@ def test_port_imports_no_jax():
               "tools.inspect_cameras", "tools.validate_precision",
               "tools.run_parity_matrix", "tools.run_parity_worldspace",
               "tools.run_e2e", "tools.multinode_smoke",
-              "tools.predict_scaling"):
+              "tools.predict_scaling", "tools.bench", "tools.bench_step",
+              "tools.roofline", "tools.tune_kernel", "tools.bench_scaling",
+              "tools.consolidate_parity"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"

@@ -13,14 +13,17 @@ the albedo and NeRF forwards and backwards run both of their routes: bf16
 on the tensor cores, f32 on the CUDA cores. Tolerances, relative to the norm of
 the plain result: 1e-4 at f32 operands (summation order only), 1e-2 at bf16
 operands (a different summation order can flip the bf16 rounding of an
-activation, one bf16 ulp = 2^-8 relative).
+activation, one bf16 ulp = 2^-8 relative). The tile sweep's library
+(``_build.library("tune")``: the SDF core's sweeps at ring depths 3-6) is
+held bit for bit against the production kernels at every depth (the depth
+changes no sum's order), and against the plain version.
 """
 
 import pytest
 import torch
 
 from rnb_tpu_torch.models import fields
-from rnb_tpu_torch.ops import _build, albedo, nerf, sdf_ablate, sdf_core
+from rnb_tpu_torch.ops import _build, albedo, nerf, sdf_ablate, sdf_core, wg
 
 N = 1037
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -323,3 +326,64 @@ def test_wrappers_reject_bad_input(cuda):
         albedo.albedo_bwd(acfg, apts, anrm, afeat, aw, ab,
                           torch.zeros(32, 3, device=cuda))
     assert _moved(n0) == {}
+
+
+def test_tune_library_depth4_is_production(cuda):
+    """The tile sweep's library at the production ring depth (4) runs the
+    production instances: forward and backward equal bit for bit."""
+    cfg, ws, bs, pts, cots = _sdf_setup(cuda)
+    bf16 = torch.bfloat16
+    n0 = dict(_build.launches)
+    got = sdf_core.sdf_core_fwd_tune(cfg, pts, ws, bs, 4)
+    want = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gw, gb = sdf_core.sdf_core_bwd_tune(cfg, pts, ws, bs, *cots, 4)
+    rw, rb = sdf_core.sdf_core_bwd(cfg, pts, ws, bs, *cots, bf16)
+    assert all(torch.equal(a, b) for a, b in zip(gw + gb, rw + rb))
+    torch.cuda.synchronize()
+    assert _moved(n0) == {"sdf_core_fwd_rs4": 1, "sdf_core_bwd_rs4": 1,
+                          "sdf_core_fwd": 1, "sdf_core_bwd": 1,
+                          "sdf_dw_gemm": 18}
+
+
+@pytest.mark.parametrize("depth", [d for d in _build.TUNE_DEPTHS
+                                   if d != wg.RING_DEPTH])
+def test_tune_library_other_depths(cuda, depth):
+    """The sweep's other ring depths: bit for bit the production kernels
+    (a stale ring stage in a few tiles would hide under the tolerance), and
+    against the plain version at the bf16 tolerance."""
+    cfg, ws, bs, pts, cots = _sdf_setup(cuda)
+    bf16 = torch.bfloat16
+    got = sdf_core.sdf_core_fwd_tune(cfg, pts, ws, bs, depth)
+    want = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _close(got, sdf_core.sdf_core_fwd_plain(cfg, pts, ws, bs, bf16), TOL[bf16])
+    gw, gb = sdf_core.sdf_core_bwd_tune(cfg, pts, ws, bs, *cots, depth)
+    pw, pb = sdf_core.sdf_core_bwd(cfg, pts, ws, bs, *cots, bf16)
+    assert all(torch.equal(a, b) for a, b in zip(gw + gb, pw + pb))
+    rw, rb = sdf_core.sdf_core_bwd_plain(cfg, pts, ws, bs, *cots, bf16)
+    _close(gw + gb, rw + rb, TOL[bf16])
+
+
+@pytest.mark.parametrize("depth", [min(_build.TUNE_DEPTHS) - 1,
+                                   max(_build.TUNE_DEPTHS) + 1])
+def test_tune_library_refuses_unbuilt_depths(cuda, depth):
+    """A depth the tune library holds no instance of comes back as a CUDA
+    error that the wrapper raises; nothing is counted."""
+    cfg, ws, bs, pts, cots = _sdf_setup(cuda, n=64)
+    n0 = dict(_build.launches)
+    with pytest.raises(RuntimeError, match="rnb_sdf_fwd_wg_tune"):
+        sdf_core.sdf_core_fwd_tune(cfg, pts, ws, bs, depth)
+    with pytest.raises(RuntimeError, match="rnb_sdf_bwd_wg_tune"):
+        sdf_core.sdf_core_bwd_tune(cfg, pts, ws, bs, *cots, depth)
+    assert _moved(n0) == {}
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+def test_dw_gemm_split_counts(cuda, splits):
+    """dw_gemm at a split count of the sweep's against the plain product."""
+    gen = torch.Generator().manual_seed(4)
+    a = torch.randn(1037, 48, generator=gen).to(torch.bfloat16).to(cuda)
+    b = torch.randn(1037, 272, generator=gen).to(torch.bfloat16).to(cuda)
+    _close([sdf_core.dw_gemm(a, b, 39, 257, splits=splits)],
+           [sdf_core.dw_gemm_plain(a, b, 39, 257)], 1e-5)
