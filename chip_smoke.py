@@ -13,19 +13,23 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      NeRF at 512 x (128 + 4) = 67,584 and 67,617 (the SDF core and the
      albedo and NeRF forwards and backwards on both routes: bf16 on the
      tensor cores, f32 on the CUDA cores), the four SDF-forward ablation
-     variants of both routes at 65,536, the bf16 backward's dW product for
-     one 256x256 layer over 2 x 65,536 rows; f32 operands within 1e-4 and
-     bf16 operands within 1e-2 of the plain result's norm; times kernel and
-     plain version with CUDA events (and torch.matmul beside the dW
-     product, as its yardstick);
+     variants of both routes at 65,536, the bf16 backwards' grouped dW
+     product (csrc/dw_gemm.cu) for one 256x256 layer over 2 x 65,536 rows
+     and for every layer of each backward in one launch (the SDF core's 9
+     over 2 x 65,536 rows, the albedo's 3 over 65,536, the NeRF's 11 over
+     67,584); f32 operands within 1e-4 and bf16 operands within 1e-2 of
+     the plain result's norm; times kernel and plain version with CUDA
+     events (and torch.matmul beside each dW product, one a layer, as its
+     yardstick);
   2. drives the training step at full width (8x256 SDF net, 2x256 albedo
      net, batch 512, 64+64 samples, 3 lights) on the sphere fixture, for
      confs/wmask_rnb.conf and for confs/womask_rnb.conf with n_outside=4
      (the 8x256 background NeRF on 4 outside samples, mask_weight 0): 10
      warm-up and 10 main-phase steps each, every loss finite, each kernel
      of the path launched, every op with two routes on its bf16
-     (tensor-core) kernels only (counts set to 0 before each path, read
-     after);
+     (tensor-core) kernels only, one dW launch a bf16 backward (counts set
+     to 0 before each path, read after; phases 6, 8, 9 and 10 hold their
+     runs' counts to the same);
   3. runs one main step of 64 rays on the CPU (plain versions) and on the
      card (kernels, f32 operands: the f32 routes) from the same params and
      draws, for each of the two confs, and compares loss, gradients and
@@ -127,8 +131,9 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      on phase 10's directory (the cut e2e gate's row passes, the other
      five gates are missing rows); every time finite and positive, every
      line with the card. At the build it holds the production SDF-core
-     kernels' ptxas lines against the note in csrc/sdf_core.cu and checks
-     that the production library holds no tune instance.
+     kernels' ptxas lines against the note in csrc/sdf_core.cu and the dW
+     kernel's against csrc/dw_gemm.cu, and checks that the production
+     library holds no tune instance.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
@@ -151,9 +156,10 @@ least multiply-adds over the peak of their type (989 TFLOP/s bf16 on the
 tensor cores, 67 TFLOP/s f32 on the CUDA cores), from this run's shapes,
 and `library_ms` the time of torch.matmul on the dW product's operands
 (null where no single PyTorch call computes the kernel's function). The
-summary line also holds the albedo's 3 and the NeRF's 11 dW products at
-their shapes (65,536 and 67,584 rows), each held against its plain
-product and timed beside one torch.matmul a product.
+summary line's `dw_products` holds the three backwards' dW groups (one
+launch each: the SDF core's 9 products over 131,072 rows, the albedo's 3
+over 65,536, the NeRF's 11 over 67,584), each held against its plain
+products and timed beside one torch.matmul a product.
 Any failed check raises; there is no fallback: without a CUDA device it
 exits non-zero.
 """
@@ -187,6 +193,12 @@ WOMASK_NOALB = ("confs/womask_rnb_noalbedo.conf",
 WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "sdf_dw_gemm", "albedo_fwd",
                  "albedo_bwd", "albedo_dw_gemm")
 WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd", "nerf_dw_gemm")
+# one grouped dW launch (ops/wg.py dw_products) a bf16 backward
+DW_OF_BWD = {"sdf_dw_gemm": "sdf_core_bwd", "albedo_dw_gemm": "albedo_bwd",
+             "nerf_dw_gemm": "nerf_bwd"}
+# phase 1's dW groups: every product of one backward, timed beside
+# torch.matmul
+DW_GROUPS = ("sdf_dw_products", "albedo_dw_products", "nerf_dw_products")
 # the f32 routes' kernels (CUDA cores): launched by the f32 parity step of
 # each conf, never by the bf16 training step
 WMASK_F32 = ("sdf_core_fwd_f32", "sdf_core_bwd_f32", "albedo_fwd_f32",
@@ -209,7 +221,7 @@ KERNELS = {
                      "rnb_tpu/ops/pallas_sdf_core.py:169"),
     "sdf_core_bwd": ("rnb_tpu_torch/csrc/sdf_core.cu",
                      "rnb_tpu/ops/pallas_sdf_core.py:232"),
-    "sdf_dw_gemm": ("rnb_tpu_torch/csrc/sdf_core.cu",
+    "sdf_dw_gemm": ("rnb_tpu_torch/csrc/dw_gemm.cu",
                     "rnb_tpu/ops/pallas_sdf_core.py:232"),
     "sdf_core_fwd_f32": ("rnb_tpu_torch/csrc/sdf_core.cu",
                          "rnb_tpu/ops/pallas_sdf_core.py:169"),
@@ -238,6 +250,15 @@ KERNELS = {
 
 def log(msg):
     print(msg, flush=True)
+
+
+def check_dw_launches(counts, where):
+    """Each bf16 backward of a path launched its dW products once (one
+    grouped launch, ops/wg.py dw_products)."""
+    for dw, bwd in DW_OF_BWD.items():
+        assert counts.get(dw, 0) == counts.get(bwd, 0), \
+            f"{where}: {counts.get(dw, 0)} {dw} launches for " \
+            f"{counts.get(bwd, 0)} {bwd}"
 
 
 def rel_err(got, want):
@@ -353,27 +374,32 @@ def check_kernel(results, name, n, dtype, kern, plain, timed, ins=(),
             + (f", library {r['library_ms']:.3f} ms" if library is not None else ""))
 
 
-def check_dw_products(results, name, lay, gen, dev):
+def check_dw_products(results, name, counter, lay, gen):
     """Every dW product of one bf16 backward (``wg.dw_products`` on the
-    layers of ``lay``, counter ``name``) against the plain products, timed
-    beside one torch.matmul a layer on the same bf16 operand rows."""
+    layers of ``lay``: one grouped launch, counter ``counter``) against the
+    plain products, timed beside one torch.matmul a layer on the same bf16
+    operand rows; ``gen`` a card generator (the SDF core's rows are 1.1
+    GB)."""
     from rnb_tpu_torch.ops import wg
 
     rows = (lay["a_len"] - lay["a_off"][-1]) // lay["kp"][-1]
-    a = torch.randn(lay["a_len"], generator=gen).to(dev, torch.bfloat16)
-    b = torch.randn(lay["b_len"], generator=gen).to(dev, torch.bfloat16)
+    dev = gen.device
+    a = torch.randn(lay["a_len"], generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn(lay["b_len"], generator=gen, device=dev).to(torch.bfloat16)
     ops = [(a[ao:ao + rows * kp].view(rows, kp), b[bo:bo + rows * np_].view(rows, np_),
             i, o) for ao, bo, kp, np_, i, o in zip(
                 lay["a_off"], lay["bb_off"], lay["kp"], lay["np"],
                 lay["in_dims"], lay["out_dims"])]
     check_kernel(results, name, rows, torch.bfloat16,
-                 lambda: wg.dw_products(a, b, lay, rows, name),
+                 lambda: wg.dw_products(a, b, lay, rows, counter),
                  lambda: [wg.dw_gemm_plain(x, y, i, o) for x, y, i, o in ops],
                  True, [t for x, y, i, o in ops for t in (x[:, :i], y[:, :o])],
                  sum(rows * i * o for _, _, i, o in ops),
                  library=lambda: [torch.matmul(x[:, :i].T, y[:, :o])
                                   for x, y, i, o in ops])
     results[name]["products"] = len(ops)
+    results[name]["splits"] = wg.dw_splits(
+        list(zip(lay["in_dims"], lay["out_dims"])), rows)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -460,12 +486,17 @@ def kernel_checks(dev):
                  [a, b], 256 * 256 * k, library=lambda: torch.matmul(a.T, b))
     del a, b
 
-    # the dW products of the albedo's (3) and the NeRF's (11) bf16 backward
-    # at their layers' shapes over the main path's rows, beside one
+    # the dW products of the SDF core's (9, over 2 x 65,536 rows), the
+    # albedo's (3) and the NeRF's (11) bf16 backward at their layers'
+    # shapes over the main path's rows, one grouped launch each, beside one
     # torch.matmul a layer on the same operands (their sum is library_ms)
-    for name, lay in (("albedo_dw_gemm", albedo.wg_layout(aw, MAIN_N)),
-                      ("nerf_dw_gemm", nerf.wg_layout(ncfg, nw, NERF_N))):
-        check_dw_products(results, name, lay, gen, dev)
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    for name, counter, lay in (
+            ("sdf_dw_products", "sdf_dw_gemm", sdf_core.wg_layout(scfg, sw, MAIN_N)),
+            ("albedo_dw_products", "albedo_dw_gemm", albedo.wg_layout(aw, MAIN_N)),
+            ("nerf_dw_products", "nerf_dw_gemm", nerf.wg_layout(ncfg, nw, NERF_N))):
+        check_dw_products(results, name, counter, lay, dgen)
+        torch.cuda.empty_cache()
 
     for n in (NERF_N, NERF_RAGGED_N):
         # pts4 = [x/r, 1/r] with |x| > 1, as render_core_outside feeds it,
@@ -561,6 +592,7 @@ def slice_run(dev, conf_spec, kernels, no_albedo=False):
     log(f"[slice] launches in the 20 steps: {counts}")
     for k in kernels:
         assert counts[k] > 0, f"kernel {k} was not launched by the main path"
+    check_dw_launches(counts, f"the main path of {conf_spec[0]}")
     for k in F32_ROUTE:   # the step runs bf16: the tensor-core routes only
         assert counts[k] == 0, f"the main path launched the f32 route ({k})"
     if no_albedo:
@@ -735,6 +767,7 @@ def runner_path(dev, card, tmp):
     log(f"[runner] launches in the CLI run: {counts}")
     for k in WMASK_KERNELS:
         assert counts[k] > 0, f"kernel {k} was not launched by the runner path"
+    check_dw_launches(counts, "the runner path")
     for k in F32_ROUTE:
         assert counts[k] == 0, f"the runner path launched the f32 route ({k})"
     wall = next(l for l in out.splitlines() if l.startswith("trained "))
@@ -1074,6 +1107,7 @@ def _check_ranks(lines, kernels, where):
             f"params {line['params_sha256'][:16]}, launches {c}")
         for k in kernels:
             assert c[k] > 0, f"{where}: rank {line['rank']} did not launch {k}"
+        check_dw_launches(c, f"{where} rank {line['rank']}")
         for k in F32_ROUTE:
             assert c[k] == 0, f"{where}: rank {line['rank']} launched {k}"
     assert len({l["params_sha256"] for l in lines}) == 1, \
@@ -1379,6 +1413,7 @@ def normalized_noalbedo_path(dev, card, tmp):
     log(f"[noalbedo] launches in the CLI run: {counts}")
     for k in WMASK_NOALB_KERNELS:
         assert counts[k] > 0, f"kernel {k} was not launched by the no-albedo run"
+    check_dw_launches(counts, "the no-albedo run")
     for k in ALBEDO_KERNELS + F32_ROUTE:
         assert counts[k] == 0, f"the no-albedo run launched {k}"
     wall = next(l for l in out.splitlines() if l.startswith("trained "))
@@ -1455,6 +1490,7 @@ def _check_counts(counts, where):
     log(f"[phase 10] {where}: launches {counts}")
     for k in WMASK_KERNELS:
         assert counts[k] > 0, f"{where}: {k} was not launched"
+    check_dw_launches(counts, where)
     for k in F32_ROUTE:
         assert counts[k] == 0, f"{where}: the f32 route launched ({k})"
 
@@ -1653,11 +1689,12 @@ def measuring_tools(card, tune_build, work):
     for name, want in PTXAS_NOTE.items():   # the same production instances
         assert not tune_ptxas or _ptxas_numbers(tune_ptxas[name]) == want, name
     r = tune_kernel.main(["--iters", "10", "--fwd_rs", *map(str, SMOKE_DEPTHS),
-                          "--bwd_rs", *map(str, SMOKE_DEPTHS),
-                          "--splits", "64", "32"])
+                          "--bwd_rs", *map(str, SMOKE_DEPTHS)])
     assert not r["failed"], r["failed"]
     assert r["card"] == card
     tune_rows = {}
+    splits = [row["splits"] for row in r["rows"] if row["axis"] == "splits"]
+    assert splits == tune_kernel.split_axis(r["production"]["splits"]), splits
     for row in r["rows"]:
         if row["axis"] == "splits":
             _positive(row["ms"], f"tune splits {row['splits']}")
@@ -1709,9 +1746,12 @@ def measuring_tools(card, tune_build, work):
 
 
 # ptxas's report of the production SDF-core kernels (the note in
-# csrc/sdf_core.cu): the tensor-core sweeps exactly, the f32 ones no worse
+# csrc/sdf_core.cu): the tensor-core sweeps exactly, the f32 ones no worse;
+# the grouped dW kernel's (the note in csrc/dw_gemm.cu) exactly, in the
+# production library only
 PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 4>": (128, 80, 84),
               "sdf_bwd_wg_kernel<4>": (128, 28, 28)}
+PTXAS_DW = {"rnb_dw_products_kernel": (168, 0, 0)}
 PTXAS_F32 = {"sdf_fwd_kernel<0>": (128, 72), "sdf_bwd_kernel": (72, 0)}
 
 
@@ -1728,7 +1768,7 @@ def check_ptxas(report):
     if not report:
         log("[ptxas] the library was built before this process: no report")
         return
-    for name, want in PTXAS_NOTE.items():
+    for name, want in {**PTXAS_NOTE, **PTXAS_DW}.items():
         assert _ptxas_numbers(report[name]) == want, (name, report[name])
     for name, (regs, spill) in PTXAS_F32.items():
         got = _ptxas_numbers(report[name])
@@ -1757,13 +1797,13 @@ def main():
     _build.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_build.build_info['main']['path']})")
-    check_ptxas(_build.ptxas_summary("sdf_", "dw_gemm", "albedo_", "nerf_"))
+    check_ptxas(_build.ptxas_summary("sdf_", "dw_products", "albedo_", "nerf_"))
     assert not hasattr(_build.library(), "rnb_sdf_fwd_wg_tune"), \
         "the production library holds the tune entries"
 
     kern = kernel_checks(dev)
     summary = {"card": card, "dw_products": {
-        k: kern[k] for k in ("albedo_dw_gemm", "nerf_dw_gemm")}}
+        k: kern[k] for k in DW_GROUPS}}
     counts = {}
     for label, spec, kernels, f32_kernels in (
             ("wmask", WMASK, WMASK_KERNELS, WMASK_F32),

@@ -307,8 +307,8 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
 //              for c_normals; rnd(bar_z) goes back into the A tile and out
 //              as the B rows; db from per-tile column sums of the unrounded
 //              bar_z, summed over tiles in a fixed order;
-//   dW         one rnb_dw_gemm product a layer over the bf16 rows
-//              (ops/albedo.py through ops/wg.py dw_gemm).
+//   dW         one grouped dW launch over the layers' bf16 rows
+//              (dw_gemm.cu; ops/albedo.py through ops/wg.py dw_products).
 // No pre-activation leaves the block; the only scratch is the bf16 operand
 // rows (A 1.7 KB and B 1.1 KB a point), written and read once.
 
@@ -607,7 +607,7 @@ extern "C" int rnb_albedo_fwd_wg(const float* pts, const float* nrm,
 
 // The bf16 backward sweep: fills the bf16 dW scratch (A rows at a_off, B
 // rows at bb_off, n rows of pad16(width) each), writes db, c_normals and
-// c_feat; the wrapper then runs rnb_dw_gemm per layer. w is the bf16 weight
+// c_feat; the wrapper then runs rnb_dw_products over all layers. w is the bf16 weight
 // image (ops/wg.py pack_weights) at w_off; dbp holds ceil(n/64)·Σ out
 // floats.
 extern "C" int rnb_albedo_bwd_wg(const float* pts, const float* nrm,

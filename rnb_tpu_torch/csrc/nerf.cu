@@ -465,8 +465,8 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 // the same fragment. The A rows x_l and B rows rnd(bar_z_l) go out as bf16
 // rows (5.3 + 4.9 KB a point, written and read once); db comes from
 // per-tile column sums of the unrounded bar_z, summed in a fixed order;
-// dW is one rnb_dw_gemm product per image layer (11). No f32 record leaves
-// the block.
+// dW is one grouped launch over the 11 image layers (dw_gemm.cu). No f32
+// record leaves the block.
 
 #include "wg_pipe.cuh"
 
@@ -854,7 +854,7 @@ extern "C" int rnb_nerf_fwd_wg(const float* pts, const float* views,
 // The bf16 backward sweep over the image layers (see nerf_bwd_wg_kernel):
 // fills the bf16 dW scratch (A rows at a_off, B rows at bb_off, n rows of
 // pad16(width) each) and writes db in image order; the wrapper then runs
-// rnb_dw_gemm per image layer and splits the head. dbp holds
+// rnb_dw_products over the image layers and splits the head. dbp holds
 // ceil(n/64)·Σ out floats.
 extern "C" int rnb_nerf_bwd_wg(const float* pts, const float* views,
                                long long n, int C, const void* w,

@@ -16,9 +16,10 @@
 //             The pts cotangent is zero (sample points never need one).
 //
 // Two routes, chosen by the op dtype (ops/sdf_core.py), never by failure:
-//   bf16 (the main path): sdf_fwd_wg_kernel<MODE>, sdf_bwd_wg_kernel and
-//             rnb_dw_gemm_kernel, products on the tensor cores (wgmma, bf16
-//             operands, f32 sums); the design is in front of them below.
+//   bf16 (the main path): sdf_fwd_wg_kernel<MODE> and sdf_bwd_wg_kernel,
+//             products on the tensor cores (wgmma, bf16 operands, f32
+//             sums), then the grouped dW product of dw_gemm.cu; the design
+//             is in front of them below.
 //   f32 (the f32 comparisons, e.g. the card-vs-CPU step parity):
 //             sdf_fwd_kernel<MODE>, sdf_bwd_kernel and the split-K
 //             reduction of common.cuh, products on the CUDA cores in fp32.
@@ -44,9 +45,10 @@
 //
 // What the bf16 route does about it: the products run on the tensor cores
 // (wgmma) from shared-memory operand tiles, the softplus pair of the
-// epilogues uses the fast intrinsics, and the dW sums are one split-K wgmma
-// product per layer over bf16 operand rows. What bounds it after that is
-// the CUDA-core epilogue between the products (PERF.md, kernel table).
+// epilogues uses the fast intrinsics, and the dW sums are one grouped wgmma
+// launch over every layer's bf16 operand rows (dw_gemm.cu). What bounds it
+// after that is the CUDA-core epilogue between the products (PERF.md,
+// kernel table).
 //
 // ptxas (-Xptxas -v, in _build.build_info["main"]["log"]; chip_smoke.py
 // prints it; the production instances are those at ring depth WG_RS = 4):
@@ -54,7 +56,6 @@
 //                                spill loads; 78,848 B dynamic shared memory
 //   sdf_bwd_wg_kernel<4>         128 registers, 28 B spill stores / loads;
 //                                119,808 B dynamic shared memory
-//   rnb_dw_gemm_kernel           128 registers, no spill; 98,304 B
 //   sdf_fwd_kernel<SDF_FULL>     128 registers, 72 B spill (f32 route)
 //   sdf_bwd_kernel               72 registers, no spill (f32 route)
 #include "common.cuh"
@@ -1112,72 +1113,6 @@ sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
 }
 
 // ---------------------------------------------------------------------------
-// dW = Aᵀ·B on the tensor cores: A [K, lda], B [K, ldb] bf16 row-major
-// (rows = primal and tangent rows of the points), dW [M, N] f32.
-// ---------------------------------------------------------------------------
-//
-// Grid (ceil(N/128), ceil(M/128), splits): a block of two warpgroups sums a
-// 128x128 tile of dW over one split of the rows (each warpgroup 64 rows of
-// M, N = 128), streaming 64-row stages of A and B through a ring of 3 with
-// cp.async; both operands are read MN-major (the points are K), zero-filled
-// past K and past lda / ldb. Per-split partial tiles are then summed in a
-// fixed order (rnb_sum_splits_kernel): deterministic, no atomics.
-// Stage rows and ring depth: deeper rings of smaller stages ran no faster
-// (PERF.md).
-#define DW_KS 64
-#define DW_RS 3
-#define DW_STG (2 * DW_KS * 128)
-
-static __global__ void __launch_bounds__(WG_NT, 2)
-rnb_dw_gemm_kernel(const rnb_bf16* __restrict__ A, int lda,
-                   const rnb_bf16* __restrict__ B, int ldb, long long K, int M,
-                   int N, long long kchunk, float* __restrict__ partial) {
-  extern __shared__ __align__(128) unsigned char wg_smem[];
-  rnb_bf16* ring = reinterpret_cast<rnb_bf16*>(wg_smem);
-  WG_FRAG_ROWS;
-  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * 128;
-  const long long kb = (long long)blockIdx.z * kchunk;
-  const long long ke = kb + kchunk < K ? kb + kchunk : K;
-  const int nk = (int)((ke - kb + DW_KS - 1) / DW_KS);
-  auto copy = [&](int s, rnb_bf16* st) {
-    for (int q = threadIdx.x; q < 2 * DW_KS * 16; q += WG_NT) {
-      const int which = q / (DW_KS * 16), rr = (q >> 4) % DW_KS, cb = q & 15;
-      const long long k = kb + (long long)s * DW_KS + rr;
-      const int col = (which ? n0 : m0) + cb * 8;
-      const int ld = which ? ldb : lda;
-      const bool ok = k < ke && col < ld;
-      const rnb_bf16* base = which ? B : A;
-      rnb_cp_async16(st + which * DW_KS * 128 + ((rr >> 3) * 16 + cb) * 64 +
-                         (rr & 7) * 8,
-                     ok ? base + k * ld + col : base, ok);
-    }
-  };
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  pipe_prologue<DW_RS, DW_STG>(ring, nk, copy);
-  pipe_run<DW_RS, DW_STG>(ring, nk, copy, [&](int s, const rnb_bf16* st) {
-#pragma unroll
-    for (int kk = 0; kk < DW_KS / 16; ++kk) {
-      const rnb_bf16* a = st + kk * 2 * 16 * 64 + wg * 8 * 64;
-      const rnb_bf16* bb = st + DW_KS * 128 + kk * 2 * 16 * 64;
-      rnb_wgmma_n128<1, 1>(acc, rnb_desc(a, 2048, 128),
-                           rnb_desc(bb, 2048, 128), 1);
-    }
-  });
-  float* out = partial + (long long)blockIdx.z * M * N;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int i = m0 + wg * 64 + r0 + 8 * h, jj = n0 + 8 * j + cq + u;
-        if (i < M && jj < N) out[(long long)i * N + jj] = acc[4 * j + 2 * h + u];
-      }
-}
-
-// ---------------------------------------------------------------------------
 // host side of the bf16 route
 // ---------------------------------------------------------------------------
 
@@ -1294,7 +1229,7 @@ static int sdf_bwd_wg_launch(const float* pts, long long n, const void* w,
 
 // The bf16 backward sweep: fills the bf16 dW scratch (A rows at a_off, B
 // rows at bb_off, 2n rows of pad16(width) each) and writes db; the wrapper
-// then runs rnb_dw_gemm per layer. rec_z / rec_t as rec of rnb_sdf_fwd_wg;
+// then runs rnb_dw_products (dw_gemm.cu) over all layers. rec_z / rec_t as rec of rnb_sdf_fwd_wg;
 // dbp holds ceil(n/64)·Σ out floats.
 extern "C" int rnb_sdf_bwd_wg(const float* pts, long long n, const void* w,
                               const float* b, const int* in_dims,
@@ -1312,33 +1247,6 @@ extern "C" int rnb_sdf_bwd_wg(const float* pts, long long n, const void* w,
                       n_layers))
     return (int)cudaErrorInvalidValue;
   return sdf_bwd_wg_launch<>(RNB_WG_BWD_ARGS);
-}
-
-// dw[M, N] = Σ_k a[k, :M]ᵀ b[k, :N] over K rows (bf16 in, f32 out), in
-// `splits` row splits of kchunk rows (a multiple of 64); partial holds
-// splits·M·N floats.
-extern "C" int rnb_dw_gemm(const void* a, int lda, const void* b, int ldb,
-                           long long K, int M, int N, long long kchunk,
-                           int splits, float* partial, float* dw,
-                           void* stream) {
-  if (lda % 8 || ldb % 8 || M > lda || N > ldb || kchunk % DW_KS ||
-      (long long)splits * kchunk < K)
-    return (int)cudaErrorInvalidValue;
-  const int smem = (int)(sizeof(rnb_bf16) * DW_RS * DW_STG);
-  cudaError_t err = cudaFuncSetAttribute(
-      rnb_dw_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  dim3 g((N + 127) / 128, (M + 127) / 128, splits);
-  rnb_dw_gemm_kernel<<<g, WG_NT, smem, st>>>(
-      static_cast<const rnb_bf16*>(a), lda, static_cast<const rnb_bf16*>(b),
-      ldb, K, M, N, kchunk, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long mn = (long long)M * N;
-  rnb_sum_splits_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-      partial, splits, mn, dw);
-  return (int)cudaGetLastError();
 }
 
 // The tile sweep's instances (rnb_tpu_torch/tools/tune_kernel.py): the

@@ -47,7 +47,8 @@ TUNE_DEPTHS = (3, 4, 5, 6)
 # nerf_bwd count the bf16 route (tensor-core kernels), the *_f32 keys the
 # f32 route (CUDA-core kernels);
 # sdf_dw_gemm, albedo_dw_gemm and nerf_dw_gemm count each bf16 backward's
-# per-layer dW products (ops/wg.py dw_gemm).
+# grouped dW launch (ops/wg.py dw_products; dw_gemm, a one-layer launch,
+# counts under the counter its caller names).
 launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
             "sdf_core_fwd_f32": 0, "sdf_core_bwd_f32": 0, "sdf_dw_gemm": 0,
             "albedo_fwd": 0, "albedo_bwd": 0, "albedo_fwd_f32": 0,
@@ -95,8 +96,10 @@ _SIGNATURES = {
     "rnb_sdf_bwd_wg": (_P, _LL, _P, _P, _IP, _IP, _IP, _IP, _LLP, _LLP, _LLP,
                        _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P),
-    # a, lda, b, ldb, K, M, N, kchunk, splits, partial, dw, stream
-    "rnb_dw_gemm": (_P, _I, _P, _I, _LL, _I, _I, _LL, _I, _P, _P, _P),
+    # a, b, n_layers, m, n, lda, ldb, a_off, b_off, k, chunk, splits, units,
+    # n_units, partial, dw, stream
+    "rnb_dw_products": (_P, _P, _I, _IP, _IP, _IP, _IP, _LLP, _LLP, _LL, _LL,
+                        _I, _P, _I, _P, _P, _P),
     # pts, nrm, feat, n, F, w, b, in_dims, out_dims, n_layers, multires,
     # out, stream
     "rnb_albedo_fwd": (_P, _P, _P, _LL, _I, _P, _P, _IP, _IP, _I, _I, _P,

@@ -5,8 +5,8 @@ Replaces ``rnb_tpu/ops/pallas_albedo.py`` (``_fwd_kernel`` :85,
 ``_bwd_kernel`` :101); the kernels are in ``csrc/albedo.cu``. Forward and
 backward have two routes by op dtype: bf16 (the training step's) on the
 tensor cores (``albedo_fwd_wg_kernel``; ``albedo_bwd_wg_kernel`` +
-``wg.dw_gemm``), both reading one bf16 weight image that the op packs once
-a forward-plus-backward (``wg_pack``); f32 on the CUDA cores.
+``wg.dw_products``), both reading one bf16 weight image that the op packs
+once a forward-plus-backward (``wg_pack``); f32 on the CUDA cores.
 
     forward:   x0 = [PE(p), PE(n), feat];  z_l = x_l @ W_l + b_l;
                x_{l+1} = relu(z_l);  out = sigmoid(z_last)
@@ -181,7 +181,7 @@ def albedo_bwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs, c_out,
     """Backward kernels for CUDA tensors, plain version for CPU tensors.
     -> (dws, dbs, c_normals, c_feat). The op dtype names the route, never a
     failure: bf16 runs the tensor-core sweep (``rnb_albedo_bwd_wg``) on
-    ``packed`` (as for ``albedo_fwd``) and one ``wg.dw_gemm`` per layer, f32
+    ``packed`` (as for ``albedo_fwd``) and one ``wg.dw_products`` launch, f32
     the CUDA-core sweep and split-K reduction (``rnb_albedo_bwd``)."""
     if not pts.is_cuda:
         return albedo_bwd_plain(cfg, pts, nrm, feat, ws, bs, c_out, dtype)

@@ -6,7 +6,7 @@ Replaces ``rnb_tpu/ops/pallas_nerf.py`` (``_fwd_kernel`` :105,
 ``_bwd_kernel`` :122); the kernels are in ``csrc/nerf.cu``, whose notes
 say what bounds them on the H100. Forward and backward have two routes by
 op dtype: bf16 (the training step's) on the tensor cores
-(``nerf_fwd_wg_kernel``; ``nerf_bwd_wg_kernel`` + ``wg.dw_gemm``), both
+(``nerf_fwd_wg_kernel``; ``nerf_bwd_wg_kernel`` + ``wg.dw_products``), both
 over the image layers of ``wg_weights`` in one bf16 weight image that the
 op packs once a forward-plus-backward (``wg_pack``); f32 on the CUDA cores.
 
@@ -244,8 +244,8 @@ def nerf_bwd(cfg: NeRFConfig, pts, views, ws, bs, c_alpha, c_rgb,
     """Backward kernels for CUDA tensors, plain version for CPU tensors.
     -> (dws, dbs). The op dtype names the route, never a failure: bf16 runs
     the tensor-core sweep (``rnb_nerf_bwd_wg``) on ``packed`` (as for
-    ``nerf_fwd``) and one ``wg.dw_gemm`` per image layer, f32 the CUDA-core
-    sweep and split-K reduction (``rnb_nerf_bwd``)."""
+    ``nerf_fwd``) and one ``wg.dw_products`` launch over the image layers,
+    f32 the CUDA-core sweep and split-K reduction (``rnb_nerf_bwd``)."""
     if not pts.is_cuda:
         return nerf_bwd_plain(cfg, pts, views, ws, bs, c_alpha, c_rgb, dtype)
     if _build.bf16_flag(dtype):

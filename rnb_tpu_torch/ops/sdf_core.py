@@ -246,7 +246,7 @@ def launch_fwd(cfg: SDFConfig, pts, ws, bs, entry="rnb_sdf_fwd", lead=()):
 # ---------------------------------------------------------------------------
 
 TILE, pack_weights = wg.TILE, wg.pack_weights
-dw_gemm_plain, dw_gemm_splits = wg.dw_gemm_plain, wg.dw_gemm_splits
+dw_gemm_plain = wg.dw_gemm_plain
 # the SDF core's dW products count under sdf_dw_gemm
 dw_gemm = functools.partial(wg.dw_gemm, counter="sdf_dw_gemm")
 
@@ -317,8 +317,8 @@ def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
                  dtype=torch.bfloat16):
     """Backward kernels for a CUDA tensor, plain version for a CPU tensor.
     -> (dws, dbs). bf16: the tensor-core sweep (``rnb_sdf_bwd_wg``) and one
-    ``dw_gemm`` per layer; f32: the CUDA-core sweep and split-K reduction
-    (``rnb_sdf_bwd``)."""
+    ``wg.dw_products`` launch over the layers; f32: the CUDA-core sweep and
+    split-K reduction (``rnb_sdf_bwd``)."""
     if not pts.is_cuda:
         return sdf_core_bwd_plain(cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
                                   dtype)

@@ -1,13 +1,14 @@
 """Host side of the tensor-core (bf16) routes of ``sdf_core``, ``albedo``
 and ``nerf``: the padded bf16 weight image that their wgmma sweep kernels
 stream (``csrc/wg_pipe.cuh``), the offsets of the bf16 dW operand rows the
-sweeps write, and the split-K dW product ``dw_gemm`` (``rnb_dw_gemm`` in
-``csrc/sdf_core.cu``) that sums those rows into dW.
+sweeps write, and the grouped dW product (``rnb_dw_products`` in
+``csrc/dw_gemm.cu``) that sums those rows into dW.
 
 Each sweep writes, per layer l of [in_l, out_l], the layer's A rows (its
 input, [rows, pad16(in_l)]) and B rows (its rounded pre-activation
-cotangent, [rows, pad16(out_l)]) as bf16; dW_l = A_lᵀ B_l is then one
-``dw_gemm`` over all rows: deterministic, no atomics.
+cotangent, [rows, pad16(out_l)]) as bf16; dW_l = A_lᵀ B_l for every layer
+is then one launch over a work list of units (layer, m-tile, n-tile, row
+split) and one fixed-order sum of the row splits: deterministic, no atomics.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from rnb_tpu_torch.ops import _build
 
 TILE = 64            # points per block of the tensor-core sweep kernels
 RING_DEPTH = 4       # their cp.async ring's stages, WG_RS of csrc/wg_pipe.cuh
-DW_ROWS = 64         # rows per stage of the dW product
+DW_ROWS = 64         # rows per stage of the dW product (a TMA box)
+DW_TILE_M = 128      # rows of dW a unit sums (two consumer warpgroups)
+DW_SMS = 132         # the H100 SXM's SMs: about one dW unit each
 
 
 def _pad16(x: int) -> int:
@@ -66,64 +69,134 @@ def dw_gemm_plain(a, b, m: int, n: int):
     return a[:, :m].float().T @ b[:, :n].float()
 
 
-def dw_gemm_splits(m: int, n: int, k: int, splits: int | None = None):
-    """(splits, rows per split) of the dW product: about two blocks an SM on
-    the card's 132 SMs, each split a multiple of 64 rows. A given
-    ``splits`` (the tile sweep's) replaces that count; its chunk is rounded
-    up to 64 rows the same way, so fewer splits may result."""
+def dw_tiles(m: int, n: int) -> list:
+    """The (m0, n0, bn) tiles of one [m, n] dW: 128 rows of m (the two
+    consumer warpgroups' 64 each) by bn columns, bn 256, or 128 or 64 for
+    the last columns (the narrowest that covers them); the m-tiles of one
+    n-tile are neighbours."""
+    ns, n0 = [], 0
+    while n0 < n:
+        rem = n - n0
+        bn = 256 if rem > 128 else 128 if rem > 64 else 64
+        ns.append((n0, bn))
+        n0 += bn
+    return [(m0, n0, bn) for n0, bn in ns for m0 in range(0, m, DW_TILE_M)]
+
+
+def dw_splits(shapes: Sequence, k: int, splits: int | None = None):
+    """(splits, rows per split) of the dW products of ``shapes`` ([(m, n)]
+    a layer) over k rows: by default about one unit an SM of the H100's
+    132 (a function of the shapes alone, never of the card the call runs
+    on), each split a multiple of 64 rows. A given ``splits`` (the tile
+    sweep's) replaces that count; its chunk is rounded up to 64 rows the
+    same way, so fewer splits may result."""
     if splits is None:
-        tiles = -(-m // 128) * -(-n // 128)
-        splits = max(1, min(-(-264 // tiles), -(-k // (8 * DW_ROWS))))
+        tiles = sum(len(dw_tiles(m, n)) for m, n in shapes)
+        splits = max(1, min(DW_SMS // tiles, -(-k // DW_ROWS)))
     elif splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
-    chunk = -(-k // splits)
+    chunk = -(-max(k, 1) // splits)
     chunk = -(-chunk // DW_ROWS) * DW_ROWS
-    return -(-k // chunk), chunk
+    return max(1, -(-k // chunk)), chunk
 
 
-def dw_gemm(a, b, m: int, n: int, partial=None, *, counter: str,
+def dw_work(shapes: Sequence, k: int, splits: int | None = None):
+    """The work list of the grouped dW kernel: (units, splits, chunk), each
+    unit (layer, m0, n0, bn, split), layer by layer, split by split, the
+    tiles of ``dw_tiles`` within. Every element (i, j) of every layer's dW
+    lies in exactly one tile, which each split sums once over its rows."""
+    splits, chunk = dw_splits(shapes, k, splits)
+    units = [(l, m0, n0, bn, s) for l, (m, n) in enumerate(shapes)
+             for s in range(splits) for m0, n0, bn in dw_tiles(m, n)]
+    return units, splits, chunk
+
+
+_WORK = {}   # (shapes, k, splits, device) -> (int32 units [U, 4], splits, chunk)
+
+
+def _work_on(shapes, k: int, splits, dev):
+    """``dw_work`` as the kernel reads it, a [U, 4] int32 tensor of (layer |
+    bn << 8, m0, n0, split) on ``dev``, built once per shape and cached."""
+    key = (tuple(shapes), k, splits, str(dev))
+    if key not in _WORK:
+        if len(_WORK) >= 64:   # a few shapes a run; never grows unbounded
+            _WORK.clear()
+        units, s, chunk = dw_work(shapes, k, splits)
+        rows = [(l | bn << 8, m0, n0, sp) for l, m0, n0, bn, sp in units]
+        _WORK[key] = (torch.tensor(rows, dtype=torch.int32, device=dev), s, chunk)
+    return _WORK[key]
+
+
+def _dw_launch(a, b, shapes, lds_a, lds_b, a_off, b_off, k: int,
+               counter: str, splits):
+    """The grouped kernel over the layers of ``shapes`` (A_l at a[a_off[l]:]
+    as [k, lds_a[l]], B_l likewise): one launch and its fixed-order split
+    sum, one count under ``counter``. -> [dW_l]"""
+    units, splits, chunk = _work_on(shapes, k, splits, a.device)
+    sizes = [m * n for m, n in shapes]
+    partial = torch.empty(splits * sum(sizes), device=a.device)
+    dw = torch.empty(sum(sizes), device=a.device)
+    with torch.cuda.device(a.device):
+        rc = _build.library().rnb_dw_products(
+            a.data_ptr(), b.data_ptr(), len(shapes),
+            _build.int_array([m for m, _ in shapes]),
+            _build.int_array([n for _, n in shapes]),
+            _build.int_array(lds_a), _build.int_array(lds_b),
+            _build.ll_array(a_off), _build.ll_array(b_off), k, chunk, splits,
+            units.data_ptr(), units.shape[0], partial.data_ptr(),
+            dw.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "rnb_dw_products")
+    _build.launches[counter] += 1
+    return [t.view(m, n) for t, (m, n) in zip(dw.split(sizes), shapes)]
+
+
+def _check_operands(a, b, what: str):
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or not a.is_contiguous() or not b.is_contiguous()
+            or a.data_ptr() % 16 or b.data_ptr() % 16
+            or a.device != b.device):
+        raise ValueError(f"{what} takes contiguous, 16-byte aligned bf16 "
+                         "operands on one device")
+
+
+def dw_gemm(a, b, m: int, n: int, *, counter: str,
             splits: int | None = None):
     """dW [m, n] = a[:, :m]ᵀ · b[:, :n] summed over the rows of the [K, lda]
-    and [K, ldb] bf16 operands (lda, ldb multiples of 8): the tensor-core
-    split-K kernel (``rnb_dw_gemm``) for CUDA tensors, deterministic, which
-    adds one to ``_build.launches[counter]``; ``dw_gemm_plain`` for CPU
-    tensors. ``partial`` is an optional f32 scratch of at least
-    splits·m·n floats; ``splits`` as ``dw_gemm_splits`` takes it (None:
-    the production choice)."""
+    and [K, ldb] bf16 operands (lda, ldb multiples of 8): the grouped
+    kernel (``rnb_dw_products``) on a one-layer list for CUDA tensors,
+    deterministic, which adds one to ``_build.launches[counter]``;
+    ``dw_gemm_plain`` for CPU tensors. ``splits`` as ``dw_splits`` takes it
+    (None: the production choice)."""
     if not a.is_cuda:
         return dw_gemm_plain(a, b, m, n)
-    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2
-            or b.dim() != 2 or a.shape[0] != b.shape[0] or a.shape[1] % 8
-            or b.shape[1] % 8 or m > a.shape[1] or n > b.shape[1]
-            or not a.is_contiguous() or not b.is_contiguous()):
-        raise ValueError("dw_gemm takes two contiguous [K, 8j] bf16 matrices "
-                         "of the same row count")
-    k = a.shape[0]
-    splits, chunk = dw_gemm_splits(m, n, k, splits)
-    if partial is None or partial.numel() < splits * m * n:
-        partial = torch.empty(splits * m * n, device=a.device)
-    dw = torch.empty(m, n, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = _build.library().rnb_dw_gemm(
-            a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1], k, m, n, chunk,
-            splits, partial.data_ptr(), dw.data_ptr(),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "rnb_dw_gemm")
-    _build.launches[counter] += 1
-    return dw
+    _check_operands(a, b, "dw_gemm")
+    if (a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]
+            or a.shape[1] % 8 or b.shape[1] % 8 or not 0 < m <= a.shape[1]
+            or not 0 < n <= b.shape[1]):
+        raise ValueError("dw_gemm takes two [K, 8j] bf16 matrices of the "
+                         "same row count, m and n within their widths")
+    return _dw_launch(a, b, [(m, n)], [a.shape[1]], [b.shape[1]], [0], [0],
+                      a.shape[0], counter, splits)[0]
 
 
-def dw_products(abuf, bbuf, lay: dict, rows: int, counter: str):
+def dw_products(abuf, bbuf, lay: dict, rows: int, counter: str,
+                splits: int | None = None):
     """dW_l = A_lᵀ B_l for every layer of ``lay`` from the bf16 dW scratch
-    a sweep filled (``rows`` rows a layer), one ``dw_gemm`` each."""
-    dev = abuf.device
-    pairs = list(zip(lay["in_dims"], lay["out_dims"]))
-    partial = torch.empty(max(dw_gemm_splits(i, o, rows)[0] * i * o
-                              for i, o in pairs), device=dev)
-    dws = []
-    for l, (i, o) in enumerate(pairs):
-        kp, np_ = lay["kp"][l], lay["np"][l]
-        a = abuf[lay["a_off"][l]:lay["a_off"][l] + rows * kp].view(rows, kp)
-        b = bbuf[lay["bb_off"][l]:lay["bb_off"][l] + rows * np_].view(rows, np_)
-        dws.append(dw_gemm(a, b, i, o, partial, counter=counter))
-    return dws
+    a sweep filled (``rows`` rows a layer): one grouped launch for CUDA
+    tensors (counted once under ``counter``), ``dw_gemm_plain`` a layer
+    for CPU tensors. ``splits`` as ``dw_splits`` takes it."""
+    shapes = list(zip(lay["in_dims"], lay["out_dims"]))
+    if not abuf.is_cuda:
+        return [dw_gemm_plain(
+            abuf[ao:ao + rows * kp].view(rows, kp),
+            bbuf[bo:bo + rows * np_].view(rows, np_), i, o)
+            for (i, o), kp, np_, ao, bo in zip(
+                shapes, lay["kp"], lay["np"], lay["a_off"], lay["bb_off"])]
+    _check_operands(abuf, bbuf, "dw_products")
+    if (abuf.dim() != 1 or bbuf.dim() != 1
+            or abuf.numel() < lay["a_off"][-1] + rows * lay["kp"][-1]
+            or bbuf.numel() < lay["bb_off"][-1] + rows * lay["np"][-1]):
+        raise ValueError("dw_products takes the flat dW scratch that "
+                         "wg.offsets lays out")
+    return _dw_launch(abuf, bbuf, shapes, lay["kp"], lay["np"], lay["a_off"],
+                      lay["bb_off"], rows, counter, splits)

@@ -1,6 +1,6 @@
 """Tile sweep of the SDF core's tensor-core kernels on one CUDA card: the
-cp.async ring depth of the forward and backward sweeps, and the split
-count of the dW product (the port's counterpart of
+cp.async ring depth of the forward and backward sweeps, and the row-split
+count of the grouped dW product (the port's counterpart of
 ``tools/tune_kernel.py``, which swept the Pallas block sizes).
 
     python -m rnb_tpu_torch.tools.tune_kernel [--n 65536] [--iters 30]
@@ -14,10 +14,12 @@ Shipped SDF net (8x256; geometric init from seed 3, its ``v`` moved by
   fwd_bwd   forward plus backward (``sdf_core_bwd_tune``, then the
             production dW products) at each depth of ``--bwd_rs``, both at
             that depth (``ms``), and the backward alone (``bwd_ms``);
-  splits    ``ops.wg.dw_gemm`` on one 256x256 layer over 131,072 rows at
-            each count of ``--splits`` (default: today's choice
-            ``dw_gemm_splits``, its half and double, and 1), beside one
-            torch.matmul of the same operands.
+  splits    ``ops.wg.dw_products`` over the SDF core's 9 layers
+            (``sdf_core.wg_layout``) on 2·``--n`` rows of bf16 operands
+            (N(0, 1) from a card generator, seed 6) at each count of
+            ``--splits`` (default ``split_axis``: today's choice
+            ``dw_splits``, its half and double, and 1), beside one
+            torch.matmul a layer of the same operands.
 
 The depth instances come from the tune library (``_build.library("tune")``,
 built only here: ``build/kernels/librnb_kernels_tune_<hash>.so``). The
@@ -50,7 +52,12 @@ from rnb_tpu_torch.tools.ablate_kernel import card, cuda_ms
 from rnb_tpu_torch.tools.bench import device_or_exit
 
 TOL = 1e-2          # bf16 operands, relative to the plain result's norm
-DW_ROWS, DW_WIDTH = 131072, 256
+
+
+def split_axis(prod: int) -> list:
+    """The split counts the sweep times by default: today's, its half and
+    double, and 1."""
+    return [prod, max(prod // 2, 1), 2 * prod, 1]
 
 
 def rel_err(got, want) -> tuple:
@@ -168,21 +175,28 @@ def main(argv=None) -> dict:
         emit(row)
     del fwd_plain, fwd_prod, bwd_plain, bwd_prod
 
-    a = draw(DW_ROWS, DW_WIDTH).to(bf16)
-    b = draw(DW_ROWS, DW_WIDTH).to(bf16)
-    prod_splits = wg.dw_gemm_splits(DW_WIDTH, DW_WIDTH, DW_ROWS)[0]
-    splits = args.splits or [prod_splits, max(prod_splits // 2, 1),
-                             2 * prod_splits, 1]
-    dw_plain = [wg.dw_gemm_plain(a, b, DW_WIDTH, DW_WIDTH)]
-    for s in splits:
-        eff, chunk = wg.dw_gemm_splits(DW_WIDTH, DW_WIDTH, DW_ROWS, s)
+    rows_k = 2 * args.n
+    lay = sdf_core.wg_layout(cfg, ws, args.n)
+    shapes = list(zip(lay["in_dims"], lay["out_dims"]))
+    dgen = torch.Generator(device=dev).manual_seed(6)   # 1.1 GB: on the card
+    abuf = torch.randn(lay["a_len"], generator=dgen, device=dev).to(bf16)
+    bbuf = torch.randn(lay["b_len"], generator=dgen, device=dev).to(bf16)
+    ops = [(abuf[ao:ao + rows_k * kp].view(rows_k, kp)[:, :i],
+            bbuf[bo:bo + rows_k * np_].view(rows_k, np_)[:, :o])
+           for ao, bo, kp, np_, (i, o) in zip(lay["a_off"], lay["bb_off"],
+                                              lay["kp"], lay["np"], shapes)]
+    prod_splits = wg.dw_splits(shapes, rows_k)[0]
+    dw_plain = [x.float().T @ y.float() for x, y in ops]
+    for s in args.splits or split_axis(prod_splits):
+        eff, chunk = wg.dw_splits(shapes, rows_k, s)
         emit(checked_row(
             {"axis": "splits", "splits": s, "effective_splits": eff,
-             "chunk": chunk, "rows": DW_ROWS, "width": DW_WIDTH},
-            lambda s=s: [wg.dw_gemm(a, b, DW_WIDTH, DW_WIDTH, splits=s,
-                                    counter="sdf_dw_gemm")],
+             "chunk": chunk, "rows": rows_k, "layers": len(shapes)},
+            lambda s=s: wg.dw_products(abuf, bbuf, lay, rows_k, "sdf_dw_gemm",
+                                       splits=s),
             dw_plain, args.iters))
-    matmul_ms = event_turns(lambda: torch.matmul(a.T, b), args.iters)["ms"]
+    matmul_ms = event_turns(lambda: [torch.matmul(x.T, y) for x, y in ops],
+                            args.iters)["ms"]
 
     summary = {
         "n": args.n, "iters": args.iters, "card": card(),

@@ -9,7 +9,8 @@ times (a CPU time is no device metric).
   * every timing tool exits non-zero without a CUDA device (bench_step also
     with RNB_SWEEP_REMAT=1), and bench and roofline with --device cpu print
     their whole JSON line, marked "cpu", with no peak share;
-  * dw_gemm's split count on the plain path, and its chunk rounding;
+  * the dW products' split count on the plain path, its chunk rounding,
+    and the tile sweep's split axis;
   * the tile sweep never times an instance that failed;
   * consolidate_parity's rows from hand-written records;
   * bench_scaling --device cpu at widths 1 and 2 over gloo.
@@ -29,7 +30,7 @@ import torch
 
 from rnb_tpu.models import fields as jfields
 from rnb_tpu_torch.ops import _build, wg
-from rnb_tpu_torch.tools import (bench, bench_scaling, bench_step,
+from rnb_tpu_torch.tools import (bench, bench_dw, bench_scaling, bench_step,
                                  consolidate_parity, roofline, tune_kernel)
 from rnb_tpu_torch.utils import bridge
 
@@ -125,7 +126,7 @@ def test_peak_table_refuses_an_unknown_card():
 
 
 @pytest.mark.parametrize("tool", [bench, bench_step, roofline, tune_kernel,
-                                  bench_scaling],
+                                  bench_scaling, bench_dw],
                          ids=lambda t: t.__name__.split(".")[-1])
 def test_tools_need_cuda(no_cuda, tool):
     """Without a CUDA device each timing tool exits non-zero, naming it,
@@ -201,22 +202,32 @@ def test_roofline_cpu_line(capsys):
 
 @pytest.mark.parametrize("splits", [1, 2, 4])
 def test_dw_gemm_splits_on_the_plain_path(splits):
-    """On the CPU dw_gemm runs its plain product whatever the split count,
-    equal to the default's and launching nothing; on the card the count
-    sets the chunk, rounded up to 64 rows, so the splits cover every row
-    and never exceed the count asked for."""
+    """On the CPU dw_gemm and dw_products run their plain products whatever
+    the split count, equal to the default's and launching nothing; on the
+    card the count sets the grouped kernel's chunk, rounded up to 64 rows,
+    so the splits cover every row and never exceed the count asked for.
+    The tile sweep's default axis is the production count, its half and
+    double, and 1."""
     gen = torch.Generator().manual_seed(4)
     a = torch.randn(1037, 48, generator=gen).to(torch.bfloat16)
     b = torch.randn(1037, 272, generator=gen).to(torch.bfloat16)
     before = dict(_build.launches)
     got = wg.dw_gemm(a, b, 39, 257, counter="sdf_dw_gemm", splits=splits)
     assert torch.equal(got, wg.dw_gemm(a, b, 39, 257, counter="sdf_dw_gemm"))
+    lay = wg.offsets([39, 256], [256, 257], 1037)
+    abuf = torch.randn(lay["a_len"], generator=gen).to(torch.bfloat16)
+    bbuf = torch.randn(lay["b_len"], generator=gen).to(torch.bfloat16)
+    got = wg.dw_products(abuf, bbuf, lay, 1037, "sdf_dw_gemm", splits=splits)
+    want = wg.dw_products(abuf, bbuf, lay, 1037, "sdf_dw_gemm")
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert _build.launches == before
+    shapes = [(39, 256), (256, 256), (256, 257)]
     for k in (1037, 131072):
-        eff, chunk = wg.dw_gemm_splits(256, 256, k, splits)
+        eff, chunk = wg.dw_splits(shapes, k, splits)
         assert chunk % wg.DW_ROWS == 0 and eff <= splits
         assert eff * chunk >= k > (eff - 1) * chunk
-    assert wg.dw_gemm_splits(256, 256, 131072) == (64, 2048)
+    assert wg.dw_splits([(256, 256)], 131072) == (64, 2048)
+    assert tune_kernel.split_axis(6) == [6, 3, 12, 1]
 
 
 def test_tune_never_times_a_failed_instance(monkeypatch):

@@ -52,7 +52,7 @@ def test_port_imports_no_jax():
               "tools.run_e2e", "tools.multinode_smoke",
               "tools.predict_scaling", "tools.bench", "tools.bench_step",
               "tools.roofline", "tools.tune_kernel", "tools.bench_scaling",
-              "tools.consolidate_parity"):
+              "tools.consolidate_parity", "tools.bench_dw"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"
@@ -200,3 +200,21 @@ def test_chip_smoke_bounds_count_least_work():
     nw = nerf.flatten_params(fields.init_nerf(gen, ncfg, "cpu"))[0]
     assert smoke.albedo_bwd_macs(acfg, aw) == 145_664 + 138_752 + 145_664
     assert smoke.nerf_bwd_macs(ncfg, nw) == 603_520 + 557_696 + 604_160
+
+
+def test_chip_smoke_holds_one_dw_launch_a_backward():
+    """The smoke's launch checks hold each path to one grouped dW launch a
+    bf16 backward: a count of one a layer (the design before the grouped
+    kernel: 9 a SDF backward) fails."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.check_dw_launches({"sdf_core_bwd": 20, "sdf_dw_gemm": 20,
+                             "albedo_bwd": 20, "albedo_dw_gemm": 20,
+                             "nerf_fwd": 20}, "wmask")
+    with pytest.raises(AssertionError, match="sdf_dw_gemm"):
+        smoke.check_dw_launches({"sdf_core_bwd": 20, "sdf_dw_gemm": 180},
+                                "per layer")
+    with pytest.raises(AssertionError, match="nerf_dw_gemm"):
+        smoke.check_dw_launches({"nerf_bwd": 20}, "no dW")

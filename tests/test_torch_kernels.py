@@ -13,7 +13,11 @@ the albedo and NeRF forwards and backwards run both of their routes: bf16
 on the tensor cores, f32 on the CUDA cores. Tolerances, relative to the norm of
 the plain result: 1e-4 at f32 operands (summation order only), 1e-2 at bf16
 operands (a different summation order can flip the bf16 rounding of an
-activation, one bf16 ulp = 2^-8 relative). The tile sweep's library
+activation, one bf16 ulp = 2^-8 relative). The grouped dW product
+(``wg.dw_products``, csrc/dw_gemm.cu) is held within 1e-5 of the f32
+product (bf16 operands: only the order of f32 sums differs), its TMA
+boxes one piece at a time and each shipped backward's layers in one
+launch, bit for bit from call to call. The tile sweep's library
 (``_build.library("tune")``: the SDF core's sweeps at ring depths 3-6) is
 held bit for bit against the production kernels at every depth (the depth
 changes no sum's order), and against the plain version.
@@ -79,9 +83,9 @@ def _sdf_setup(dev, n=N):
 
 
 # the counters of each route: bf16 runs the tensor-core kernels (and one
-# dW product per layer), f32 the CUDA-core kernels
+# grouped dW launch a backward), f32 the CUDA-core kernels
 ROUTE = {torch.bfloat16: {"sdf_core_fwd": 1, "sdf_core_bwd": 1,
-                          "sdf_dw_gemm": 9},
+                          "sdf_dw_gemm": 1},
          torch.float32: {"sdf_core_fwd_f32": 1, "sdf_core_bwd_f32": 1}}
 
 
@@ -129,6 +133,61 @@ def test_dw_gemm_matches_plain(cuda):
     assert torch.equal(got, sdf_core.dw_gemm(a, b, 39, 257))
 
 
+@pytest.mark.parametrize("k,m,n,lda,ldb", [
+    (64, 64, 64, 64, 64),      # one 64x64 box of each operand, one stage
+    (64, 64, 256, 64, 256),    # B: four boxes along N (the LBO stride)
+    (64, 128, 64, 128, 64),    # A: both consumer warpgroups
+    (200, 256, 257, 256, 272), # the SDF head: a 256 tile and a 64 tile
+    (130, 310, 3, 320, 16)])   # three m-tiles, the last 54 rows; n = 3
+def test_dw_gemm_boxes(cuda, k, m, n, lda, ldb):
+    """The swizzled TMA boxes and their wgmma descriptors, one piece at a
+    time from a single box up, against the plain product."""
+    gen = torch.Generator().manual_seed(6)
+    a = torch.randn(k, lda, generator=gen).to(torch.bfloat16).to(cuda)
+    b = torch.randn(k, ldb, generator=gen).to(torch.bfloat16).to(cuda)
+    _close([wg.dw_gemm(a, b, m, n, counter="sdf_dw_gemm")],
+           [wg.dw_gemm_plain(a, b, m, n)], 1e-5)
+
+
+def _shipped_layout(which, rows):
+    if which == "sdf":
+        cfg = fields.SDFConfig()
+        ws = [fields.fold_weight_norm(l) for l in fields.init_sdf_network(
+            torch.Generator().manual_seed(0), cfg, "cpu")]
+        return sdf_core.wg_layout(cfg, ws, rows // 2), "sdf_dw_gemm"
+    if which == "albedo":
+        ws = [fields.fold_weight_norm(l) for l in fields.init_rendering_network(
+            torch.Generator().manual_seed(1), fields.RenderingConfig(), "cpu")]
+        return albedo.wg_layout(ws, rows), "albedo_dw_gemm"
+    cfg = fields.NeRFConfig()
+    ws, _ = nerf.flatten_params(fields.init_nerf(
+        torch.Generator().manual_seed(2), cfg, device="cpu"))
+    return nerf.wg_layout(cfg, ws, rows), "nerf_dw_gemm"
+
+
+@pytest.mark.parametrize("rows", [1037, 517, 520, 7])
+@pytest.mark.parametrize("which", ["sdf", "albedo", "nerf"])
+def test_dw_products_match_plain(cuda, which, rows):
+    """The grouped dW kernel over every layer of a shipped layout (one
+    launch, counted once) against dw_gemm_plain a layer, at ragged row
+    counts and one under a 64-row stage (the SDF core's rows come in
+    primal and tangent pairs: 1036 for 1037); two calls equal bit for
+    bit."""
+    rows -= rows % 2 if which == "sdf" else 0
+    lay, counter = _shipped_layout(which, rows)
+    gen = torch.Generator().manual_seed(7)
+    abuf = torch.randn(lay["a_len"], generator=gen).to(torch.bfloat16).to(cuda)
+    bbuf = torch.randn(lay["b_len"], generator=gen).to(torch.bfloat16).to(cuda)
+    n0 = dict(_build.launches)
+    got = wg.dw_products(abuf, bbuf, lay, rows, counter)
+    torch.cuda.synchronize()
+    assert _moved(n0) == {counter: 1}
+    want = wg.dw_products(abuf.cpu(), bbuf.cpu(), lay, rows, counter)
+    _close(got, [w.to(cuda) for w in want], 1e-5)
+    again = wg.dw_products(abuf, bbuf, lay, rows, counter)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 def _albedo_setup(dev, n=N):
     cfg = fields.RenderingConfig()
     gen = torch.Generator().manual_seed(1)
@@ -145,10 +204,10 @@ def _albedo_setup(dev, n=N):
 
 # the albedo and NeRF counters of each route
 ALB_ROUTE = {torch.bfloat16: {"albedo_fwd": 1, "albedo_bwd": 1,
-                              "albedo_dw_gemm": 3},
+                              "albedo_dw_gemm": 1},
              torch.float32: {"albedo_fwd_f32": 1, "albedo_bwd_f32": 1}}
 NERF_ROUTE = {torch.bfloat16: {"nerf_fwd": 1, "nerf_bwd": 1,
-                               "nerf_dw_gemm": 11},
+                               "nerf_dw_gemm": 1},
               torch.float32: {"nerf_fwd_f32": 1, "nerf_bwd_f32": 1}}
 
 
@@ -343,7 +402,7 @@ def test_tune_library_depth4_is_production(cuda):
     torch.cuda.synchronize()
     assert _moved(n0) == {"sdf_core_fwd_rs4": 1, "sdf_core_bwd_rs4": 1,
                           "sdf_core_fwd": 1, "sdf_core_bwd": 1,
-                          "sdf_dw_gemm": 18}
+                          "sdf_dw_gemm": 2}
 
 
 @pytest.mark.parametrize("depth", [d for d in _build.TUNE_DEPTHS
@@ -381,7 +440,8 @@ def test_tune_library_refuses_unbuilt_depths(cuda, depth):
 
 @pytest.mark.parametrize("splits", [1, 2, 7])
 def test_dw_gemm_split_counts(cuda, splits):
-    """dw_gemm at a split count of the sweep's against the plain product."""
+    """dw_gemm at a split count of the sweep's (the grouped kernel's row
+    splits) against the plain product."""
     gen = torch.Generator().manual_seed(4)
     a = torch.randn(1037, 48, generator=gen).to(torch.bfloat16).to(cuda)
     b = torch.randn(1037, 272, generator=gen).to(torch.bfloat16).to(cuda)

@@ -7,8 +7,8 @@ wrappers build for them is checked here: the padded bf16 weight image
 outputs; albedo 310 -> 320; the NeRF's 84 -> 96 PE, 340 -> 352 skip input
 held as [h, e], 283 -> 288 views input and fused [feature | alpha] head of
 256 x 257 -> 272) and its offsets, the column where the skip input's e
-lands, the dW scratch offsets, the dW product's split of the rows, and the
-NeRF's image layers mapped back to its 12 layers.
+lands, the dW scratch offsets, the grouped dW kernel's work list (tiles,
+row splits), and the NeRF's image layers mapped back to its 12 layers.
 """
 
 import numpy as np
@@ -113,10 +113,13 @@ def test_unsupported_shapes_raise():
 @pytest.mark.parametrize("m,n,k", [(256, 256, 2 * 65536), (39, 257, 2 * 65573),
                                    (256, 217, 100), (39, 257, 7)])
 def test_dw_gemm_splits_cover_the_rows(m, n, k):
-    splits, chunk = sdf_core.dw_gemm_splits(m, n, k)
+    """One product's row splits: multiples of 64 rows that cover the k rows
+    with no empty split, and at most one unit (tile x split) an SM of the
+    132 that the work list is sized for."""
+    splits, chunk = wg.dw_splits([(m, n)], k)
     assert chunk % 64 == 0 and splits * chunk >= k > (splits - 1) * chunk
-    blocks = -(-m // 128) * -(-n // 128) * splits
-    assert blocks <= 2 * 132 + 4 * 3 or splits == 1
+    units = len(wg.dw_tiles(m, n)) * splits
+    assert units <= wg.DW_SMS or splits == 1
 
 
 def test_dw_gemm_plain_on_the_cpu():
@@ -136,7 +139,6 @@ def test_sdf_core_keeps_the_shared_pieces():
     under sdf_dw_gemm."""
     assert sdf_core.pack_weights is wg.pack_weights
     assert sdf_core.dw_gemm_plain is wg.dw_gemm_plain
-    assert sdf_core.dw_gemm_splits is wg.dw_gemm_splits
     assert sdf_core.dw_gemm.keywords == {"counter": "sdf_dw_gemm"}
     assert "sdf_dw_gemm" in _build.launches
     lay = sdf_core.wg_layout(SHIPPED, _weights(SHIPPED), n=10)
@@ -285,3 +287,54 @@ def test_nerf_image_dw_maps_back(cfg):
     for g, w in zip(got_w + got_b, want_w + want_b):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _shipped_shapes(which):
+    """[(in, out)] a layer of the dW products of a shipped backward."""
+    if which == "sdf":
+        lay = sdf_core.wg_layout(SHIPPED, _weights(SHIPPED))
+    elif which == "albedo":
+        lay = albedo.wg_layout(_albedo_weights(fields.RenderingConfig()))
+    else:
+        lay = nerf.wg_layout(NERF_SHIPPED, _nerf_weights(NERF_SHIPPED)[0])
+    return list(zip(lay["in_dims"], lay["out_dims"]))
+
+
+@pytest.mark.parametrize("rows", [2 * 65536, 67584, 2 * 65573, 1037, 7])
+@pytest.mark.parametrize("which", ["sdf", "albedo", "nerf"])
+def test_dw_work_covers_every_element_once(which, rows):
+    """The grouped dW kernel's work list: every (layer, i, j, split) of the
+    shipped layouts lies in exactly one unit, at the main path's rows and
+    ragged ones; the splits cover the rows; tiles are 128 rows by 256, 128
+    or 64 columns, the narrow ones only at a layer's last columns."""
+    shapes = _shipped_shapes(which)
+    units, splits, chunk = wg.dw_work(shapes, rows)
+    assert chunk % wg.DW_ROWS == 0
+    assert splits * chunk >= rows > (splits - 1) * chunk
+    seen = [np.zeros((splits, -(-m // 128) * 128, -(-n // 64) * 64 + 256),
+                     dtype=np.int32) for m, n in shapes]
+    for l, m0, n0, bn, s in units:
+        assert m0 % 128 == 0 and bn in (64, 128, 256) and n0 % 64 == 0
+        assert bn == 256 or n0 + bn >= shapes[l][1]
+        seen[l][s, m0:m0 + 128, n0:n0 + bn] += 1
+    for (m, n), cover in zip(shapes, seen):
+        assert (cover[:, :m, :n] == 1).all()
+    # the m-tiles of one layer's split are neighbours in the list
+    keys = [(l, s, n0) for l, _, n0, _, s in units]
+    runs = [k for i, k in enumerate(keys) if i == 0 or keys[i - 1] != k]
+    assert len(runs) == len(set(runs))
+
+
+@pytest.mark.parametrize("which,splits,units", [("sdf", 6, 114),
+                                                ("albedo", 18, 126),
+                                                ("nerf", 5, 120)])
+def test_dw_split_count_is_a_function_of_the_shapes(which, splits, units):
+    """The split count at the main path's rows (2·65,536 for the SDF core,
+    65,536 albedo, 67,584 NeRF): about one unit an SM of 132, the same in
+    every call; a ragged row count within a 64-row stage of it keeps it."""
+    shapes = _shipped_shapes(which)
+    rows = {"sdf": 2 * 65536, "albedo": 65536, "nerf": 67584}[which]
+    got = wg.dw_work(shapes, rows)
+    assert (got[1], len(got[0])) == (splits, units)
+    assert wg.dw_work(list(shapes), rows) == got
+    assert wg.dw_splits(shapes, rows - 37)[0] == splits
