@@ -18,9 +18,10 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      and for every layer of each backward in one launch (the SDF core's 9
      over 2 x 65,536 rows, the albedo's 3 over 65,536, the NeRF's 11 over
      67,584); f32 operands within 1e-4 and bf16 operands within 1e-2 of
-     the plain result's norm; times kernel and plain version with CUDA
-     events (and torch.matmul beside each dW product, one a layer, as its
-     yardstick);
+     the plain result's norm, the bf16 SDF backward (the TMA-fed sweep
+     and its dW products) also bit for bit from call to call; times kernel
+     and plain version with CUDA events (and torch.matmul beside each dW
+     product, one a layer, as its yardstick);
   2. drives the training step at full width (8x256 SDF net, 2x256 albedo
      net, batch 512, 64+64 samples, 3 lights) on the sphere fixture, for
      confs/wmask_rnb.conf and for confs/womask_rnb.conf with n_outside=4
@@ -343,11 +344,12 @@ def nerf_bwd_macs(cfg, ws):
 
 
 def check_kernel(results, name, n, dtype, kern, plain, timed, ins=(),
-                 macs=0.0, library=None):
-    """Hold one kernel call against its plain version; when ``timed``, time
-    both (and ``library``, one PyTorch call of the same function) and
-    bound the kernel: ``ins`` its input tensors, ``macs`` its least
-    multiply-adds at the operand dtype's peak."""
+                 macs=0.0, library=None, repeat=False):
+    """Hold one kernel call against its plain version (and, with
+    ``repeat``, a second call bit for bit); when ``timed``, time both (and
+    ``library``, one PyTorch call of the same function) and bound the
+    kernel: ``ins`` its input tensors, ``macs`` its least multiply-adds at
+    the operand dtype's peak."""
     from rnb_tpu_torch.tools.ablate_kernel import cuda_ms
 
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
@@ -358,6 +360,10 @@ def check_kernel(results, name, n, dtype, kern, plain, timed, ins=(),
     tag = f"{name} n={n} {str(dtype).split('.')[-1]}"
     log(f"[kernel] {tag}: max_abs_err={mx:.3e} rel_err={rel:.3e} (tol {tol:g})")
     assert rel <= tol, f"{tag}: rel err {rel} > {tol}"
+    if repeat:
+        assert all(torch.equal(a, b) for a, b in zip(got, kern())), \
+            f"{tag}: two calls differ"
+        log(f"[kernel] {tag}: two calls bit-identical")
     r = results.setdefault(name, {"max_abs_err": 0.0, "library_ms": None})
     r["max_abs_err"] = max(r["max_abs_err"], mx)
     if timed:
@@ -471,7 +477,8 @@ def kernel_checks(dev):
             for name, (kern, plain, ins, macs) in calls.items():
                 base = name.split(":")[0]
                 timed = n == MAIN_N and (dtype == torch.bfloat16 or base in F32_ROUTE)
-                check_kernel(results, base, n, dtype, kern, plain, timed, ins, macs)
+                check_kernel(results, base, n, dtype, kern, plain, timed, ins, macs,
+                             repeat=name == "sdf_core_bwd")
         del pts, nrm, feat, cs, cf, cg, co
         torch.cuda.empty_cache()
 
@@ -1750,7 +1757,7 @@ def measuring_tools(card, tune_build, work):
 # the grouped dW kernel's (the note in csrc/dw_gemm.cu) exactly, in the
 # production library only
 PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 4>": (128, 80, 84),
-              "sdf_bwd_wg_kernel<4>": (128, 28, 28)}
+              "sdf_bwd_sweep_kernel<16, 0>": (128, 0, 0)}
 PTXAS_DW = {"rnb_dw_products_kernel": (168, 0, 0)}
 PTXAS_F32 = {"sdf_fwd_kernel<0>": (128, 72), "sdf_bwd_kernel": (72, 0)}
 
@@ -1773,7 +1780,8 @@ def check_ptxas(report):
     for name, (regs, spill) in PTXAS_F32.items():
         got = _ptxas_numbers(report[name])
         assert got[0] <= regs and max(got[1:]) <= spill, (name, report[name])
-    other = [n for n in report if re.match(r"sdf_(fwd|bwd)_wg_kernel<.*\b[356]>", n)]
+    other = [n for n in report if re.match(r"sdf_fwd_wg_kernel<.*\b[356]>", n)
+             or (n.startswith("sdf_bwd_sweep_kernel<") and n not in PTXAS_NOTE)]
     assert not other, f"tune instances in the production library: {other}"
 
 

@@ -16,10 +16,11 @@
 //             The pts cotangent is zero (sample points never need one).
 //
 // Two routes, chosen by the op dtype (ops/sdf_core.py), never by failure:
-//   bf16 (the main path): sdf_fwd_wg_kernel<MODE> and sdf_bwd_wg_kernel,
+//   bf16 (the main path): sdf_fwd_wg_kernel<MODE> and sdf_bwd_sweep_kernel,
 //             products on the tensor cores (wgmma, bf16 operands, f32
-//             sums), then the grouped dW product of dw_gemm.cu; the design
-//             is in front of them below.
+//             sums), then the grouped dW product of dw_gemm.cu; the designs
+//             are in front of them below (the backward sweep's weights
+//             arrive by TMA, its record by an L2 prefetch).
 //   f32 (the f32 comparisons, e.g. the card-vs-CPU step parity):
 //             sdf_fwd_kernel<MODE>, sdf_bwd_kernel and the split-K
 //             reduction of common.cuh, products on the CUDA cores in fp32.
@@ -47,15 +48,17 @@
 // (wgmma) from shared-memory operand tiles, the softplus pair of the
 // epilogues uses the fast intrinsics, and the dW sums are one grouped wgmma
 // launch over every layer's bf16 operand rows (dw_gemm.cu). What bounds it
-// after that is the CUDA-core epilogue between the products (PERF.md,
-// kernel table).
+// after that is the record's traffic and the CUDA-core epilogue between the
+// products, which take turns with them (PERF.md, kernel table).
 //
 // ptxas (-Xptxas -v, in _build.build_info["main"]["log"]; chip_smoke.py
-// prints it; the production instances are those at ring depth WG_RS = 4):
+// prints it and holds the tensor-core lines to this note; the production
+// instances are the forward at ring depth WG_RS = 4, the backward sweep at
+// SW_RS = 16):
 //   sdf_fwd_wg_kernel<SDF_FULL, 4>  128 registers, 80 B spill stores, 84 B
 //                                spill loads; 78,848 B dynamic shared memory
-//   sdf_bwd_wg_kernel<4>         128 registers, 28 B spill stores / loads;
-//                                119,808 B dynamic shared memory
+//   sdf_bwd_sweep_kernel<16, 0>  128 registers, no spill; 217,344 B dynamic
+//                                shared memory
 //   sdf_fwd_kernel<SDF_FULL>     128 registers, 72 B spill (f32 route)
 //   sdf_bwd_kernel               72 registers, no spill (f32 route)
 #include "common.cuh"
@@ -519,8 +522,9 @@ extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,
 // bf16 route: the same two kernels on the tensor cores (wgmma, sm_90a)
 // ===========================================================================
 //
-// A block of two warpgroups (256 threads) owns a tile of 64 points, the M
-// of wgmma. Every product of the chain is [64 x K] · [K x N]:
+// The forward: a block of two warpgroups (256 threads) owns a tile of 64
+// points, the M of wgmma (the backward sweep's design is in front of it,
+// below). Every product of the chain is [64 x K] · [K x N]:
 //   * the A operand (layer input, or the reverse sweep's cotangent row) is a
 //     bf16 tile in shared memory, K-major, written by the epilogue of the
 //     product before; its values are exactly the op-dtype roundings of the
@@ -529,14 +533,12 @@ extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,
 //     L2-resident weight image in K-steps of 16 through a ring of stages
 //     (cp.async); the forward reads it MN-major (W), the reverse sweep reads
 //     the same tile K-major (Wᵀ): no transposed copy;
-//   * N = 256 is split across the warpgroups: the forward's two (columns
-//     0-127 and 128-255, a 64-float accumulator a thread, 128 registers,
-//     two blocks an SM), the backward's four (64 columns each; the primal
-//     and the tangent slab multiply the same B tile, 2 x 32 floats a
-//     thread, 128 registers, one block of 16 warps an SM). The epilogue
-//     (bias, softplus pair, rounding, record) runs on those registers; it
-//     is CUDA-core work that the block's warps overlap with each other's
-//     products, so warps in flight decide the speed more than the K loop.
+//   * N = 256 is split across the two warpgroups (columns 0-127 and
+//     128-255, a 64-float accumulator a thread, 128 registers, two blocks
+//     an SM). The epilogue (bias, softplus pair, rounding, record) runs on
+//     those registers; it is CUDA-core work that the block's warps overlap
+//     with each other's products, so warps in flight decide the speed more
+//     than the K loop.
 // Ragged widths are padded with zeros: K to a multiple of 16 (39 -> 48,
 // 217 -> 224, 257 -> 272), the 257-wide last layer is one N = 256 product
 // plus one N = 8 product for column 256, the 39-wide reverse product of
@@ -544,16 +546,16 @@ extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,
 // never written to the next A tile: the skip layer's input gets e at its
 // own column (hd = 217 on the shipped net), every other pad gets 0.
 //
-// The per-point record of the reverse sweeps (pre-activations; (zb, Tz) in
-// the backward) stays f32 in global memory, in the accumulator's own
-// layout: the thread that wrote a value in the primal sweep is the one that
-// reads it back in the reverse sweep (both split N the same way), and the
-// 128 threads of a warpgroup touch 512 consecutive bytes per register.
+// The per-point record of the reverse sweep (the biased pre-activations)
+// stays f32 in global memory, in the accumulator's own layout: the thread
+// that wrote a value in the primal sweep is the one that reads it back in
+// the reverse sweep (both split N the same way), and the 128 threads of a
+// warpgroup touch 512 consecutive bytes per register.
 
 #include "wg_pipe.cuh"
 
 #define WG_NT 256    // threads per block of the forward: two warpgroups
-#define WG_BWG 4      // warpgroups per block of the backward (N = 256 / 4)
+#define WG_BWG 4      // warpgroups per block of the backward sweep (N = 256 / 4)
 #define WG_TW 272     // widest A tile: K of the last layer's reverse product
 #define WG_EP 48      // PE channels held per point (E <= 48)
 #define WG_STG 4224   // bf16 elements of one ring stage (a K-step of 16):
@@ -862,6 +864,186 @@ sdf_fwd_wg_kernel(const float* __restrict__ pts, long long n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward sweep (sdf_bwd_sweep_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces the sweep of rnb_tpu/ops/pallas_sdf_core.py _bwd_kernel (:232):
+// recompute the primal with the tangent slab T', seed bar_z = (c_sdf/scale,
+// c_feat) and a unit tangent, sweep back; write the bf16 dW operand rows
+// (abuf: every layer's inputs, bbuf: its rounded pre-activation
+// cotangents; the dW products are dw_gemm.cu's) and the per-tile db sums of
+// the unrounded cotangents.
+//
+// What bounds it on the H100: not the products (2.6e11 FLOP a call at
+// 65,536 points, ~0.26 ms at 989 TFLOP/s) but what surrounds them. Split on
+// one H100 (PERF.md §6): of the cp.async sweep's 3.20 ms, the f32
+// record's 2.15 GB round trip cost 1.24 ms, the epilogue arithmetic 0.74,
+// the dW operand rows 0.58, and the products alone ran 1.22 ms: every one
+// of the block's 512 threads copied weights, and a block-wide barrier
+// closed each of ~240 K-steps.
+//
+// What the design does about it:
+//   * The weight ring is fed by TMA: a stage is one K-step of 16 rows x 256
+//     columns of the bf16 weight image (8 KB), one 3-D box of its 8x8 cores
+//     (forward {64, 32, 2}: two rows of cores; reverse {64, 2, 32}: two
+//     columns of cores, the Wᵀ read), zeros past the layer's width (the box
+//     runs off the map), completing on the stage's full mbarrier. Each
+//     warp frees the stage it has finished on its empty mbarrier; one
+//     thread refills a stage once all 16 warps freed it, half the ring
+//     behind the step it is at (so it seldom waits on the slowest warp),
+//     and with SW_RS = 16 eight stages are loaded ahead: the next layer's
+//     first weights arrive during this one's epilogue. No thread but that
+//     one copies, and the warpgroups meet only at the two barriers a layer
+//     that the in-place epilogue needs.
+//   * The reverse sweep's record (the layer's (zb, Tz), 128 KB a tile) is
+//     brought into L2 by one bulk prefetch when the layer's products start,
+//     so the epilogue's loads find it there.
+//   * The tile and its sums are the cp.async sweep's: four warpgroups of 64
+//     columns, primal and tangent slab on one B stage (2 x 32 f32
+//     accumulators a thread), the same bf16 operands in the same K order,
+//     column sums in the same order: the same bits.
+// What did not fit or did not pay (the H100, PERF.md §6): a
+// producer warp beside the 16 consumer warps makes 17, which the SM
+// allocates registers for as 20 (96 a thread: ptxas spilled 768 B; 120 a
+// thread is refused at launch); two 64-point tiles a block (two consumer
+// warpgroups of 128 columns a tile, primal and tangent as two passes so
+// each layer is written over its input in place, one tile's epilogue under
+// the other's products) spilled at 96 registers, streamed the weights
+// twice and read the record twice (6.0 ms); two such blocks an SM (5.8 ms)
+// the same. Recomputing (zb, Tz) in the reverse from abuf needs a second
+// accumulator set or 64 KB more shared memory a tile; a bf16 record would
+// change the function (the 100·s(1−s) term). The dW rows as TMA stores
+// (3.03 ms) and stages of two K-steps (2.87 ms) ran slower than this
+// design (2.71-2.74 ms); half the weight loads moved nothing: the sweep
+// does not wait on L2. What bounds this sweep: its K loops alone, with no
+// product and no epilogue, take 0.86 ms of its ~2.7 (the stage handshake,
+// ~0.8 µs a stage of a tile), the products ~0.55 more, the record's loads
+// ~0.68 (PERF.md §6-7).
+
+#include "tma.cuh"
+
+#define SW_RS 16                          // the production ring depth
+#define SW_NT (WG_BWG * 128)              // threads: four warpgroups
+#define SW_STAGE 8192                     // bytes of a ring stage
+
+// The backward sweep's timing split (tools/ablate_kernel.py --bwd; the tune
+// library only): each strips one part and keeps the rest.
+enum SdfBwdSplit {
+  BWD_FULL = 0,           // the production sweep
+  BWD_NO_RECORD = 1,      // no record stores or loads
+  BWD_NO_EPILOGUE = 2,    // no softplus / sigmoid arithmetic (zb passed on)
+  BWD_NO_ROWS = 3,        // no abuf / bbuf rows
+  BWD_PRODUCTS_ONLY = 4   // none of the three
+};
+
+// The launch's arguments in kernel parameter space (__grid_constant__: the
+// tensor maps must lie in parameter, constant or global memory).
+struct SdfSweepParams {
+  RnbWgNet net;
+  const float* pts;
+  const float* b;
+  const float* csdf;
+  const float* cfeat;
+  const float* cgrad;
+  float* rec_z;
+  float* rec_t;
+  rnb_bf16* abuf;
+  rnb_bf16* bbuf;
+  float* dbp;
+  long long n;
+  int db_len, multires;
+  float scale, c16;
+  CUtensorMap wf[RNB_MAXL];  // layer l's image as [kpc][npc][64]: forward box
+  CUtensorMap wr[RNB_MAXL];  // the same, reverse box
+};
+
+template <int RS>
+__host__ __device__ constexpr int sw_smem_bytes() {
+  return (int)sizeof(rnb_bf16) * (2 * WG_M * WG_TW + 2 * WG_M * WG_EP) +
+         RS * SW_STAGE + (int)sizeof(float) * 4 * 256 + 2 * RS * 8;
+}
+
+// The ring's stages in the order the products take them: the forward
+// layers 0..L-2, pad16(in)/16 K-steps each, then the reverse layers
+// L-1..1, pad16(out)/16 each (ops/sdf_core.py sweep_steps). issue() loads
+// the next one into a stage.
+struct SwCursor {
+  int l = 0, t = 0, rev = 0;
+  __device__ __forceinline__ bool done() const { return rev && l < 1; }
+  __device__ __forceinline__ void issue(const SdfSweepParams& p,
+                                        unsigned char* st, uint64_t* bar) {
+    const RnbWgNet& net = p.net;
+    const int nk = rnb_pad16(rev ? net.out_dim[l] : net.in_dim[l]) >> 4;
+    rnb_mbar_expect_tx(bar, SW_STAGE);
+    if (rev) rnb_tma_load_3d(st, &p.wr[l], bar, 0, 2 * t, 0);
+    else rnb_tma_load_3d(st, &p.wf[l], bar, 0, 0, 2 * t);
+    if (++t < nk) return;
+    t = 0;
+    if (rev) --l;
+    else if (++l == net.n_layers - 1) rev = 1;
+  }
+};
+
+// Stage `it` done by this warp (its products retired): free it; thread 0
+// refills the stage of step it - (RS/2 - 1), whose frees by all 16 warps
+// are then done or near, with that step + RS, so it seldom waits on the
+// slowest warp, and RS/2 stages stay loaded ahead.
+template <int RS>
+__device__ __forceinline__ void sw_free(const SdfSweepParams& p,
+                                        unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, SwCursor& cur,
+                                        int it) {
+  constexpr int LAG = RS / 2 - 1;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) rnb_mbar_arrive(&empty[it % RS]);
+  const int k = it - LAG;
+  if (threadIdx.x == 0 && k >= 0 && !cur.done()) {
+    rnb_mbar_wait(&empty[k % RS], (k / RS) & 1);
+    cur.issue(p, ring + (k % RS) * SW_STAGE, &full[k % RS]);
+  }
+  __syncwarp();
+}
+
+// One product: (acc, tacc) = (H, T) · B over nk stages of the ring, for
+// warpgroup wg's 64 columns. Forward: B MN-major from a stage of cores (kb,
+// ob) at (kb·32 + ob)·64 (LBO 4 KB, SBO 128 B); reverse: B K-major (Wᵀ)
+// from cores (ib, kb) at (ib·2 + kb)·64 (LBO 128 B, SBO 256 B). One wgmma
+// group stays in flight; a stage is freed once its products retired.
+// (Three groups in flight deadlocked a card test once, cause not found.)
+template <int RS, bool REV>
+__device__ __forceinline__ void sw_product(float (&acc)[32],
+                                           float (&tacc)[32],
+                                           const rnb_bf16* H,
+                                           const rnb_bf16* T,
+                                           const SdfSweepParams& p,
+                                           unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           SwCursor& cur, int& it, int nk,
+                                           int wg) {
+  for (int t = 0; t < nk; ++t, ++it) {
+    const int s = it % RS;
+    rnb_mbar_wait(&full[s], (it / RS) & 1);
+    const rnb_bf16* st =
+        reinterpret_cast<const rnb_bf16*>(ring + s * SW_STAGE);
+    const uint64_t db = REV ? rnb_desc(st + wg * 8 * 128, 128, 256)
+                            : rnb_desc(st + wg * 8 * 64, 32 * 128, 128);
+    rnb_wgmma_fence();
+    if constexpr (REV) {
+      rnb_wgmma_n64<0, 0>(acc, rnb_desc(H + t * 1024, 1024, 128), db, t > 0);
+      rnb_wgmma_n64<0, 0>(tacc, rnb_desc(T + t * 1024, 1024, 128), db, t > 0);
+    } else {
+      rnb_wgmma_n64<0, 1>(acc, rnb_desc(H + t * 1024, 1024, 128), db, t > 0);
+      rnb_wgmma_n64<0, 1>(tacc, rnb_desc(T + t * 1024, 1024, 128), db, t > 0);
+    }
+    rnb_wgmma_commit();
+    rnb_wgmma_wait<1>();
+    if (t > 0) sw_free<RS>(p, ring, full, empty, cur, it - 1);
+  }
+  rnb_wgmma_wait<0>();
+  sw_free<RS>(p, ring, full, empty, cur, it - 1);
+}
+
 // 16-byte rows of a tile pair (primal, tangent) to the dW scratch: row p of
 // the tile to rows n0 + p and n + n0 + p of a [2n, ld] bf16 buffer.
 __device__ __forceinline__ void wg_rows_out(const rnb_bf16* Ta,
@@ -880,50 +1062,63 @@ __device__ __forceinline__ void wg_rows_out(const rnb_bf16* Ta,
   }
 }
 
-template <int RS = WG_RS>
-static __global__ void __launch_bounds__(WG_BWG * 128, 1)
-sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
-                  const rnb_bf16* __restrict__ w, const float* __restrict__ b,
-                  RnbWgNet net, int multires, float scale, float c16,
-                  const float* __restrict__ csdf,
-                  const float* __restrict__ cfeat,
-                  const float* __restrict__ cgrad, float* __restrict__ rec_z,
-                  float* __restrict__ rec_t, rnb_bf16* __restrict__ abuf,
-                  rnb_bf16* __restrict__ bbuf, float* __restrict__ dbp,
-                  int db_len) {
-  static_assert(RS >= 3, "pipe_run waits for all but RS - 3 copy groups");
-  constexpr int NT = WG_BWG * 128, NW = 256 / WG_BWG;  // threads, columns a wg
+// RS: the ring's stages (SW_RS in production; the tune library's instances
+// take 3-6). SPLIT: an SdfBwdSplit (BWD_FULL in production).
+template <int RS, int SPLIT = BWD_FULL>
+static __global__ void __launch_bounds__(SW_NT, 1)
+sdf_bwd_sweep_kernel(const __grid_constant__ SdfSweepParams p) {
+  static_assert(RS >= 2, "a stage is refilled once all warps freed it");
+  constexpr int NW = 256 / WG_BWG;  // columns a warpgroup
+  constexpr bool k_rec = SPLIT != BWD_NO_RECORD && SPLIT != BWD_PRODUCTS_ONLY;
+  constexpr bool k_epi =
+      SPLIT != BWD_NO_EPILOGUE && SPLIT != BWD_PRODUCTS_ONLY;
+  constexpr bool k_rows = SPLIT != BWD_NO_ROWS && SPLIT != BWD_PRODUCTS_ONLY;
   extern __shared__ __align__(128) unsigned char wg_smem[];
   rnb_bf16* H = reinterpret_cast<rnb_bf16*>(wg_smem);  // primal tile [64][272]
   rnb_bf16* T = H + WG_M * WG_TW;                      // tangent tile
-  rnb_bf16* ring = T + WG_M * WG_TW;
-  rnb_bf16* e16 = ring + RS * WG_STG;  // [64][WG_EP]
-  rnb_bf16* t16 = e16 + WG_M * WG_EP;  // [64][WG_EP]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(T + WG_M * WG_TW);
+  rnb_bf16* e16 = reinterpret_cast<rnb_bf16*>(ring + RS * SW_STAGE);
+  rnb_bf16* t16 = e16 + WG_M * WG_EP;                  // [64][WG_EP]
   float* red = reinterpret_cast<float*>(t16 + WG_M * WG_EP);  // [4][256]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * 256);
+  uint64_t* empty = full + RS;
+  const RnbWgNet& net = p.net;
   WG_FRAG_ROWS;
   const int tid = threadIdx.x, lane = lt & 31, warp = lt >> 5;
-  const long long tile = blockIdx.x, n0 = tile * WG_M;
+  const long long tile = blockIdx.x, n0 = tile * WG_M, n = p.n;
   const int L = net.n_layers, E = net.E;
-  const float inv_sqrt2 = 0.70710678118654752f;
-  float* dbt = dbp + tile * db_len;
+  const float inv_sqrt2 = 0.70710678118654752f, c16 = p.c16, scale = p.scale;
+  float* dbt = p.dbp + tile * p.db_len;
+
+  // the ring: barriers, then its first RS stages
+  SwCursor cur;
+  if (tid == 0) {
+    for (int s = 0; s < RS; ++s) {
+      rnb_mbar_init(&full[s], 1);
+      rnb_mbar_init(&empty[s], SW_NT / 32);
+    }
+    rnb_fence_mbar_init();
+    for (int s = 0; s < RS && !cur.done(); ++s)
+      cur.issue(p, ring + s * SW_STAGE, &full[s]);
+  }
 
   // --- PE and the directional tangent T' = Σ_d c_grad_d ∂e/∂u_d ---
-  for (int idx = tid; idx < WG_M * 3; idx += NT) {
-    const int p = idx / 3, d = idx % 3;
-    const long long row = n0 + p;
-    const float u = row < n ? pts[row * 3 + d] * scale : 0.0f;
-    const float cg = row < n ? cgrad[row * 3 + d] : 0.0f;
-    rnb_bf16* e = e16 + p * WG_EP;
-    rnb_bf16* t = t16 + p * WG_EP;
+  for (int idx = tid; idx < WG_M * 3; idx += SW_NT) {
+    const int pp = idx / 3, d = idx % 3;
+    const long long row = n0 + pp;
+    const float u = row < n ? p.pts[row * 3 + d] * scale : 0.0f;
+    const float cg = row < n ? p.cgrad[row * 3 + d] : 0.0f;
+    rnb_bf16* e = e16 + pp * WG_EP;
+    rnb_bf16* t = t16 + pp * WG_EP;
     e[d] = wg_bf(u);
     t[d] = wg_bf(cg);
     float s = sinf(u), c = cosf(u), f = 1.0f;
-    for (int k = 0; k < multires; ++k) {
+    for (int k = 0; k < p.multires; ++k) {
       e[3 + 6 * k + d] = wg_bf(s);
       e[6 + 6 * k + d] = wg_bf(c);
       t[3 + 6 * k + d] = wg_bf(cg * (f * c));
       t[6 + 6 * k + d] = wg_bf(cg * (-f * s));
-      if (k + 1 < multires) {
+      if (k + 1 < p.multires) {
         const float s2 = 2.0f * s * c;
         c = 1.0f - 2.0f * s * s;
         s = s2;
@@ -931,135 +1126,117 @@ sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
       f *= 2.0f;
     }
   }
-  for (int idx = tid; idx < WG_M * (WG_EP - E); idx += NT) {
-    const int p = idx / (WG_EP - E), c = E + idx % (WG_EP - E);
-    e16[p * WG_EP + c] = wg_bf(0.0f);
-    t16[p * WG_EP + c] = wg_bf(0.0f);
+  for (int idx = tid; idx < WG_M * (WG_EP - E); idx += SW_NT) {
+    const int pp = idx / (WG_EP - E), c = E + idx % (WG_EP - E);
+    e16[pp * WG_EP + c] = wg_bf(0.0f);
+    t16[pp * WG_EP + c] = wg_bf(0.0f);
   }
   __syncthreads();
-  for (int idx = tid; idx < WG_M * WG_EP; idx += NT) {
-    const int p = idx / WG_EP, c = idx % WG_EP;
-    H[wg_tidx(p, c)] = e16[p * WG_EP + c];
-    T[wg_tidx(p, c)] = t16[p * WG_EP + c];
+  for (int idx = tid; idx < WG_M * WG_EP; idx += SW_NT) {
+    const int pp = idx / WG_EP, c = idx % WG_EP;
+    H[wg_tidx(pp, c)] = e16[pp * WG_EP + c];
+    T[wg_tidx(pp, c)] = t16[pp * WG_EP + c];
   }
+  rnb_fence_proxy_async();
+  __syncthreads();
 
-  const rnb_bf16* cw = w;
-  int c_npc = 0, c_kpc = 0, c_rev = 0, nk = 0;
-  auto copy = [&](int t, rnb_bf16* st) {
-    if (c_rev) wg_copy_rev(st, cw, c_npc, c_kpc, 32, t);
-    else wg_copy_fwd(st, cw, c_npc, 32, t);
-  };
-  auto set_fwd = [&](int l) {
-    cw = w + net.w_off[l];
-    c_npc = rnb_pad16(net.out_dim[l]) >> 3;
-    c_rev = 0;
-    nk = rnb_pad16(net.in_dim[l]) >> 4;
-  };
-  auto set_rev = [&](int l) {
-    cw = w + net.w_off[l];
-    c_npc = rnb_pad16(net.out_dim[l]) >> 3;
-    c_kpc = rnb_pad16(net.in_dim[l]) >> 3;
-    c_rev = 1;
-    nk = rnb_pad16(net.out_dim[l]) >> 4;
-  };
-
+  int it = 0;
   float acc[NW / 2], tacc[NW / 2];
-  set_fwd(0);
-  pipe_prologue<RS, WG_STG>(ring, nk, copy);
-  __syncthreads();
 
   // --- recompute the primal with one tangent slab, recording (zb, Tz) and
   // writing the layer inputs (the A rows of dW) ---
   for (int l = 0; l < L; ++l) {
-    wg_rows_out(H, T, rnb_pad16(net.in_dim[l]), n0, n, abuf + net.a_off[l]);
+    if (k_rows)
+      wg_rows_out(H, T, rnb_pad16(net.in_dim[l]), n0, n, p.abuf + net.a_off[l]);
     if (l == L - 1) break;
-    pipe_run<RS, WG_STG>(ring, nk, copy, [&](int t, const rnb_bf16* st) {
-      const uint64_t db = rnb_desc(st + wg * (NW / 8) * 64, 32 * 128, 128);
-      rnb_wgmma_n64<0, 1>(acc, rnb_desc(H + t * 1024, 1024, 128), db, t > 0);
-      rnb_wgmma_n64<0, 1>(tacc, rnb_desc(T + t * 1024, 1024, 128), db, t > 0);
-    });
-    if (l + 1 < L - 1) set_fwd(l + 1);
-    else set_rev(L - 1);
-    pipe_prologue<RS, WG_STG>(ring, nk, copy);
+    sw_product<RS, false>(acc, tacc, H, T, p, ring, full, empty, cur, it,
+                          rnb_pad16(net.in_dim[l]) >> 4, wg);
+    __syncthreads();   // every warp's products (and rows) read H and T
     const int out = net.out_dim[l];
     const bool nskip = net.skip[l + 1] != 0;
-    const float* bl = b + net.b_off[l];
-    float* rz = rec_z + ((tile * (L - 1) + l) * WG_BWG + wg) * (WG_REC / WG_BWG);
-    float* rt = rec_t + ((tile * (L - 1) + l) * WG_BWG + wg) * (WG_REC / WG_BWG);
+    const float* bl = p.b + net.b_off[l];
+    const long long roff = ((tile * (L - 1) + l) * WG_BWG + wg) * (WG_M * NW);
+    float* rz = p.rec_z + roff;
+    float* rt = p.rec_t + roff;
 #pragma unroll
     for (int j = 0; j < NW / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = r0 + 8 * h, c = wg * NW + 8 * j + cq;
+        const int pp = r0 + 8 * h, c = wg * NW + 8 * j + cq;
         float hv2[2], tv2[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int idx = 4 * j + 2 * h + u, cc = c + u;
           const float zb = acc[idx] + (cc < out ? bl[cc] : 0.0f);
           const float tz = tacc[idx];
-          rz[idx * 128 + lt] = zb;
-          rt[idx * 128 + lt] = tz;
-          float s, hv;
-          wg_softplus100_pair(zb, &s, &hv);
+          if (k_rec) {
+            rz[idx * 128 + lt] = zb;
+            rt[idx * 128 + lt] = tz;
+          }
+          float s = 1.0f, hv = zb;
+          if (k_epi) wg_softplus100_pair(zb, &s, &hv);
           const float tv = tz * s;
           if (cc < out) {
             hv2[u] = nskip ? wg_f(wg_bf(hv)) * c16 : hv;
             tv2[u] = nskip ? wg_f(wg_bf(tv)) * c16 : tv;
           } else if (nskip && cc < out + E) {
-            hv2[u] = wg_f(e16[p * WG_EP + cc - out]) * c16;
-            tv2[u] = wg_f(t16[p * WG_EP + cc - out]) * c16;
+            hv2[u] = wg_f(e16[pp * WG_EP + cc - out]) * c16;
+            tv2[u] = wg_f(t16[pp * WG_EP + cc - out]) * c16;
           } else {
             hv2[u] = 0.0f;
             tv2[u] = 0.0f;
           }
         }
-        wg_put2(H, p, c, hv2[0], hv2[1]);
-        wg_put2(T, p, c, tv2[0], tv2[1]);
+        wg_put2(H, pp, c, hv2[0], hv2[1]);
+        wg_put2(T, pp, c, tv2[0], tv2[1]);
       }
-    __syncthreads();
+    rnb_fence_proxy_async();
+    __syncthreads();   // the layer's output is the next products' operand
   }
   __syncthreads();
 
   // --- reverse sweep: seed bar_z = (c_sdf/scale, c_feat), unit tangent ---
   {
     const int out = net.out_dim[L - 1], kp = rnb_pad16(out);
-    for (int idx = tid; idx < WG_M * kp; idx += NT) {
-      const int p = idx / kp, j = idx % kp;
-      const long long row = n0 + p;
+    for (int idx = tid; idx < WG_M * kp; idx += SW_NT) {
+      const int pp = idx / kp, j = idx % kp;
+      const long long row = n0 + pp;
       float z = 0.0f;
       if (row < n && j < out)
-        z = j == 0 ? csdf[row] / scale : cfeat[row * (out - 1) + j - 1];
-      H[wg_tidx(p, j)] = wg_bf(z);
-      T[wg_tidx(p, j)] = wg_bf(j == 0 ? 1.0f : 0.0f);
+        z = j == 0 ? p.csdf[row] / scale : p.cfeat[row * (out - 1) + j - 1];
+      H[wg_tidx(pp, j)] = wg_bf(z);
+      T[wg_tidx(pp, j)] = wg_bf(j == 0 ? 1.0f : 0.0f);
     }
-    for (int j = tid; j < out; j += NT) {
+    for (int j = tid; j < out; j += SW_NT) {
       float s = 0.0f;
-      for (int p = 0; p < WG_M; ++p) {
-        const long long row = n0 + p;
-        if (row < n) s += j == 0 ? csdf[row] / scale : cfeat[row * (out - 1) + j - 1];
+      for (int pp = 0; pp < WG_M; ++pp) {
+        const long long row = n0 + pp;
+        if (row < n)
+          s += j == 0 ? p.csdf[row] / scale : p.cfeat[row * (out - 1) + j - 1];
       }
       dbt[net.b_off[L - 1] + j] = s;
     }
   }
+  rnb_fence_proxy_async();
   __syncthreads();
   for (int l = L - 1; l >= 1; --l) {
-    wg_rows_out(H, T, rnb_pad16(net.out_dim[l]), n0, n, bbuf + net.bb_off[l]);
-    pipe_run<RS, WG_STG>(ring, nk, copy, [&](int t, const rnb_bf16* st) {
-      const uint64_t db = rnb_desc(st + wg * (NW / 8) * 128, 128, 256);
-      rnb_wgmma_n64<0, 0>(acc, rnb_desc(H + t * 1024, 1024, 128), db, t > 0);
-      rnb_wgmma_n64<0, 0>(tacc, rnb_desc(T + t * 1024, 1024, 128), db, t > 0);
-    });
-    if (l > 1) {
-      set_rev(l - 1);
-      pipe_prologue<RS, WG_STG>(ring, nk, copy);
+    const long long slab = (tile * (L - 1) + l - 1) * WG_BWG * (WG_M * NW);
+    // the layer's record into L2 under the products (the epilogue reads it)
+    if (k_rec && tid == 0) {
+      rnb_prefetch_l2(p.rec_z + slab, WG_M * 256 * 4);
+      rnb_prefetch_l2(p.rec_t + slab, WG_M * 256 * 4);
     }
+    if (k_rows)
+      wg_rows_out(H, T, rnb_pad16(net.out_dim[l]), n0, n,
+                  p.bbuf + net.bb_off[l]);
+    sw_product<RS, true>(acc, tacc, H, T, p, ring, full, empty, cur, it,
+                         rnb_pad16(net.out_dim[l]) >> 4, wg);
+    __syncthreads();   // every warp's products (and rows) read H and T
     const int hd = net.skip[l] ? net.hd[l] : net.in_dim[l];
     const float sc = net.skip[l] ? inv_sqrt2 : 1.0f;
     const int outp = net.out_dim[l - 1];
-    const float* rz =
-        rec_z + ((tile * (L - 1) + l - 1) * WG_BWG + wg) * (WG_REC / WG_BWG);
-    const float* rt =
-        rec_t + ((tile * (L - 1) + l - 1) * WG_BWG + wg) * (WG_REC / WG_BWG);
+    const float* rz = p.rec_z + slab + wg * (WG_M * NW);
+    const float* rt = p.rec_t + slab + wg * (WG_M * NW);
     float cs[NW / 4];
 #pragma unroll
     for (int j = 0; j < NW / 8; ++j) {
@@ -1067,8 +1244,8 @@ sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
       cs[2 * j + 1] = 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = r0 + 8 * h, c = wg * NW + 8 * j + cq;
-        const bool live = n0 + p < n;
+        const int pp = r0 + 8 * h, c = wg * NW + 8 * j + cq;
+        const bool live = n0 + pp < n;
         float zn2[2], tn2[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -1076,17 +1253,23 @@ sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
           float zn = 0.0f, tn = 0.0f;
           if (c + u < hd) {
             const float bh = acc[idx] * sc, bth = tacc[idx] * sc;
-            const float zp = rz[idx * 128 + lt], tzp = rt[idx * 128 + lt];
-            const float s = wg_sigmoid100(zp);
-            zn = bh * s + (bth * tzp) * (100.0f * s * (1.0f - s));
-            tn = bth * s;
+            const float zp = k_rec ? rz[idx * 128 + lt] : bh;
+            const float tzp = k_rec ? rt[idx * 128 + lt] : bth;
+            if (k_epi) {
+              const float s = wg_sigmoid100(zp);
+              zn = bh * s + (bth * tzp) * (100.0f * s * (1.0f - s));
+              tn = bth * s;
+            } else {
+              zn = k_rec ? fmaf(zp, tzp, bh) : bh;
+              tn = bth;
+            }
           }
           if (live) cs[2 * j + u] += zn;
           zn2[u] = zn;
           tn2[u] = tn;
         }
-        wg_put2(H, p, c, zn2[0], zn2[1]);
-        wg_put2(T, p, c, tn2[0], tn2[1]);
+        wg_put2(H, pp, c, zn2[0], zn2[1]);
+        wg_put2(T, pp, c, tn2[0], tn2[1]);
       }
     }
 #pragma unroll
@@ -1104,12 +1287,15 @@ sdf_bwd_wg_kernel(const float* __restrict__ pts, long long n,
         for (int u = 0; u < 2; ++u)
           red[warp * 256 + wg * NW + 8 * j + cq + u] = cs[2 * j + u];
     }
-    __syncthreads();
+    rnb_fence_proxy_async();
+    __syncthreads();   // bar_z, bar_T': the next products' operands; red
     if (tid < outp)
       dbt[net.b_off[l - 1] + tid] =
           ((red[tid] + red[256 + tid]) + red[512 + tid]) + red[768 + tid];
   }
-  wg_rows_out(H, T, rnb_pad16(net.out_dim[0]), n0, n, bbuf + net.bb_off[0]);
+  if (k_rows)
+    wg_rows_out(H, T, rnb_pad16(net.out_dim[0]), n0, n,
+                p.bbuf + net.bb_off[0]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1193,70 +1379,106 @@ extern "C" int rnb_sdf_fwd_wg(int mode, const float* pts, long long n,
 #undef RNB_WG_FWD_ARGS
 }
 
-template <int RS = WG_RS>
-static int sdf_bwd_wg_launch(const float* pts, long long n, const void* w,
-                             const float* b, const int* out_dims,
-                             const RnbWgNet& net, int multires, float scale,
-                             float c16, const float* csdf, const float* cfeat,
-                             const float* cgrad, float* rec_z, float* rec_t,
-                             void* abuf, void* bbuf, float* dbp, float* db,
-                             cudaStream_t st) {
-  const int smem =
-      (int)(sizeof(rnb_bf16) * (2 * WG_M * WG_TW + RS * WG_STG +
-                                2 * WG_M * WG_EP) +
-            sizeof(float) * 4 * 256);
+// The backward sweep's arguments: the net, the buffers, and for each layer
+// the two tensor maps of its tile in the weight image w ([kpc][npc][64]
+// bf16: 8x8 cores, core (i/8, o/8) at ((i/8)·npc + o/8)·64). 0 on success.
+static int sdf_sweep_params(SdfSweepParams* p, const float* pts, long long n,
+                            const void* w, const float* b, const int* in_dims,
+                            const int* out_dims, const int* skip,
+                            const int* hd, const long long* w_off,
+                            const long long* a_off, const long long* bb_off,
+                            int n_layers, int multires, float scale, float c16,
+                            const float* csdf, const float* cfeat,
+                            const float* cgrad, float* rec_z, float* rec_t,
+                            void* abuf, void* bbuf, float* dbp) {
+  if (rnb_make_wg_net(&p->net, in_dims, out_dims, skip, hd, w_off, a_off,
+                      bb_off, n_layers) ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  p->pts = pts;
+  p->b = b;
+  p->csdf = csdf;
+  p->cfeat = cfeat;
+  p->cgrad = cgrad;
+  p->rec_z = rec_z;
+  p->rec_t = rec_t;
+  p->abuf = static_cast<rnb_bf16*>(abuf);
+  p->bbuf = static_cast<rnb_bf16*>(bbuf);
+  p->dbp = dbp;
+  p->n = n;
+  p->multires = multires;
+  p->scale = scale;
+  p->c16 = c16;
+  p->db_len = 0;
+  const int fwd_box[3] = {64, 32, 2}, rev_box[3] = {64, 2, 32};
+  for (int l = 0; l < n_layers; ++l) {
+    p->db_len += out_dims[l];
+    const long long npc = rnb_pad16(out_dims[l]) >> 3;
+    const long long kpc = rnb_pad16(in_dims[l]) >> 3;
+    const long long dims[3] = {64, npc, kpc}, strides[2] = {128, npc * 128};
+    const rnb_bf16* wl = static_cast<const rnb_bf16*>(w) + w_off[l];
+    int rc = rnb_tma_map_bf16_3d(&p->wf[l], wl, dims, strides, fwd_box);
+    if (!rc) rc = rnb_tma_map_bf16_3d(&p->wr[l], wl, dims, strides, rev_box);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+// The sweep at ring depth RS, then the fixed-order sum of the per-tile db
+// partials (dbp) into db.
+template <int RS, int SPLIT = BWD_FULL>
+static int sdf_bwd_sweep_launch(const SdfSweepParams& p, float* db,
+                                cudaStream_t st) {
+  constexpr int smem = sw_smem_bytes<RS>();
   cudaError_t err = cudaFuncSetAttribute(
-      sdf_bwd_wg_kernel<RS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      sdf_bwd_sweep_kernel<RS, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n + WG_M - 1) / WG_M;
-  int db_len = 0;
-  for (int l = 0; l < net.n_layers; ++l) db_len += out_dims[l];
-  sdf_bwd_wg_kernel<RS><<<(unsigned)tiles, WG_BWG * 128, smem, st>>>(
-      pts, n, static_cast<const rnb_bf16*>(w), b, net, multires, scale, c16,
-      csdf, cfeat, cgrad, rec_z, rec_t, static_cast<rnb_bf16*>(abuf),
-      static_cast<rnb_bf16*>(bbuf), dbp, db_len);
+  const long long tiles = (p.n + WG_M - 1) / WG_M;
+  sdf_bwd_sweep_kernel<RS, SPLIT><<<(unsigned)tiles, SW_NT, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  rnb_sum_splits_kernel<<<(unsigned)((db_len + 255) / 256), 256, 0, st>>>(
-      dbp, (int)tiles, db_len, db);
+  rnb_sum_splits_kernel<<<(unsigned)((p.db_len + 255) / 256), 256, 0, st>>>(
+      p.dbp, (int)tiles, p.db_len, db);
   return (int)cudaGetLastError();
 }
 
-#define RNB_WG_BWD_ARGS                                                     \
-  pts, n, w, b, out_dims, net, multires, scale, c16, csdf, cfeat, cgrad,    \
-      rec_z, rec_t, abuf, bbuf, dbp, db, (cudaStream_t)stream
+#define RNB_WG_BWD_PARAMS                                                   \
+  const float *pts, long long n, const void *w, const float *b,             \
+      const int *in_dims, const int *out_dims, const int *skip,             \
+      const int *hd, const long long *w_off, const long long *a_off,        \
+      const long long *bb_off, int n_layers, int multires, float scale,     \
+      float c16, const float *csdf, const float *cfeat, const float *cgrad, \
+      float *rec_z, float *rec_t, void *abuf, void *bbuf, float *dbp,       \
+      float *db, void *stream
+#define RNB_WG_BWD_SETUP                                                     \
+  SdfSweepParams prm;                                                        \
+  const int rc = sdf_sweep_params(                                           \
+      &prm, pts, n, w, b, in_dims, out_dims, skip, hd, w_off, a_off, bb_off, \
+      n_layers, multires, scale, c16, csdf, cfeat, cgrad, rec_z, rec_t,      \
+      abuf, bbuf, dbp);                                                      \
+  if (rc) return rc;                                                         \
+  cudaStream_t st = (cudaStream_t)stream
 
 // The bf16 backward sweep: fills the bf16 dW scratch (A rows at a_off, B
 // rows at bb_off, 2n rows of pad16(width) each) and writes db; the wrapper
-// then runs rnb_dw_products (dw_gemm.cu) over all layers. rec_z / rec_t as rec of rnb_sdf_fwd_wg;
-// dbp holds ceil(n/64)·Σ out floats.
-extern "C" int rnb_sdf_bwd_wg(const float* pts, long long n, const void* w,
-                              const float* b, const int* in_dims,
-                              const int* out_dims, const int* skip,
-                              const int* hd, const long long* w_off,
-                              const long long* a_off,
-                              const long long* bb_off, int n_layers,
-                              int multires, float scale, float c16,
-                              const float* csdf, const float* cfeat,
-                              const float* cgrad, float* rec_z, float* rec_t,
-                              void* abuf, void* bbuf, float* dbp, float* db,
-                              void* stream) {
-  RnbWgNet net;
-  if (rnb_make_wg_net(&net, in_dims, out_dims, skip, hd, w_off, a_off, bb_off,
-                      n_layers))
-    return (int)cudaErrorInvalidValue;
-  return sdf_bwd_wg_launch<>(RNB_WG_BWD_ARGS);
+// then runs rnb_dw_products (dw_gemm.cu) over all layers. rec_z / rec_t as
+// rec of rnb_sdf_fwd_wg; dbp holds ceil(n/64)·Σ out floats.
+extern "C" int rnb_sdf_bwd_wg(RNB_WG_BWD_PARAMS) {
+  RNB_WG_BWD_SETUP;
+  return sdf_bwd_sweep_launch<SW_RS>(prm, db, st);
 }
 
 // The tile sweep's instances (rnb_tpu_torch/tools/tune_kernel.py): the
 // production sweeps at ring depths 3-6, SDF_FULL. They are built only into
 // the tune library (ops/_build.py library("tune"), nvcc -DRNB_TUNE); the
-// production library holds the WG_RS instances alone. A depth below 3 is
-// invalid (pipe_run waits for all but RS - 3 copy groups); depth 6 takes
-// 95,744 B of shared memory in the forward, under the half of an SM that
-// keeps two blocks there, and 136,704 B in the backward. Depth WG_RS is the
-// production instance itself. Another depth returns cudaErrorInvalidValue.
+// production library holds the WG_RS forward and the SW_RS backward
+// sweep alone. A forward depth below 3 is invalid (pipe_run waits for all
+// but RS - 3 copy groups); depth 6 takes 95,744 B of shared memory in the
+// forward, under the half of an SM that keeps two blocks there, and
+// 122,944 B in the backward sweep, over it (one block an SM). The
+// production depth is the production instance itself. Another depth
+// returns cudaErrorInvalidValue.
 #ifdef RNB_TUNE
 #define RNB_TUNE_CASES(CALL) \
   case 3: return CALL(3);    \
@@ -1290,28 +1512,33 @@ extern "C" int rnb_sdf_fwd_wg_tune(int rs, const float* pts, long long n,
 }
 
 // rnb_sdf_bwd_wg's arguments after the depth rs.
-extern "C" int rnb_sdf_bwd_wg_tune(int rs, const float* pts, long long n,
-                                   const void* w, const float* b,
-                                   const int* in_dims, const int* out_dims,
-                                   const int* skip, const int* hd,
-                                   const long long* w_off,
-                                   const long long* a_off,
-                                   const long long* bb_off, int n_layers,
-                                   int multires, float scale, float c16,
-                                   const float* csdf, const float* cfeat,
-                                   const float* cgrad, float* rec_z,
-                                   float* rec_t, void* abuf, void* bbuf,
-                                   float* dbp, float* db, void* stream) {
-  RnbWgNet net;
-  if (rnb_make_wg_net(&net, in_dims, out_dims, skip, hd, w_off, a_off, bb_off,
-                      n_layers))
-    return (int)cudaErrorInvalidValue;
-#define RNB_BWD_AT(RS) sdf_bwd_wg_launch<RS>(RNB_WG_BWD_ARGS)
+extern "C" int rnb_sdf_bwd_wg_tune(int rs, RNB_WG_BWD_PARAMS) {
+  RNB_WG_BWD_SETUP;
+#define RNB_BWD_AT(RS) sdf_bwd_sweep_launch<RS>(prm, db, st)
   switch (rs) {
     RNB_TUNE_CASES(RNB_BWD_AT)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RNB_BWD_AT
+}
+
+// The backward sweep's timing split (tools/ablate_kernel.py --bwd): mode an
+// SdfBwdSplit, at the production depth; only BWD_FULL computes the
+// function. rnb_sdf_bwd_wg's arguments after the mode.
+extern "C" int rnb_sdf_bwd_wg_split(int mode, RNB_WG_BWD_PARAMS) {
+  RNB_WG_BWD_SETUP;
+  switch (mode) {
+    case BWD_FULL: return sdf_bwd_sweep_launch<SW_RS, BWD_FULL>(prm, db, st);
+    case BWD_NO_RECORD:
+      return sdf_bwd_sweep_launch<SW_RS, BWD_NO_RECORD>(prm, db, st);
+    case BWD_NO_EPILOGUE:
+      return sdf_bwd_sweep_launch<SW_RS, BWD_NO_EPILOGUE>(prm, db, st);
+    case BWD_NO_ROWS:
+      return sdf_bwd_sweep_launch<SW_RS, BWD_NO_ROWS>(prm, db, st);
+    case BWD_PRODUCTS_ONLY:
+      return sdf_bwd_sweep_launch<SW_RS, BWD_PRODUCTS_ONLY>(prm, db, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 #undef RNB_TUNE_CASES
 #endif  // RNB_TUNE

@@ -1,9 +1,11 @@
 // Hopper's Tensor Memory Accelerator (TMA) and shared-memory barriers
-// (mbarrier) for the warp-specialised kernels (dw_gemm.cu): a 2-D tiled
-// tensor map encoded on the host, the bulk tensor load that one thread
-// issues for a whole box, the barriers that count its bytes and the
-// consumers' releases, register reallocation between warpgroups, and the
-// wgmma descriptor of a 128-byte-swizzled box as TMA writes it.
+// (mbarrier) for the warp-specialised kernels (dw_gemm.cu, the SDF core's
+// backward sweep in sdf_core.cu): 2-D and 3-D tiled tensor maps encoded on
+// the host, the bulk tensor loads that one thread issues for a whole box
+// and its bulk prefetch into L2,
+// the barriers that count its bytes and the consumers' releases, register
+// reallocation between warpgroups, and the wgmma descriptor of a
+// 128-byte-swizzled box as TMA writes it.
 //
 // The host encoder (cuTensorMapEncodeTiled) lives in libcuda; it is fetched
 // through the runtime's entry-point query, so the library links no libcuda
@@ -62,6 +64,33 @@ static inline int rnb_tma_map_bf16(CUtensorMap* map, const void* base, int ld,
                         const_cast<void*>(base), dims, strides, box, estride,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// 0 on success, else a cudaError_t value. A bf16 tensor of dims[0] x dims[1]
+// x dims[2] elements (dims[0] contiguous; strides[0], strides[1] the byte
+// strides of dims 1 and 2, multiples of 16) as a TMA tensor map without
+// swizzle whose box is box[0] x box[1] x box[2] (box[0]·2 a multiple of 16
+// bytes), written to shared memory in that order, dims[0] fastest; elements
+// past a dim read as zero.
+static inline int rnb_tma_map_bf16_3d(CUtensorMap* map, const void* base,
+                                      const long long dims[3],
+                                      const long long strides[2],
+                                      const int box[3]) {
+  RnbEncodeTiled fn = rnb_encode_tiled();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t gd[3] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
+                            (cuuint64_t)dims[2]};
+  const cuuint64_t gs[2] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1]};
+  const cuuint32_t bx[3] = {(cuuint32_t)box[0], (cuuint32_t)box[1],
+                            (cuuint32_t)box[2]};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), gd, gs, bx, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -129,6 +158,29 @@ __device__ __forceinline__ void rnb_tma_load_2d(void* dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(rnb_smem_addr(bar)), "r"(c0),
       "r"(r0)
       : "memory");
+}
+
+// The box at (c0, c1, c2) of a 3-D `map` into shared memory at dst (16-B
+// aligned: no swizzle), completing its bytes on `bar`.
+__device__ __forceinline__ void rnb_tma_load_3d(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c0, int c1,
+                                                int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(rnb_smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(rnb_smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Starts bringing `bytes` (a multiple of 16) of global memory at src
+// (16-B aligned) into L2, without waiting; later loads of it hit L2.
+__device__ __forceinline__ void rnb_prefetch_l2(const void* src,
+                                                unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
 }
 
 // Register reallocation between the warpgroups of a warp-specialised block

@@ -7,11 +7,14 @@ headers, so a build takes seconds). The build happens at first use, into
 and flags; a process that finds the library already built loads it.
 
 ``library("tune")`` is a second library, for the tile sweep
-(``rnb_tpu_torch.tools.tune_kernel``) only: ``csrc/sdf_core.cu`` alone
-under ``-DRNB_TUNE``, which adds the SDF core's tensor-core sweeps at other
-ring depths (``rnb_sdf_fwd_wg_tune``, ``rnb_sdf_bwd_wg_tune``) beside the
-production entries, into ``librnb_kernels_tune_<hash>.so``. The
-production library never holds those instances.
+(``rnb_tpu_torch.tools.tune_kernel``) and the backward sweep's timing
+split (``rnb_tpu_torch.tools.ablate_kernel --bwd``) only:
+``csrc/sdf_core.cu`` alone under ``-DRNB_TUNE``, which adds the SDF core's
+tensor-core sweeps at other ring depths (``rnb_sdf_fwd_wg_tune``,
+``rnb_sdf_bwd_wg_tune``) and the split instances of the backward sweep
+(``rnb_sdf_bwd_wg_split``) beside the production entries, into
+``librnb_kernels_tune_<hash>.so``. The production library never holds
+those instances.
 
 Every C entry returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on anything but 0. ``launches`` counts, per wrapper, the
@@ -55,6 +58,8 @@ launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
             "albedo_bwd_f32": 0, "albedo_dw_gemm": 0, "nerf_fwd": 0,
             "nerf_bwd": 0, "nerf_fwd_f32": 0, "nerf_bwd_f32": 0,
             "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0,
+            # the tune library's timing split of the SDF-core backward sweep
+            "sdf_bwd_split": 0,
             # the tune library's SDF-core sweeps, by ring depth
             **{f"sdf_core_{d}_rs{rs}": 0 for d in ("fwd", "bwd")
                for rs in TUNE_DEPTHS}}
@@ -143,6 +148,7 @@ _SIGNATURES = {
 _TUNE_SIGNATURES = {
     "rnb_sdf_fwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_fwd_wg"][1:]),
     "rnb_sdf_bwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
+    "rnb_sdf_bwd_wg_split": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
 }
 
 

@@ -196,14 +196,16 @@ def _check_args(cfg: SDFConfig, pts, ws, bs):
                          f"encoding gives {cfg.input_ch}")
 
 
-def sdf_core_fwd(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16):
+def sdf_core_fwd(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16,
+                 packed=None):
     """Forward kernel for a CUDA tensor, plain version for a CPU tensor.
     The op dtype names the route: bf16 launches the tensor-core kernel
-    (``rnb_sdf_fwd_wg``), f32 the CUDA-core kernel (``rnb_sdf_fwd``)."""
+    (``rnb_sdf_fwd_wg``) on ``packed`` (``wg_pack``; packed here when None),
+    f32 the CUDA-core kernel (``rnb_sdf_fwd``)."""
     if not pts.is_cuda:
         return sdf_core_fwd_plain(cfg, pts, ws, bs, dtype)
     if _build.bf16_flag(dtype):
-        out = launch_fwd_wg(cfg, pts, ws, bs)
+        out = launch_fwd_wg(cfg, pts, ws, bs, packed=packed)
         _build.launches["sdf_core_fwd"] += 1
     else:
         out = launch_fwd(cfg, pts, ws, bs)
@@ -265,6 +267,36 @@ def wg_layout(cfg: SDFConfig, ws, n: int = 0) -> dict:
     return dict(wg.offsets(in_dims, out_dims, 2 * n), skip=skip, hd=hd)
 
 
+# The backward sweep's weight ring (csrc/sdf_core.cu: sdf_sweep_params
+# encodes the maps, SwCursor walks the stages): layer l's tile of the weight
+# image is a 3-D TMA tensor map of its 8x8 cores, dims (64 core elements,
+# npc output cores, kpc input cores) innermost first; a ring stage (8 KB)
+# is one box of it, a K-step of 16: the forward's K-step t two rows of
+# input cores at (0, 0, 2t), the reverse's (the Wᵀ read) two columns of
+# output cores at (0, 2t, 0). Boxes past the layer's width read zeros.
+SWEEP_BOX = {"fwd": (64, 32, 2), "rev": (64, 2, 32)}
+
+
+def sweep_map(lay: dict, l: int):
+    """Layer l's tensor map as the sweep encodes it: (dims innermost first,
+    byte strides of dims 1 and 2)."""
+    npc, kpc = lay["np"][l] // 8, lay["kp"][l] // 8
+    return (64, npc, kpc), (128, npc * 128)
+
+
+def sweep_steps(lay: dict) -> list:
+    """The ring's stages in the order the sweep's products take them, as
+    (kind, layer, box coordinates): one product a layer (both slabs read
+    each stage), the forward layers 0..L-2 over pad16(in)/16 K-steps, then
+    the reverse layers L-1..1 over pad16(out)/16."""
+    L, steps = len(lay["in_dims"]), []
+    for l in range(L - 1):
+        steps += [("fwd", l, (0, 0, 2 * t)) for t in range(lay["kp"][l] // 16)]
+    for l in range(L - 1, 0, -1):
+        steps += [("rev", l, (0, 2 * t, 0)) for t in range(lay["np"][l] // 16)]
+    return steps
+
+
 def _check_wg(lay: dict):
     L, ins, outs = len(lay["in_dims"]), lay["in_dims"], lay["out_dims"]
     if (L < 2 or ins[0] > 48 or lay["skip"][-1] or max(ins) > 256
@@ -275,12 +307,21 @@ def _check_wg(lay: dict):
             f"and no skip at the last layer; got in {ins}, out {outs}")
 
 
+def wg_pack(cfg: SDFConfig, ws, bs):
+    """The bf16 route's weights: (the bf16 weight image of ``wg_layout``,
+    the biases flat), packed once a forward-plus-backward by ``_SDFCore``
+    for both kernels."""
+    image = wg.pack_weights(ws, wg_layout(cfg, ws))
+    return image, torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+
+
 def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
-                  depth: int | None = None):
+                  depth: int | None = None, packed=None):
     """bf16 route: launch ``rnb_sdf_fwd_wg`` (``mode``: the C SdfMode, 0 =
     the production kernel), or with a ring ``depth`` the tune library's
     ``rnb_sdf_fwd_wg_tune`` (mode 0 only; a depth it was not built for
-    raises). -> (sdf, feat, grad)."""
+    raises), on ``packed`` (``wg_pack``; packed here when None).
+    -> (sdf, feat, grad)."""
     _check_args(cfg, pts, ws, bs)
     lay = wg_layout(cfg, ws)
     _check_wg(lay)
@@ -291,8 +332,7 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
     dev = pts.device
-    image = pack_weights(ws, lay)
-    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+    image, bflat = packed or wg_pack(cfg, ws, bs)
     tiles = -(-n // TILE)
     rec = torch.empty(tiles * (L - 1) * TILE * 256, device=dev)
     sdf = torch.empty(n, device=dev)
@@ -314,16 +354,17 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
 
 
 def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, packed=None):
     """Backward kernels for a CUDA tensor, plain version for a CPU tensor.
-    -> (dws, dbs). bf16: the tensor-core sweep (``rnb_sdf_bwd_wg``) and one
-    ``wg.dw_products`` launch over the layers; f32: the CUDA-core sweep and
-    split-K reduction (``rnb_sdf_bwd``)."""
+    -> (dws, dbs). bf16: the tensor-core sweep (``rnb_sdf_bwd_wg``) on
+    ``packed`` (as for ``sdf_core_fwd``) and one ``wg.dw_products`` launch
+    over the layers; f32: the CUDA-core sweep and split-K reduction
+    (``rnb_sdf_bwd``)."""
     if not pts.is_cuda:
         return sdf_core_bwd_plain(cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
                                   dtype)
     if _build.bf16_flag(dtype):
-        out = _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad)
+        out = _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, packed=packed)
         _build.launches["sdf_core_bwd"] += 1
     else:
         out = _bwd_f32(cfg, pts, ws, bs, c_sdf, c_feat, c_grad)
@@ -340,18 +381,30 @@ def _cotangents(pts, c_sdf, c_feat, c_grad, d_feat):
     return cots
 
 
-def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, depth=None):
+# the backward sweep's timing split (the tune library's
+# rnb_sdf_bwd_wg_split; index = its mode): the production sweep, then
+# without the record's traffic, the epilogue's arithmetic, the dW operand
+# rows, and all three
+BWD_SPLIT = ("full", "no_record", "no_epilogue", "no_rows", "products_only")
+
+
+def bwd_sweep(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, packed=None,
+              depth=None, split=None):
+    """The bf16 backward sweep alone (CUDA tensors): ``rnb_sdf_bwd_wg``, or
+    the tune library's ``rnb_sdf_bwd_wg_tune`` at ring ``depth`` or
+    ``rnb_sdf_bwd_wg_split`` in mode ``split`` (a ``BWD_SPLIT`` name).
+    -> (abuf, bbuf, db, lay): the bf16 dW operand rows of ``wg_layout(cfg,
+    ws, n)`` and db flat."""
     _check_args(cfg, pts, ws, bs)
     pts = pts.detach().contiguous()
     n, L = pts.shape[0], len(ws)
     lay = wg_layout(cfg, ws, n)
     _check_wg(lay)
-    kind = "main" if depth is None else "tune"
+    kind = "main" if depth is None and split is None else "tune"
     lib = _build.library(kind)
     cots = _cotangents(pts, c_sdf, c_feat, c_grad, lay["out_dims"][-1] - 1)
     dev = pts.device
-    image = pack_weights(ws, lay)
-    bflat = torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
+    image, bflat = packed or wg_pack(cfg, ws, bs)
     tiles = -(-n // TILE)
     rec_z = torch.empty(tiles * (L - 1) * TILE * 256, device=dev)
     rec_t = torch.empty_like(rec_z)
@@ -359,8 +412,12 @@ def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, depth=None):
     bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
     dbp = torch.empty(tiles * bflat.numel(), device=dev)
     db = torch.empty(bflat.numel(), device=dev)
-    entry, lead = (("rnb_sdf_bwd_wg", ()) if depth is None
-                   else ("rnb_sdf_bwd_wg_tune", (depth,)))
+    if split is not None:
+        entry, lead = "rnb_sdf_bwd_wg_split", (BWD_SPLIT.index(split),)
+    elif depth is not None:
+        entry, lead = "rnb_sdf_bwd_wg_tune", (depth,)
+    else:
+        entry, lead = "rnb_sdf_bwd_wg", ()
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             *lead, pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
@@ -373,9 +430,29 @@ def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, depth=None):
             abuf.data_ptr(), bbuf.data_ptr(), dbp.data_ptr(), db.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry, kind)
-    del rec_z, rec_t
-    dws = wg.dw_products(abuf, bbuf, lay, 2 * n, "sdf_dw_gemm")
+    return abuf, bbuf, db, lay
+
+
+def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, depth=None,
+            packed=None):
+    abuf, bbuf, db, lay = bwd_sweep(cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
+                                    packed, depth)
+    dws = wg.dw_products(abuf, bbuf, lay, 2 * pts.shape[0], "sdf_dw_gemm")
     return dws, _build.unflat(db, [tuple(b.shape) for b in bs])
+
+
+def sdf_bwd_split(split: str, cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
+                  packed=None):
+    """One launch of the backward sweep's timing split ``split`` (a
+    ``BWD_SPLIT`` name) from the tune library, CUDA tensors only; counts
+    under ``sdf_bwd_split``. Its numerics are wrong by design but for
+    ``full``. -> (abuf, bbuf, db, lay) as ``bwd_sweep``."""
+    if split not in BWD_SPLIT:
+        raise ValueError(f"split must be one of {BWD_SPLIT}, got {split!r}")
+    out = bwd_sweep(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, packed,
+                    split=split)
+    _build.launches["sdf_bwd_split"] += 1
+    return out
 
 
 def _bwd_f32(cfg, pts, ws, bs, c_sdf, c_feat, c_grad):
@@ -437,8 +514,11 @@ class _SDFCore(torch.autograd.Function):
     def forward(ctx, cfg, dtype, pts, *wb):
         L = len(wb) // 2
         ctx.cfg, ctx.dtype = cfg, dtype
+        # the bf16 route's weight image, packed once for both kernels
+        ctx.packed = (wg_pack(cfg, wb[:L], wb[L:])
+                      if dtype == torch.bfloat16 else None)
         ctx.save_for_backward(pts, *wb)
-        return sdf_core_fwd(cfg, pts, wb[:L], wb[L:], dtype)
+        return sdf_core_fwd(cfg, pts, wb[:L], wb[L:], dtype, ctx.packed)
 
     @staticmethod
     @once_differentiable
@@ -446,7 +526,7 @@ class _SDFCore(torch.autograd.Function):
         pts, *wb = ctx.saved_tensors
         L = len(wb) // 2
         dws, dbs = sdf_core_bwd(ctx.cfg, pts, wb[:L], wb[L:], c_sdf, c_feat,
-                                c_grad, ctx.dtype)
+                                c_grad, ctx.dtype, ctx.packed)
         return (None, None, None, *dws, *dbs)
 
 

@@ -1,7 +1,7 @@
 """Tile sweep of the SDF core's tensor-core kernels on one CUDA card: the
-cp.async ring depth of the forward and backward sweeps, and the row-split
-count of the grouped dW product (the port's counterpart of
-``tools/tune_kernel.py``, which swept the Pallas block sizes).
+ring depth of the forward sweep (cp.async) and the backward sweep (TMA),
+and the row-split count of the grouped dW product (the port's counterpart
+of ``tools/tune_kernel.py``, which swept the Pallas block sizes).
 
     python -m rnb_tpu_torch.tools.tune_kernel [--n 65536] [--iters 30]
         [--fwd_rs 3 4 5 6] [--bwd_rs 3 4 5 6] [--splits S ...]
@@ -25,7 +25,8 @@ The depth instances come from the tune library (``_build.library("tune")``,
 built only here: ``build/kernels/librnb_kernels_tune_<hash>.so``). The
 depth changes when a weight tile is loaded, not the order of any sum, so
 every depth is held bit for bit against the production library's kernels
-(depth ``WG_RS`` is the production instance itself); a stale or
+(the forward's production depth is ``WG_RS`` = 4, the backward sweep's
+``SW_RS`` = 16, ``production`` in the summary); a stale or
 overwritten ring stage shows there even where it corrupts too few tiles to
 move the error norm. Every instance is also held against the plain
 version (bf16 operands, within 1e-2 of its norm) before it is timed; one
@@ -203,7 +204,8 @@ def main(argv=None) -> dict:
         "fastest": {"fwd_rs": fastest(rows, "fwd", "rs"),
                     "fwd_bwd_rs": fastest(rows, "fwd_bwd", "rs"),
                     "splits": fastest(rows, "splits", "splits")},
-        "production": {"rs": prod_rs, "splits": prod_splits},
+        "production": {"rs": prod_rs, "bwd_rs": wg.SWEEP_RING_DEPTH,
+                       "splits": prod_splits},
         "ms": {f"{r['axis']}:{r.get('rs', r.get('splits'))}": r.get("ms")
                for r in rows},
         "dw_matmul_ms": matmul_ms,

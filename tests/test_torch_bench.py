@@ -30,7 +30,8 @@ import torch
 
 from rnb_tpu.models import fields as jfields
 from rnb_tpu_torch.ops import _build, wg
-from rnb_tpu_torch.tools import (bench, bench_dw, bench_scaling, bench_step,
+from rnb_tpu_torch.tools import (bench, bench_dw, bench_scaling, bench_sdf_bwd,
+                                 bench_step,
                                  consolidate_parity, roofline, tune_kernel)
 from rnb_tpu_torch.utils import bridge
 
@@ -126,7 +127,7 @@ def test_peak_table_refuses_an_unknown_card():
 
 
 @pytest.mark.parametrize("tool", [bench, bench_step, roofline, tune_kernel,
-                                  bench_scaling, bench_dw],
+                                  bench_scaling, bench_dw, bench_sdf_bwd],
                          ids=lambda t: t.__name__.split(".")[-1])
 def test_tools_need_cuda(no_cuda, tool):
     """Without a CUDA device each timing tool exits non-zero, naming it,
@@ -178,6 +179,21 @@ def test_bench_cpu_line(tiny_conf, monkeypatch, capsys):
         assert len(t["turns"]) == 3 and t["min"] <= t["median"] <= t["max"]
         assert math.isfinite(t["loss"])
     assert line["value"] == line["turns"]["main"]["median"] > 0
+
+
+def test_bench_sdf_bwd_cpu_line(capsys):
+    """--device cpu runs the SDF core's backward on its plain path at the
+    shipped widths: equal to the plain version and to a second call,
+    nothing launched, nothing timed, no card."""
+    res = bench_sdf_bwd.main(["--device", "cpu", "--n", "70"])
+    line = _last_json(capsys.readouterr().out)
+    assert line == json.loads(json.dumps(res))
+    assert line["device"] == "cpu" and line["card"] is None
+    assert line["n"] == 70 and line["dtype"] == "bf16"
+    assert line["rel_err"] == 0.0 and line["bitwise_repeat"]
+    assert len(line["digest"]) == 64
+    assert line["launches"] == {}
+    assert line["bwd"] is None and line["sweep"] is None
 
 
 def test_roofline_cpu_line(capsys):

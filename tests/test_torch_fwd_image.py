@@ -34,7 +34,7 @@ from rnb_tpu.ops import pallas_albedo as jalb
 from rnb_tpu.ops import pallas_nerf as jnerf
 from rnb_tpu_torch.models import fields
 from rnb_tpu_torch.models.fields import round_to
-from rnb_tpu_torch.ops import albedo, nerf, wg
+from rnb_tpu_torch.ops import albedo, nerf, sdf_core, wg
 from rnb_tpu_torch.utils import bridge
 
 torch.set_num_threads(1)
@@ -284,6 +284,31 @@ def test_nerf_packs_once_for_both_kernels(monkeypatch, dtype):
     _spy(monkeypatch, nerf, "nerf_bwd", bwd)
     alpha, rgb = nerf.nerf_apply_fused(cfg, params, pts, views, dtype)
     (alpha.sum() + rgb.sum()).backward()
+    assert len(fwd) == len(bwd) == 1
+    if dtype == torch.float32:
+        assert made == [] and fwd[0] is None and bwd[0] is None
+    else:
+        assert len(made) == 1
+        assert bwd[0] is fwd[0] and fwd[0][0] is made[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_sdf_core_packs_once_for_both_kernels(monkeypatch, dtype):
+    """One _SDFCore forward-plus-backward packs the SDF net's bf16 weight
+    image once at bf16 (none at f32), and the backward gets the forward's
+    image."""
+    cfg = fields.SDFConfig(d_hidden=32, n_layers=4, skip_in=(2,), multires=2)
+    params = fields.init_sdf_network(torch.Generator().manual_seed(15), cfg,
+                                     device="cpu")
+    for p in bridge.tree_leaves(params):
+        p.requires_grad_(True)
+    pts = torch.tensor(np.random.default_rng(16).uniform(-0.8, 0.8, (40, 3)),
+                       dtype=torch.float32)
+    made, fwd, bwd = _count_packs(monkeypatch), [], []
+    _spy(monkeypatch, sdf_core, "sdf_core_fwd", fwd)
+    _spy(monkeypatch, sdf_core, "sdf_core_bwd", bwd)
+    sdf, feat, grad = sdf_core.sdf_value_feat_grad_fused(cfg, params, pts, dtype)
+    (sdf.sum() + feat.sum() + grad.sum()).backward()
     assert len(fwd) == len(bwd) == 1
     if dtype == torch.float32:
         assert made == [] and fwd[0] is None and bwd[0] is None

@@ -52,7 +52,8 @@ def test_port_imports_no_jax():
               "tools.run_e2e", "tools.multinode_smoke",
               "tools.predict_scaling", "tools.bench", "tools.bench_step",
               "tools.roofline", "tools.tune_kernel", "tools.bench_scaling",
-              "tools.consolidate_parity", "tools.bench_dw"):
+              "tools.consolidate_parity", "tools.bench_dw",
+              "tools.bench_sdf_bwd"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"

@@ -20,7 +20,9 @@ boxes one piece at a time and each shipped backward's layers in one
 launch, bit for bit from call to call. The tile sweep's library
 (``_build.library("tune")``: the SDF core's sweeps at ring depths 3-6) is
 held bit for bit against the production kernels at every depth (the depth
-changes no sum's order), and against the plain version.
+changes no sum's order), and against the plain version. The bf16 backward
+sweep (TMA-fed) repeats bit for bit, and the ``full`` instance of its
+timing split is the production sweep.
 """
 
 import pytest
@@ -388,8 +390,10 @@ def test_wrappers_reject_bad_input(cuda):
 
 
 def test_tune_library_depth4_is_production(cuda):
-    """The tile sweep's library at the production ring depth (4) runs the
-    production instances: forward and backward equal bit for bit."""
+    """The tile sweep's library at the forward's production ring depth (4)
+    runs the production forward; the backward sweep at depth 4 (production:
+    16) gives the production backward's bits: forward and backward equal
+    bit for bit."""
     cfg, ws, bs, pts, cots = _sdf_setup(cuda)
     bf16 = torch.bfloat16
     n0 = dict(_build.launches)
@@ -403,6 +407,50 @@ def test_tune_library_depth4_is_production(cuda):
     assert _moved(n0) == {"sdf_core_fwd_rs4": 1, "sdf_core_bwd_rs4": 1,
                           "sdf_core_fwd": 1, "sdf_core_bwd": 1,
                           "sdf_dw_gemm": 2}
+
+
+@pytest.mark.parametrize("n", [N, 37])
+def test_sdf_bwd_sweep_repeats_bit_for_bit(cuda, n):
+    """Two calls of the bf16 backward sweep give the same dW operand rows
+    and db, and two backwards the same dW and db (no atomics, fixed
+    sums)."""
+    cfg, ws, bs, pts, cots = _sdf_setup(cuda, n)
+    packed = sdf_core.wg_pack(cfg, ws, bs)
+    a = sdf_core.bwd_sweep(cfg, pts, ws, bs, *cots, packed)
+    b = sdf_core.bwd_sweep(cfg, pts, ws, bs, *cots, packed)
+    lay = a[3]
+    rows = 2 * n
+    for buf_a, buf_b, offs, widths in ((a[0], b[0], lay["a_off"], lay["kp"]),
+                                       (a[1], b[1], lay["bb_off"], lay["np"])):
+        for off, w in zip(offs, widths):
+            assert torch.equal(buf_a[off:off + rows * w], buf_b[off:off + rows * w])
+    assert torch.equal(a[2], b[2])
+    gw, gb = sdf_core.sdf_core_bwd(cfg, pts, ws, bs, *cots, torch.bfloat16)
+    hw, hb = sdf_core.sdf_core_bwd(cfg, pts, ws, bs, *cots, torch.bfloat16)
+    assert all(torch.equal(x, y) for x, y in zip(gw + gb, hw + hb))
+
+
+def test_sdf_bwd_split_full_is_production(cuda):
+    """The timing split's ``full`` instance (tune library) is the
+    production sweep bit for bit; every other instance launches, counted
+    once, and fills buffers of the production shapes."""
+    cfg, ws, bs, pts, cots = _sdf_setup(cuda)
+    packed = sdf_core.wg_pack(cfg, ws, bs)
+    want = sdf_core.bwd_sweep(cfg, pts, ws, bs, *cots, packed)
+    for split in sdf_core.BWD_SPLIT:
+        n0 = dict(_build.launches)
+        got = sdf_core.sdf_bwd_split(split, cfg, pts, ws, bs, *cots, packed)
+        torch.cuda.synchronize()
+        assert _moved(n0) == {"sdf_bwd_split": 1}
+        assert [t.shape for t in got[:3]] == [t.shape for t in want[:3]]
+        if split == "full":
+            assert torch.equal(got[2], want[2])
+            for buf_g, buf_w, offs, widths in (
+                    (got[0], want[0], want[3]["a_off"], want[3]["kp"]),
+                    (got[1], want[1], want[3]["bb_off"], want[3]["np"])):
+                for off, w in zip(offs, widths):
+                    sl = slice(off, off + 2 * N * w)
+                    assert torch.equal(buf_g[sl], buf_w[sl])
 
 
 @pytest.mark.parametrize("depth", [d for d in _build.TUNE_DEPTHS
