@@ -124,8 +124,9 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      view-sharded row on a one-rank NCCL group, the batch curve at 2048
      and 8192 with its peak memory; MFU in (0, 100]), bench_step at
      batches 512 and 2048, roofline at --iters 10 (every region, the
-     residual, the share of the bf16 peak), tune_kernel at ring depths 3
-     and 4 and split counts 64 and 32 (the tune library, built beside
+     residual, the share of the bf16 peak), tune_kernel at ring depths 4
+     and 8 of the forward, 3 and 4 of the backward sweep, and split counts
+     64 and 32 (the tune library, built beside
      phases 1-10: both depths bit for bit the production kernels and
      within 1e-2 of the plain version), bench_scaling at width 1 (one
      torchrun rank on NCCL, no efficiency figure), and consolidate_parity
@@ -144,8 +145,9 @@ womask parity step for its f32 route, the ablation run for the ablation
 variants) plus its launches in every rank of phase 8's group runs, in
 phase 9 (the no-albedo steps, parity steps and CLI run), in phase 10's
 runs that end (the killed leg prints none) and in phase 11's tools; the
-tune instances phase 11 launched (sdf_core_fwd_rs3, ...: the SDF core's
-sweeps at ring depth 3 and 4 from the tune library) follow, with the
+tune instances phase 11 launched (sdf_core_fwd_rs4, ...: the SDF core's
+forward at ring depth 4 and 8 and backward sweep at 3 and 4 from the tune
+library) follow, with the
 sweep's own error and CUDA-event time and the plain time and bound of the
 production kernel whose work they do; `ms` /
 `plain_ms` are at the main-path shape with the
@@ -1624,9 +1626,9 @@ def resume_launch_path(card, tmp):
 
 # the tune instances phase 11 launches: (counter, kernel of phase 1 whose
 # work it does, its TPU kernel)
-SMOKE_DEPTHS = (3, 4)
+SMOKE_DEPTHS = {"fwd": (4, 8), "bwd": (3, 4)}
 TUNE_KERNELS = {f"sdf_core_{d}_rs{rs}": (f"sdf_core_{d}", KERNELS[f"sdf_core_{d}"][1])
-                for rs in SMOKE_DEPTHS for d in ("fwd", "bwd")}
+                for d, depths in SMOKE_DEPTHS.items() for rs in depths}
 
 
 def _positive(x, what):
@@ -1695,8 +1697,9 @@ def measuring_tools(card, tune_build, work):
         log(f"[ptxas tune] {name}: {rep}")
     for name, want in PTXAS_NOTE.items():   # the same production instances
         assert not tune_ptxas or _ptxas_numbers(tune_ptxas[name]) == want, name
-    r = tune_kernel.main(["--iters", "10", "--fwd_rs", *map(str, SMOKE_DEPTHS),
-                          "--bwd_rs", *map(str, SMOKE_DEPTHS)])
+    r = tune_kernel.main(["--iters", "10",
+                          "--fwd_rs", *map(str, SMOKE_DEPTHS["fwd"]),
+                          "--bwd_rs", *map(str, SMOKE_DEPTHS["bwd"])])
     assert not r["failed"], r["failed"]
     assert r["card"] == card
     tune_rows = {}
@@ -1753,12 +1756,13 @@ def measuring_tools(card, tune_build, work):
 
 
 # ptxas's report of the production SDF-core kernels (the note in
-# csrc/sdf_core.cu): the tensor-core sweeps exactly, the f32 ones no worse;
-# the grouped dW kernel's (the note in csrc/dw_gemm.cu) exactly, in the
+# csrc/sdf_core.cu): registers, stack frame, spill stores, spill loads; the
+# tensor-core sweeps exactly, the f32 ones (registers, spill) no worse; the
+# grouped dW kernel's (the note in csrc/dw_gemm.cu) exactly, in the
 # production library only
-PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 4>": (128, 80, 84),
-              "sdf_bwd_sweep_kernel<16, 0>": (128, 0, 0)}
-PTXAS_DW = {"rnb_dw_products_kernel": (168, 0, 0)}
+PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 16, 0>": (168, 64, 28, 56),
+              "sdf_bwd_sweep_kernel<16, 0>": (128, 32, 0, 0)}
+PTXAS_DW = {"rnb_dw_products_kernel": (168, 0, 0, 0)}
 PTXAS_F32 = {"sdf_fwd_kernel<0>": (128, 72), "sdf_bwd_kernel": (72, 0)}
 
 
@@ -1779,8 +1783,9 @@ def check_ptxas(report):
         assert _ptxas_numbers(report[name]) == want, (name, report[name])
     for name, (regs, spill) in PTXAS_F32.items():
         got = _ptxas_numbers(report[name])
-        assert got[0] <= regs and max(got[1:]) <= spill, (name, report[name])
-    other = [n for n in report if re.match(r"sdf_fwd_wg_kernel<.*\b[356]>", n)
+        assert got[0] <= regs and max(got[2:]) <= spill, (name, report[name])
+    other = [n for n in report
+             if re.match(r"sdf_fwd_wg_kernel<\d+, (?!16, 0>)", n)
              or (n.startswith("sdf_bwd_sweep_kernel<") and n not in PTXAS_NOTE)]
     assert not other, f"tune instances in the production library: {other}"
 

@@ -19,8 +19,8 @@
 //   bf16 (the main path): sdf_fwd_wg_kernel<MODE> and sdf_bwd_sweep_kernel,
 //             products on the tensor cores (wgmma, bf16 operands, f32
 //             sums), then the grouped dW product of dw_gemm.cu; the designs
-//             are in front of them below (the backward sweep's weights
-//             arrive by TMA, its record by an L2 prefetch).
+//             are in front of them below (the weights of both arrive by
+//             TMA, their records by an L2 prefetch).
 //   f32 (the f32 comparisons, e.g. the card-vs-CPU step parity):
 //             sdf_fwd_kernel<MODE>, sdf_bwd_kernel and the split-K
 //             reduction of common.cuh, products on the CUDA cores in fp32.
@@ -53,12 +53,16 @@
 //
 // ptxas (-Xptxas -v, in _build.build_info["main"]["log"]; chip_smoke.py
 // prints it and holds the tensor-core lines to this note; the production
-// instances are the forward at ring depth WG_RS = 4, the backward sweep at
+// instances are the forward at ring depth SF_RS = 16, the backward sweep at
 // SW_RS = 16):
-//   sdf_fwd_wg_kernel<SDF_FULL, 4>  128 registers, 80 B spill stores, 84 B
-//                                spill loads; 78,848 B dynamic shared memory
-//   sdf_bwd_sweep_kernel<16, 0>  128 registers, no spill; 217,344 B dynamic
-//                                shared memory
+//   sdf_fwd_wg_kernel<SDF_FULL, 16, 0>  168 registers at launch (the
+//                                consumers take 232 by setmaxnreg), 64 B
+//                                stack frame, 28 B spill stores, 56 B
+//                                spill loads (the 16 record loads held
+//                                across a product, which bought ~2%);
+//                                228,752 B dynamic shared memory
+//   sdf_bwd_sweep_kernel<16, 0>  128 registers, 32 B stack frame, no
+//                                spill; 217,344 B dynamic shared memory
 //   sdf_fwd_kernel<SDF_FULL>     128 registers, 72 B spill (f32 route)
 //   sdf_bwd_kernel               72 registers, no spill (f32 route)
 #include "common.cuh"
@@ -522,44 +526,36 @@ extern "C" int rnb_sdf_bwd(const float* pts, long long n, const float* w,
 // bf16 route: the same two kernels on the tensor cores (wgmma, sm_90a)
 // ===========================================================================
 //
-// The forward: a block of two warpgroups (256 threads) owns a tile of 64
-// points, the M of wgmma (the backward sweep's design is in front of it,
-// below). Every product of the chain is [64 x K] · [K x N]:
+// Both kernels work on tiles of 64 points, the M of wgmma. Every product of
+// a chain is [64 x K] · [K x N]:
 //   * the A operand (layer input, or the reverse sweep's cotangent row) is a
 //     bf16 tile in shared memory, K-major, written by the epilogue of the
 //     product before; its values are exactly the op-dtype roundings of the
 //     plain version, so the operand is exact;
 //   * the B operand is the layer's bf16 weight tile, streamed from the
-//     L2-resident weight image in K-steps of 16 through a ring of stages
-//     (cp.async); the forward reads it MN-major (W), the reverse sweep reads
-//     the same tile K-major (Wᵀ): no transposed copy;
-//   * N = 256 is split across the two warpgroups (columns 0-127 and
-//     128-255, a 64-float accumulator a thread, 128 registers, two blocks
-//     an SM). The epilogue (bias, softplus pair, rounding, record) runs on
-//     those registers; it is CUDA-core work that the block's warps overlap
-//     with each other's products, so warps in flight decide the speed more
-//     than the K loop.
+//     L2-resident weight image in K-steps of 16 by TMA through a ring of
+//     stages; the forward product reads it MN-major (W), the reverse sweep
+//     reads the same tile K-major (Wᵀ): no transposed copy.
 // Ragged widths are padded with zeros: K to a multiple of 16 (39 -> 48,
 // 217 -> 224, 257 -> 272), the 257-wide last layer is one N = 256 product
 // plus one N = 8 product for column 256, the 39-wide reverse product of
-// layer 0 is N = 48 (24 per warpgroup). A padded column of an epilogue is
-// never written to the next A tile: the skip layer's input gets e at its
-// own column (hd = 217 on the shipped net), every other pad gets 0.
+// layer 0 is N = 48. A padded column of an epilogue is never written to the
+// next A tile: the skip layer's input gets e at its own column (hd = 217 on
+// the shipped net), every other pad gets 0.
 //
-// The per-point record of the reverse sweep (the biased pre-activations)
-// stays f32 in global memory, in the accumulator's own layout: the thread
-// that wrote a value in the primal sweep is the one that reads it back in
-// the reverse sweep (both split N the same way), and the 128 threads of a
-// warpgroup touch 512 consecutive bytes per register.
+// The per-point record of a reverse sweep stays f32 in global memory, in
+// the accumulator's own layout: the thread that wrote a value in the primal
+// sweep is the one that reads it back in the reverse sweep, and the 128
+// threads of a warpgroup touch 512 consecutive bytes per register.
 
+#include <type_traits>
+
+#include "tma.cuh"
 #include "wg_pipe.cuh"
 
-#define WG_NT 256    // threads per block of the forward: two warpgroups
 #define WG_BWG 4      // warpgroups per block of the backward sweep (N = 256 / 4)
 #define WG_TW 272     // widest A tile: K of the last layer's reverse product
 #define WG_EP 48      // PE channels held per point (E <= 48)
-#define WG_STG 4224   // bf16 elements of one ring stage (a K-step of 16):
-                      // 2 x 33 weight cores
 #define WG_REC (WG_M * 256)  // record floats per tile and layer
 
 // sigmoid(100 z) and softplus(100 z)/100 of the bf16 route, from the fast
@@ -584,49 +580,229 @@ __device__ __forceinline__ float wg_sigmoid100(float z) {
   wg_softplus100_pair(z, &s, &h);  // h unused: its log is not computed
   return s;
 }
-__device__ __forceinline__ float wg_softplus100(float z) {
-  float s, h;
-  wg_softplus100_pair(z, &s, &h);  // s unused: its division is not computed
-  return h;
+
+// ---------------------------------------------------------------------------
+// The bf16 forward (sdf_fwd_wg_kernel)
+// ---------------------------------------------------------------------------
+//
+// What held the cp.async kernel it replaced (its timing split on one H100,
+// PERF.md §6): its K loop. Two warpgroups a tile each copied a share of
+// every weight stage and met the block's other warps at a barrier at each
+// of a tile's 257 K-steps; the ring and its barriers alone took 0.49 of its
+// 1.25 ms at 65,536 points, the products 0.47 more, the record and the
+// softplus arithmetic 0.29 together.
+//
+// What the design does about it:
+//   * one block of 384 threads a pair of 64-point tiles (2b, 2b + 1), one
+//     block an SM (225,552 B of shared memory): a producer warpgroup whose
+//     one thread loads every weight stage by TMA, and two consumer
+//     warpgroups (setmaxnreg 40 / 232), each a whole tile: one m64n256k16
+//     a K-step into 128 f32 accumulators a thread (and one m64n8k16 for
+//     the 257-wide head's last column; N = 48 for layer 0's reverse);
+//   * one ring stage feeds both tiles, so the weight traffic from L2 and
+//     the handshakes a point halve: a stage is one K-step, one 3-D TMA box
+//     of the 8x8-core weight image (forward {64, 32, 2}, {64, 33, 2} at
+//     the head; reverse {64, 2, 32}, {64, 2, 6} at layer 0),
+//     completing on the stage's full mbarrier; each consumer warp frees it
+//     on its empty mbarrier (RnbRing, tma.cuh), and the producer refills a
+//     slot once all of them did. The producer walks the stages in the
+//     products' order (SfCursor, ops/sdf_core.py fwd_steps). No consumer
+//     waits on another warp's release: a warpgroup meets only its own four
+//     warps (a named barrier) around its epilogues;
+//   * ping-pong: the two consumers take turns at their product phases (an
+//     order mbarrier each, as CUTLASS's ping-pong GEMM), so that one tile's
+//     epilogue (bias, softplus pair, rounding, record) runs under the other
+//     tile's products. A consumer hands the turn on once it has issued
+//     min(nk, RS) K-steps: at RS = 16 (no product here has more than 16)
+//     that is its whole phase; at a shallower ring (the tune library's
+//     depths) a later step would wait for a slot that only the other
+//     tile's next turn frees;
+//   * the record holds s = sigmoid(100 zb), which the primal epilogue's
+//     softplus pair computes anyway, in place of zb: the reverse epilogue
+//     reads the bits it used to recompute, with no MUFU op. It is written
+//     and read as one float4 a thread and j (whole 512-byte runs a warp);
+//     the layer the next epilogue reads is brought into L2 by one bulk
+//     prefetch when a product phase starts, and its first 16 loads are
+//     issued before that phase. It stays f32: a bf16 record would change
+//     the function;
+//   * the epilogues run on one warp an SMSP, so they are written to keep
+//     many independent chains in flight: no branch an element (selects,
+//     the skip input's e copied in by a short loop after), each layer's
+//     bias staged in shared memory by cp.async under the products, the
+//     reverse seed staged once a block, column tests against a per-layer
+//     limit (cq + 8j per column would pin 64 registers), the head's
+//     features stored as whole 32-byte sectors.
+// Each element is summed from the same bf16 operands in the same K order
+// as the cp.async kernel's (m64n256k16 sums an element as m64n128k16 did),
+// and the rest is the same arithmetic: the same bits.
+//
+// What did not pay (one H100, PERF.md §6): more wgmma groups in flight
+// (1-6), the consumers running free of their turns, one wgmma.fence a
+// phase (ptxas then serializes), the epilogues in four 32-register chunks
+// (ptxas then serializes for want of registers), L2 evict_last on the later
+// half of the record or evict_first on the earlier half, and dropping each
+// read record line from L2 (discard, ~2% slower).
+
+#define SF_RS 16       // the production ring depth
+#define SF_NT 384      // a producer warpgroup and two consumer warpgroups
+#define SF_STAGE 8448  // bytes of a ring stage: 2 x 33 cores of 128 B
+#define SF_PE 12288    // bytes of a tile's PE area: e [64][WG_EP] bf16 in the
+                       // primal, bar_e [64][WG_EP] f32 over it in the reverse
+#define SF_BIAS 272    // floats of a tile's bias area: the layer's b, zeros
+                       // past its width
+
+// Ablation variants of the forward kernel (counterparts of the variants in
+// tools/ablate_kernel.py:62; for timing only, their numerics are wrong by
+// design) are its MODE (SdfMode above). Its timing split
+// (tools/ablate_kernel.py --fwd_split; the tune library only) is its SPLIT:
+// each strips one part and keeps the rest.
+enum SdfFwdSplit {
+  FWD_FULL = 0,           // the production kernel
+  FWD_NO_RECORD = 1,      // no record stores or loads
+  FWD_NO_EPILOGUE = 2,    // no softplus arithmetic (zb recorded and passed on)
+  FWD_K_LOOPS_ONLY = 3,   // the ring and its barriers: no wgmma, no epilogue
+  FWD_PRODUCTS_ONLY = 4   // no record and no softplus arithmetic
+};
+
+// The launch's arguments in kernel parameter space (__grid_constant__: the
+// tensor maps must lie in parameter, constant or global memory).
+struct SdfFwdParams {
+  RnbWgNet net;
+  const float* pts;
+  const rnb_bf16* w;  // the weight image: the reverse's seed W_last[:, 0]
+  const float* b;
+  float* rec;         // ceil(n/64)·(L-1)·WG_REC floats
+  float* sdf;
+  float* feat;
+  float* grad;
+  long long n;
+  int multires;
+  float scale, c16;
+  CUtensorMap wf[RNB_MAXL];  // layer l's image as [kpc][npc][64]: forward box
+  CUtensorMap wr[RNB_MAXL];  // the same, reverse box
+};
+
+template <int RS>
+__host__ __device__ constexpr int sf_smem_bytes() {
+  return 2 * WG_M * 256 * (int)sizeof(rnb_bf16) + RS * SF_STAGE + 2 * SF_PE +
+         (2 * RS + 2) * 8 + (2 * SF_BIAS + 256) * (int)sizeof(float);
 }
 
-// RS: the ring's stages (WG_RS in production; the tune library's
-// instances take 3-6, RNB_TUNE below).
-template <int MODE, int RS = WG_RS>
-static __global__ void __launch_bounds__(WG_NT, 2)
-sdf_fwd_wg_kernel(const float* __restrict__ pts, long long n,
-                  const rnb_bf16* __restrict__ w, const float* __restrict__ b,
-                  RnbWgNet net, int multires, float scale, float c16,
-                  float* __restrict__ rec, float* __restrict__ sdf,
-                  float* __restrict__ feat, float* __restrict__ grad) {
-  static_assert(RS >= 3, "pipe_run waits for all but RS - 3 copy groups");
+// The forward's ring stages in the order the products take them: layers
+// 0..L-1 forward, pad16(in)/16 K-steps each, then (but in SDF_PRIMAL_ONLY)
+// layers L-2..0 reverse, pad16(out)/16 each.
+struct SfCursor {
+  const SdfFwdParams* p;
+  int l, t, rev, fin, primal_only;
+  __device__ __forceinline__ bool done() const { return fin; }
+  __device__ __forceinline__ void issue(unsigned char* st, uint64_t* bar) {
+    const RnbWgNet& net = p->net;
+    if (!rev) {
+      const int nb = l == net.n_layers - 1 ? 33 : 32;
+      rnb_mbar_expect_tx(bar, 2 * nb * 128);
+      rnb_tma_load_3d(st, &p->wf[l], bar, 0, 0, 2 * t);
+      if (++t < rnb_pad16(net.in_dim[l]) >> 4) return;
+      t = 0;
+      if (++l < net.n_layers) return;
+      rev = 1;
+      l = net.n_layers - 2;
+      fin = primal_only;
+    } else {
+      const int ib = l == 0 ? WG_EP / 8 : 32;
+      rnb_mbar_expect_tx(bar, 2 * ib * 128);
+      rnb_tma_load_3d(st, &p->wr[l], bar, 0, 2 * t, 0);
+      if (++t < rnb_pad16(net.out_dim[l]) >> 4) return;
+      t = 0;
+      fin = --l < 0;
+    }
+  }
+};
+
+// MODE: an SdfMode; RS: the ring's stages (SF_RS in production; the tune
+// library's instances take 4, 8 and 12 too); SPLIT: an SdfFwdSplit.
+template <int MODE, int RS = SF_RS, int SPLIT = FWD_FULL>
+static __global__ void __launch_bounds__(SF_NT, 1)
+sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
+  static_assert(RS >= 3 && sf_smem_bytes<RS>() <= 232448, "ring depth");
+  constexpr bool primal_only = MODE == SDF_PRIMAL_ONLY;
+  constexpr bool k_mma = SPLIT != FWD_K_LOOPS_ONLY;
+  constexpr bool k_rec =
+      !primal_only && (SPLIT == FWD_FULL || SPLIT == FWD_NO_EPILOGUE);
+  constexpr bool k_epi = SPLIT == FWD_FULL || SPLIT == FWD_NO_RECORD;
   extern __shared__ __align__(128) unsigned char wg_smem[];
-  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][256]
-  rnb_bf16* ring = X + WG_M * 256;
-  rnb_bf16* e16 = ring + RS * WG_STG;   // [64][WG_EP] PE, op dtype
-  float* bar_e = reinterpret_cast<float*>(e16);  // [64][WG_EP], reverse only
-  WG_FRAG_ROWS;
-  const int tid = threadIdx.x;
-  const long long tile = blockIdx.x, n0 = tile * WG_M;
+  const RnbWgNet& net = p.net;
+  const long long n = p.n, tiles = (n + WG_M - 1) / WG_M;
+  const int pair = tiles > 2 * (long long)blockIdx.x + 1 ? 2 : 1;
+  RnbRing<RS> ring;
+  ring.base = wg_smem + 2 * WG_M * 256 * (int)sizeof(rnb_bf16);
+  ring.bytes = SF_STAGE;
+  ring.full =
+      reinterpret_cast<uint64_t*>(ring.base + RS * SF_STAGE + 2 * SF_PE);
+  ring.empty = ring.full + RS;
+  uint64_t* order = ring.empty + RS;   // consumer c's turn at order[c]
+  // the reverse sweep's seed W_last[:, 0], once a block for both tiles
+  float* seed = reinterpret_cast<float*>(order + 2) + 2 * SF_BIAS;
+  if (threadIdx.x < 256) {
+    const int cc = threadIdx.x, inL = net.in_dim[net.n_layers - 1];
+    const int npcL = rnb_pad16(net.out_dim[net.n_layers - 1]) >> 3;
+    const rnb_bf16* WL = p.w + net.w_off[net.n_layers - 1];
+    seed[cc] =
+        cc < inL ? wg_f(WL[((cc >> 3) * npcL) * 64 + (cc & 7) * 8]) : 0.0f;
+  }
+  if (threadIdx.x == 0) {
+    ring.init(4 * pair);
+    rnb_mbar_init(&order[0], 1);
+    rnb_mbar_init(&order[1], 1);
+    rnb_fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    rnb_setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      SfCursor cur{&p, 0, 0, 0, 0, primal_only};
+      rnb_ring_produce<RS>(ring, cur);
+    }
+    return;
+  }
+  rnb_setmaxnreg_inc<232>();
+  const int ci = (threadIdx.x >> 7) - 1;   // this consumer's tile of the pair
+  if (ci >= pair) return;
+  const int lt = threadIdx.x & 127, bar_id = 1 + ci;
+  const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2), cq = 2 * (lt & 3);
+  const long long tile = 2 * (long long)blockIdx.x + ci, n0 = tile * WG_M;
   const int L = net.n_layers, E = net.E;
-  const float inv_sqrt2 = 0.70710678118654752f;
+  const float inv_sqrt2 = 0.70710678118654752f, c16 = p.c16;
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem) + ci * WG_M * 256;
+  rnb_bf16* e16 =
+      reinterpret_cast<rnb_bf16*>(ring.base + RS * SF_STAGE + ci * SF_PE);
+  float* bar_e = reinterpret_cast<float*>(e16);   // [64][WG_EP], reverse only
+  float* sb = reinterpret_cast<float*>(order + 2) + ci * SF_BIAS;
+  // layer l's bias into sb by cp.async, under the products before the
+  // epilogue that reads it (product() waits for the copies)
+  auto stage_bias = [&](int l) {
+    const float* bl = p.b + net.b_off[l];
+    const int out = net.out_dim[l];
+    for (int c = lt; c < SF_BIAS; c += 128)
+      rnb_cp_async4(sb + c, c < out ? bl + c : bl, c < out);
+    rnb_cp_async_commit();
+  };
 
   // --- PE of the tile (rows past n from u = 0), pads zero ---
-  for (int idx = tid; idx < WG_M * 3; idx += WG_NT) {
-    const int p = idx / 3, d = idx % 3;
-    const long long row = n0 + p;
-    rnb_bf16* e = e16 + p * WG_EP;
+  for (int idx = lt; idx < WG_M * 3; idx += 128) {
+    const int pp = idx / 3, d = idx % 3;
+    const long long row = n0 + pp;
+    rnb_bf16* e = e16 + pp * WG_EP;
     if constexpr (MODE == SDF_NO_PE) {
-      const rnb_bf16 x = wg_bf(row < n ? pts[row * 3] : 0.0f);
+      const rnb_bf16 x = wg_bf(row < n ? p.pts[row * 3] : 0.0f);
       for (int c = d; c < E; c += 3) e[c] = x;
     } else {
-      const float u = row < n ? pts[row * 3 + d] * scale : 0.0f;
+      const float u = row < n ? p.pts[row * 3 + d] * p.scale : 0.0f;
       e[d] = wg_bf(u);
       float s = sinf(u), c = cosf(u);
-      for (int k = 0; k < multires; ++k) {
+      for (int k = 0; k < p.multires; ++k) {
         e[3 + 6 * k + d] = wg_bf(s);
         e[6 + 6 * k + d] = wg_bf(c);
-        if (k + 1 < multires) {
+        if (k + 1 < p.multires) {
           const float s2 = 2.0f * s * c;
           c = 1.0f - 2.0f * s * s;
           s = s2;
@@ -634,225 +810,304 @@ sdf_fwd_wg_kernel(const float* __restrict__ pts, long long n,
       }
     }
   }
-  for (int idx = tid; idx < WG_M * (WG_EP - E); idx += WG_NT) {
-    const int p = idx / (WG_EP - E), c = E + idx % (WG_EP - E);
-    e16[p * WG_EP + c] = wg_bf(0.0f);
+  for (int idx = lt; idx < WG_M * (WG_EP - E); idx += 128) {
+    const int pp = idx / (WG_EP - E), c = E + idx % (WG_EP - E);
+    e16[pp * WG_EP + c] = wg_bf(0.0f);
   }
-  __syncthreads();
-  for (int idx = tid; idx < WG_M * WG_EP; idx += WG_NT) {
-    const int p = idx / WG_EP, c = idx % WG_EP;
-    X[wg_tidx(p, c)] = e16[p * WG_EP + c];
+  rnb_wg_sync(bar_id);
+  for (int idx = lt; idx < WG_M * WG_EP; idx += 128) {
+    const int pp = idx / WG_EP, c = idx % WG_EP;
+    X[wg_tidx(pp, c)] = e16[pp * WG_EP + c];
   }
+  rnb_fence_proxy_async();
+  rnb_wg_sync(bar_id);
 
-  // the product's weights and shape, read by the copy lambda
-  const rnb_bf16* cw = w;
-  int c_npc = 0, c_nb = 0, c_kpc = 0, c_ibn = 0, c_rev = 0, nk = 0;
-  auto copy = [&](int t, rnb_bf16* st) {
-    if (c_rev) wg_copy_rev(st, cw, c_npc, c_kpc, c_ibn, t);
-    else wg_copy_fwd(st, cw, c_npc, c_nb, t);
-  };
-  auto set_fwd = [&](int l) {
-    cw = w + net.w_off[l];
-    c_npc = rnb_pad16(net.out_dim[l]) >> 3;
-    c_nb = net.out_dim[l] > 256 ? 33 : 32;
-    c_rev = 0;
-    nk = rnb_pad16(net.in_dim[l]) >> 4;
-  };
-  auto set_rev = [&](int l) {
-    cw = w + net.w_off[l];
-    c_npc = rnb_pad16(net.out_dim[l]) >> 3;
-    c_kpc = rnb_pad16(net.in_dim[l]) >> 3;
-    c_ibn = l == 0 ? 6 : 32;
-    c_rev = 1;
-    nk = rnb_pad16(net.out_dim[l]) >> 4;
-  };
-
-  float acc[64];
-  float acc8[4];
-  set_fwd(0);
-  pipe_prologue<RS, WG_STG>(ring, nk, copy);
-
-  // --- primal chain, recording the biased pre-activations ---
-  for (int l = 0; l < L; ++l) {
-    const bool tail = net.out_dim[l] > 256;
-    pipe_run<RS, WG_STG>(ring, nk, copy, [&](int t, const rnb_bf16* st) {
-      const uint64_t da = rnb_desc(X + t * 1024, 1024, 128);
-      const uint32_t lbo = (uint32_t)c_nb * 128;
-      rnb_wgmma_n128<0, 1>(acc, da, rnb_desc(st + wg * 1024, lbo, 128), t > 0);
-      if (tail && wg == 0)
-        rnb_wgmma_n8<0, 1>(acc8, da, rnb_desc(st + 32 * 64, lbo, 128), t > 0);
-    });
-    if (l + 1 < L) {
-      set_fwd(l + 1);
-      pipe_prologue<RS, WG_STG>(ring, nk, copy);
-    } else if (MODE != SDF_PRIMAL_ONLY) {
-      set_rev(L - 2);
-      pipe_prologue<RS, WG_STG>(ring, nk, copy);
+  // One product phase over nk stages of the ring: mma(t, stage) issues
+  // K-step t's wgmmas on X. One wgmma group stays in flight; a stage is
+  // freed once its products retired. Its turn taken from, and handed on
+  // to, the other tile of the pair.
+  int it = 0, phase = 0;
+  auto product = [&](int nk, auto mma) {
+    const bool turns = pair == 2;
+    if (turns) rnb_mbar_wait(&order[ci], (phase & 1) ^ (ci == 0));
+    const int handoff = (nk < RS ? nk : RS) - 1;
+    for (int t = 0; t < nk; ++t, ++it) {
+      ring.wait_full(it);
+      if constexpr (k_mma) {
+        rnb_wgmma_fence();
+        mma(t, reinterpret_cast<const rnb_bf16*>(ring.stage(it)));
+        rnb_wgmma_commit();
+        rnb_wgmma_wait<1>();
+      }
+      if (t > 0) ring.release(it - 1);
+      if (turns && t == handoff && lt == 0) rnb_mbar_arrive(&order[ci ^ 1]);
     }
+    if constexpr (k_mma) rnb_wgmma_wait<0>();
+    rnb_cp_async_wait<0>();   // the epilogue's bias (stage_bias)
+    ring.release(it - 1);
+    ++phase;
+    rnb_wg_sync(bar_id);   // every warp's products read X: it may be written
+  };
+
+  float acc[128];
+  float acc8[4];
+
+  // --- primal chain, recording s = sigmoid(100 zb); the head after it ---
+  for (int l = 0; l < L - 1; ++l) {
+    if constexpr (k_mma) stage_bias(l);
+    product(rnb_pad16(net.in_dim[l]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                           rnb_desc(st, 32 * 128, 128), t > 0);
+    });
+    if constexpr (!k_mma) continue;
     const int out = net.out_dim[l];
-    const float* bl = b + net.b_off[l];
-    if (l < L - 1) {
-      const bool nskip = net.skip[l + 1] != 0;
-      float* recl = rec + ((tile * (L - 1) + l) * 2 + wg) * (WG_REC / 2);
+    // columns 8j + cq + u below out: 8j + u < lim (8j + u an immediate;
+    // cq + 8j + u kept for every j would hold 64 registers the whole sweep)
+    const int lim = out - cq;
+    float* recl = p.rec + (tile * (L - 1) + l) * WG_REC;
+    // bias, softplus pair, record, rounding into X; branch-free, so the
+    // 128 elements' chains interleave (one warp an SMSP runs it). NS: the
+    // next layer takes the skip input [h, e]/√2, e from column out on
+    auto epilogue = [&](auto ns) {
+      constexpr bool NS = decltype(ns)::value;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < 32; ++j) {
+        float s4[4];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int p = r0 + 8 * h, c = wg * 128 + 8 * j + cq;
+          const int c = 8 * j + cq;
           float v[2];
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            const int idx = 4 * j + 2 * h + u, cc = c + u;
-            const float zb = acc[idx] + (cc < out ? bl[cc] : 0.0f);
-            if (MODE != SDF_PRIMAL_ONLY) recl[idx * 128 + lt] = zb;
-            float hv;
-            if constexpr (MODE == SDF_NO_ACT) hv = zb * 0.25f;
-            else hv = wg_softplus100(zb);
-            if (cc < out) {
-              v[u] = nskip ? wg_f(wg_bf(hv)) * c16 : hv;
-            } else if (nskip && cc < out + E) {
-              v[u] = wg_f(e16[p * WG_EP + cc - out]) * c16;
-            } else {
-              v[u] = 0.0f;
+            const float zb = acc[4 * j + 2 * h + u] + sb[c + u];
+            float s = zb, hv = zb;
+            if constexpr (MODE == SDF_NO_ACT) {
+              s = zb * 0.5f;
+              hv = zb * 0.25f;
+            } else if constexpr (k_epi) {
+              wg_softplus100_pair(zb, &s, &hv);
             }
+            s4[2 * h + u] = s;
+            if constexpr (NS) hv = wg_f(wg_bf(hv)) * c16;
+            v[u] = 8 * j + u < lim ? hv : 0.0f;
           }
-          wg_put2(X, p, c, v[0], v[1]);
+          wg_put2(X, r0 + 8 * h, c, v[0], v[1]);
         }
+        if constexpr (k_rec)
+          *reinterpret_cast<float4*>(recl + (j * 128 + lt) * 4) =
+              make_float4(s4[0], s4[1], s4[2], s4[3]);
+      }
+    };
+    if (net.skip[l + 1]) {
+      epilogue(std::true_type{});
+      rnb_wg_sync(bar_id);   // then e/√2 over the zeros past column out
+      for (int idx = lt; idx < WG_M * E; idx += 128) {
+        const int pp = idx / E, c = idx % E;
+        X[wg_tidx(pp, out + c)] = wg_bf(wg_f(e16[pp * WG_EP + c]) * c16);
+      }
     } else {
+      epilogue(std::false_type{});
+    }
+    rnb_fence_proxy_async();
+    rnb_wg_sync(bar_id);   // the layer's output is the next products' A
+  }
+  {
+    // the head: N = 256 and one N = 8 product for its column 256 (a stage
+    // of 33 output cores, zeros past the layer's width)
+    if (k_rec && lt == 0)   // the first reverse epilogue's record
+      rnb_prefetch_l2(p.rec + (tile * (L - 1) + L - 2) * WG_REC, WG_REC * 4);
+    if constexpr (k_mma) stage_bias(L - 1);
+    product(rnb_pad16(net.in_dim[L - 1]) >> 4,
+            [&](int t, const rnb_bf16* st) {
+              const uint64_t da = rnb_desc(X + t * 1024, 1024, 128);
+              rnb_wgmma_n256<0, 1>(acc, da, rnb_desc(st, 33 * 128, 128),
+                                   t > 0);
+              rnb_wgmma_n8<0, 1>(acc8, da,
+                                 rnb_desc(st + 32 * 64, 33 * 128, 128), t > 0);
+            });
+    const int out = net.out_dim[L - 1];
+    if constexpr (k_mma) {
+      // sdf from column 0 (cq = 0), feat from the others. A whole tile of
+      // a 257-wide head stores whole 32-byte sectors: each lane pairs its
+      // column 8j + cq + 1 with the next one (its right neighbour's, or
+      // the next j's first from lane cq = 0; column 256 from acc8) into
+      // one 8-byte store at feat column 8j + cq
+      const bool whole = n0 + WG_M <= n && out == 257;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const long long row = n0 + r0 + 8 * h;
+        const bool live = row < n;
+        if (cq == 0 && live) p.sdf[row] = (acc[2 * h] + sb[0]) / p.scale;
+        if (whole) {
+          float* frow = p.feat + row * 256;
+          float nxt = acc[2 * h] + sb[cq];   // column 8j + cq, j = 0
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int j = 0; j < 32; ++j) {
+            const float a1 = acc[4 * j + 2 * h + 1] + sb[8 * j + cq + 1];
+            const float a0n =
+                j < 31 ? acc[4 * j + 4 + 2 * h] + sb[8 * j + 8 + cq]
+                       : acc8[2 * h] + sb[256 + cq];
+            const float right = __shfl_down_sync(0xffffffffu, nxt, 1, 4);
+            const float first = __shfl_sync(0xffffffffu, a0n, 0, 4);
+            *reinterpret_cast<float2*>(frow + 8 * j + cq) =
+                make_float2(a1, cq < 6 ? right : first);
+            nxt = a0n;
+          }
+        } else {
+          float* frow = p.feat + (live ? row : 0) * (out - 1) - 1;
+#pragma unroll
+          for (int j = 0; j < 32; ++j)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int cc = 8 * j + cq + u;
+              if (live && cc > 0 && cc < out)
+                frow[cc] = acc[4 * j + 2 * h + u] + sb[cc];
+            }
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            const int p = r0 + 8 * h, cc = wg * 128 + 8 * j + cq + u;
-            const long long row = n0 + p;
-            if (cc >= out || row >= n) continue;
-            const float zb = acc[4 * j + 2 * h + u] + bl[cc];
-            if (cc == 0) sdf[row] = zb / scale;
-            else feat[row * (out - 1) + cc - 1] = zb;
+            const int cc = 256 + cq + u;
+            if (live && cc < out) frow[cc] = acc8[2 * h + u] + sb[cc];
           }
-      if (tail && wg == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int p = r0 + 8 * h, cc = 256 + cq + u;
-            const long long row = n0 + p;
-            if (cc < out && row < n)
-              feat[row * (out - 1) + cc - 1] = acc8[2 * h + u] + bl[cc];
-          }
+        }
       }
     }
   }
 
-  if constexpr (MODE == SDF_PRIMAL_ONLY) {
-    for (int idx = tid; idx < WG_M * 3; idx += WG_NT) {
+  if constexpr (primal_only) {
+    for (int idx = lt; idx < WG_M * 3; idx += 128) {
       const long long row = n0 + idx / 3;
-      if (row < n) grad[row * 3 + idx % 3] = 0.0f;
+      if (row < n) p.grad[row * 3 + idx % 3] = 0.0f;
     }
     return;
   }
 
   // --- reverse sweep for ∇SDF; seed bar_h = W_last[:, 0] in acc ---
-  for (int idx = tid; idx < WG_M * WG_EP; idx += WG_NT) bar_e[idx] = 0.0f;
-  {
-    const int inL = net.in_dim[L - 1];
-    const int npcL = rnb_pad16(net.out_dim[L - 1]) >> 3;
-    const rnb_bf16* WL = w + net.w_off[L - 1];
+  for (int idx = lt; idx < WG_M * WG_EP; idx += 128) bar_e[idx] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < 32; ++j)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int cc = wg * 128 + 8 * j + cq + u;
-        const float v =
-            cc < inL ? wg_f(WL[((cc >> 3) * npcL) * 64 + (cc & 7) * 8]) : 0.0f;
-        acc[4 * j + u] = v;
-        acc[4 * j + 2 + u] = v;
-      }
-  }
-  float acc24[12];
+    for (int u = 0; u < 2; ++u) {
+      const float v = seed[8 * j + cq + u];
+      acc[4 * j + u] = v;
+      acc[4 * j + 2 + u] = v;
+    }
+  float4 rg[2][8];
+  bool pre = false;
+  auto load_group = [&](const float* rl, int g, float4 (&r)[8]) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      r[k] = k_rec ? *reinterpret_cast<const float4*>(
+                         rl + ((8 * g + k) * 128 + lt) * 4)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
   for (int l = L - 2; l >= 0; --l) {
-    // G_l = rnd(bar_h ⊙ σ'(z_l)) into the A tile
-    const int out = net.out_dim[l];
-    const float* recl = rec + ((tile * (L - 1) + l) * 2 + wg) * (WG_REC / 2);
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = r0 + 8 * h, c = wg * 128 + 8 * j + cq;
-        float v[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int idx = 4 * j + 2 * h + u;
-          const float zb = recl[idx * 128 + lt];
-          float s;
-          if constexpr (MODE == SDF_NO_ACT) s = zb * 0.5f;
-          else s = wg_sigmoid100(zb);
-          v[u] = c + u < out ? acc[idx] * s : 0.0f;
-        }
-        wg_put2(X, p, c, v[0], v[1]);
+    // G_l = rnd(bar_h ⊙ σ'(z_l)) into the A tile; the record the next
+    // epilogue reads is prefetched under this layer's products
+    const int out = net.out_dim[l], lim = out - cq;
+    const float* recl = p.rec + (tile * (L - 1) + l) * WG_REC;
+    if constexpr (k_mma) {
+      // the record as 32 float4 loads a thread in groups of 8, two groups
+      // ahead of their use: the first two issued before the products of
+      // the layer above (under them), the others as a group is used. One
+      // at a time, as the register allocator otherwise issues them, each
+      // load waits out its own trip to device memory.
+      if (!pre) {
+        load_group(recl, 0, rg[0]);
+        load_group(recl, 1, rg[1]);
       }
-    const int in = net.in_dim[l];
-    if (l > 0) {
-      pipe_run<RS, WG_STG>(ring, nk, copy, [&](int t, const rnb_bf16* st) {
-        rnb_wgmma_n128<0, 0>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                             rnb_desc(st + wg * 16 * 128, 128, 256), t > 0);
-      });
-      set_rev(l - 1);
-      pipe_prologue<RS, WG_STG>(ring, nk, copy);
-      if (net.skip[l]) {
-        const int hd = net.hd[l];
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+      for (int g = 0; g < 4; ++g) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+        for (int k = 0; k < 8; ++k) {
+          const int j = 8 * g + k;
+          const float4 r = rg[g & 1][k];
+          const float s4[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int pp = r0 + 8 * h, c = 8 * j + cq;
+            float v[2];
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               const int idx = 4 * j + 2 * h + u;
-              const int p = r0 + 8 * h, cc = wg * 128 + 8 * j + cq + u;
-              const float v = acc[idx] * inv_sqrt2;
-              if (cc >= hd && cc < in) bar_e[p * WG_EP + cc - hd] += v;
-              acc[idx] = cc < hd ? v : 0.0f;
+              const float s = k_rec ? s4[2 * h + u] : acc[idx];
+              v[u] = 8 * j + u < lim ? acc[idx] * s : 0.0f;
             }
+            wg_put2(X, pp, c, v[0], v[1]);
+          }
+        }
+        if (g < 2) load_group(recl, g + 2, rg[g & 1]);
       }
-    } else {
-      pipe_run<RS, WG_STG>(ring, nk, copy, [&](int t, const rnb_bf16* st) {
-        rnb_wgmma_n24<0, 0>(acc24, rnb_desc(X + t * 1024, 1024, 128),
-                            rnb_desc(st + wg * 3 * 128, 128, 256), t > 0);
-      });
+      rnb_fence_proxy_async();
+    }
+    rnb_wg_sync(bar_id);
+    if (l == 0) break;   // layer 0's product: N = 48, below
+    if (k_rec && lt == 0) rnb_prefetch_l2(recl - WG_REC, WG_REC * 4);
+    if constexpr (k_mma) {   // the next epilogue's first 16 loads
+      load_group(recl - WG_REC, 0, rg[0]);
+      load_group(recl - WG_REC, 1, rg[1]);
+      pre = true;
+    }
+    product(rnb_pad16(out) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 0>(acc, rnb_desc(X + t * 1024, 1024, 128),
+                           rnb_desc(st, 128, 256), t > 0);
+    });
+    if (k_mma && net.skip[l]) {
+      const int hd = net.hd[l], in = net.in_dim[l];
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
+      for (int j = 0; j < 32; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            const int p = r0 + 8 * h, cc = wg * 24 + 8 * j + cq + u;
-            if (cc < in) bar_e[p * WG_EP + cc] += acc24[4 * j + 2 * h + u];
+            const int idx = 4 * j + 2 * h + u;
+            const int pp = r0 + 8 * h, cc = 8 * j + cq + u;
+            const float v = acc[idx] * inv_sqrt2;
+            if (8 * j + u >= hd - cq && 8 * j + u < in - cq)
+              bar_e[pp * WG_EP + cc - hd] += v;
+            acc[idx] = 8 * j + u < hd - cq ? v : 0.0f;
           }
     }
   }
-  __syncthreads();
+  {
+    // layer 0's reverse product: N = 48, its PE channels
+    float acc48[24];
+    product(rnb_pad16(net.out_dim[0]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n48<0, 0>(acc48, rnb_desc(X + t * 1024, 1024, 128),
+                          rnb_desc(st, 128, 256), t > 0);
+    });
+    const int in = net.in_dim[0];
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int pp = r0 + 8 * h, cc = 8 * j + cq + u;
+          if (k_mma && cc < in)
+            bar_e[pp * WG_EP + cc] += acc48[4 * j + 2 * h + u];
+        }
+  }
+  rnb_wg_sync(bar_id);
 
   // grad_d = Σ_c bar_e[c] ∂e_c/∂u_d, the PE's (s, c) recomputed
-  for (int idx = tid; idx < WG_M * 3; idx += WG_NT) {
-    const int p = idx / 3, d = idx % 3;
-    const long long row = n0 + p;
+  for (int idx = lt; idx < WG_M * 3; idx += 128) {
+    const int pp = idx / 3, d = idx % 3;
+    const long long row = n0 + pp;
     if (row >= n) continue;
-    const float* be = bar_e + p * WG_EP;
+    const float* be = bar_e + pp * WG_EP;
     float g;
     if constexpr (MODE == SDF_NO_PE) {
-      const float x = pts[row * 3];
+      const float x = p.pts[row * 3];
       g = 0.0f;
       for (int c = 0; c < E; ++c) g += be[c] * x;
     } else {
-      const float u = pts[row * 3 + d] * scale;
+      const float u = p.pts[row * 3 + d] * p.scale;
       float s = sinf(u), c = cosf(u), f = 1.0f;
       g = be[d];
-      for (int k = 0; k < multires; ++k) {
+      for (int k = 0; k < p.multires; ++k) {
         g += be[3 + 6 * k + d] * (f * c);
         g += be[6 + 6 * k + d] * (-f * s);
-        if (k + 1 < multires) {
+        if (k + 1 < p.multires) {
           const float s2 = 2.0f * s * c;
           c = 1.0f - 2.0f * s * s;
           s = s2;
@@ -860,7 +1115,7 @@ sdf_fwd_wg_kernel(const float* __restrict__ pts, long long n,
         f *= 2.0f;
       }
     }
-    grad[row * 3 + d] = g;
+    p.grad[row * 3 + d] = g;
   }
 }
 
@@ -920,8 +1175,6 @@ sdf_fwd_wg_kernel(const float* __restrict__ pts, long long n,
 // product and no epilogue, take 0.86 ms of its ~2.7 (the stage handshake,
 // ~0.8 µs a stage of a tile), the products ~0.55 more, the record's loads
 // ~0.68 (PERF.md §6-7).
-
-#include "tma.cuh"
 
 #define SW_RS 16                          // the production ring depth
 #define SW_NT (WG_BWG * 128)              // threads: four warpgroups
@@ -1331,57 +1584,99 @@ static int rnb_make_wg_net(RnbWgNet* net, const int* in_dims,
   return 0;
 }
 
-template <int MODE, int RS = WG_RS>
-static int sdf_fwd_wg_launch(const float* pts, long long n,
-                             const rnb_bf16* w, const float* b,
-                             const RnbWgNet& net, int multires, float scale,
-                             float c16, float* rec, float* sdf, float* feat,
-                             float* grad, cudaStream_t st) {
-  const int smem =
-      (int)(sizeof(rnb_bf16) * (WG_M * 256 + RS * WG_STG) +
-            sizeof(float) * WG_M * WG_EP);
+// Layer l's tile in the weight image w ([kpc][npc][64] bf16: 8x8 cores,
+// core (i/8, o/8) at ((i/8)·npc + o/8)·64) as a 3-D tensor map whose box
+// is `box`; elements past the tile read as zero. 0 on success.
+static int sdf_layer_map(CUtensorMap* map, const void* w, long long w_off,
+                         int in, int out, const int box[3]) {
+  const long long npc = rnb_pad16(out) >> 3, kpc = rnb_pad16(in) >> 3;
+  const long long dims[3] = {64, npc, kpc}, strides[2] = {128, npc * 128};
+  return rnb_tma_map_bf16_3d(map, static_cast<const rnb_bf16*>(w) + w_off,
+                             dims, strides, box);
+}
+
+// The forward's arguments: the net, the buffers, and each layer's two
+// tensor maps (forward box {64, 32, 2}, {64, 33, 2} at the head: its
+// column 256 and zeros past it; reverse box {64, 2, 32}, {64, 2, 6} at
+// layer 0).
+static int sdf_fwd_params(SdfFwdParams* p, const float* pts, long long n,
+                          const void* w, const float* b, const int* in_dims,
+                          const int* out_dims, const int* skip, const int* hd,
+                          const long long* w_off, int n_layers, int multires,
+                          float scale, float c16, float* rec, float* sdf,
+                          float* feat, float* grad) {
+  if (rnb_make_wg_net(&p->net, in_dims, out_dims, skip, hd, w_off, nullptr,
+                      nullptr, n_layers) ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  p->pts = pts;
+  p->w = static_cast<const rnb_bf16*>(w);
+  p->b = b;
+  p->rec = rec;
+  p->sdf = sdf;
+  p->feat = feat;
+  p->grad = grad;
+  p->n = n;
+  p->multires = multires;
+  p->scale = scale;
+  p->c16 = c16;
+  for (int l = 0; l < n_layers; ++l) {
+    const int fwd_box[3] = {64, l == n_layers - 1 ? 33 : 32, 2};
+    const int rev_box[3] = {64, 2, l == 0 ? WG_EP / 8 : 32};
+    int rc = sdf_layer_map(&p->wf[l], w, w_off[l], in_dims[l], out_dims[l],
+                           fwd_box);
+    if (!rc)
+      rc = sdf_layer_map(&p->wr[l], w, w_off[l], in_dims[l], out_dims[l],
+                         rev_box);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+// One launch a pair of 64-point tiles.
+template <int MODE, int RS = SF_RS, int SPLIT = FWD_FULL>
+static int sdf_fwd_wg_launch(const SdfFwdParams& p, cudaStream_t st) {
+  constexpr int smem = sf_smem_bytes<RS>();
   cudaError_t err = cudaFuncSetAttribute(
-      sdf_fwd_wg_kernel<MODE, RS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      sdf_fwd_wg_kernel<MODE, RS, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((n + WG_M - 1) / WG_M);
-  sdf_fwd_wg_kernel<MODE, RS><<<grid, WG_NT, smem, st>>>(
-      pts, n, w, b, net, multires, scale, c16, rec, sdf, feat, grad);
+  const long long tiles = (p.n + WG_M - 1) / WG_M;
+  sdf_fwd_wg_kernel<MODE, RS, SPLIT>
+      <<<(unsigned)((tiles + 1) / 2), SF_NT, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
+#define RNB_WG_FWD_PARAMS                                                   \
+  const float *pts, long long n, const void *w, const float *b,             \
+      const int *in_dims, const int *out_dims, const int *skip,             \
+      const int *hd, const long long *w_off, int n_layers, int multires,    \
+      float scale, float c16, float *rec, float *sdf, float *feat,          \
+      float *grad, void *stream
+#define RNB_WG_FWD_SETUP                                                     \
+  SdfFwdParams prm;                                                          \
+  const int rc = sdf_fwd_params(&prm, pts, n, w, b, in_dims, out_dims, skip, \
+                                hd, w_off, n_layers, multires, scale, c16,   \
+                                rec, sdf, feat, grad);                       \
+  if (rc) return rc;                                                         \
+  cudaStream_t st = (cudaStream_t)stream
+
 // The bf16 forward (mode: an SdfMode; SDF_FULL on the main path). rec holds
 // ceil(n/64)·(n_layers-1)·64·256 floats.
-extern "C" int rnb_sdf_fwd_wg(int mode, const float* pts, long long n,
-                              const void* w, const float* b,
-                              const int* in_dims, const int* out_dims,
-                              const int* skip, const int* hd,
-                              const long long* w_off, int n_layers,
-                              int multires, float scale, float c16, float* rec,
-                              float* sdf, float* feat, float* grad,
-                              void* stream) {
-  RnbWgNet net;
-  if (rnb_make_wg_net(&net, in_dims, out_dims, skip, hd, w_off, nullptr,
-                      nullptr, n_layers))
-    return (int)cudaErrorInvalidValue;
-  const rnb_bf16* wb = static_cast<const rnb_bf16*>(w);
-  cudaStream_t st = (cudaStream_t)stream;
-#define RNB_WG_FWD_ARGS \
-  pts, n, wb, b, net, multires, scale, c16, rec, sdf, feat, grad, st
+extern "C" int rnb_sdf_fwd_wg(int mode, RNB_WG_FWD_PARAMS) {
+  RNB_WG_FWD_SETUP;
   switch (mode) {
-    case SDF_FULL: return sdf_fwd_wg_launch<SDF_FULL>(RNB_WG_FWD_ARGS);
-    case SDF_NO_PE: return sdf_fwd_wg_launch<SDF_NO_PE>(RNB_WG_FWD_ARGS);
-    case SDF_NO_ACT: return sdf_fwd_wg_launch<SDF_NO_ACT>(RNB_WG_FWD_ARGS);
-    case SDF_PRIMAL_ONLY:
-      return sdf_fwd_wg_launch<SDF_PRIMAL_ONLY>(RNB_WG_FWD_ARGS);
+    case SDF_FULL: return sdf_fwd_wg_launch<SDF_FULL>(prm, st);
+    case SDF_NO_PE: return sdf_fwd_wg_launch<SDF_NO_PE>(prm, st);
+    case SDF_NO_ACT: return sdf_fwd_wg_launch<SDF_NO_ACT>(prm, st);
+    case SDF_PRIMAL_ONLY: return sdf_fwd_wg_launch<SDF_PRIMAL_ONLY>(prm, st);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef RNB_WG_FWD_ARGS
 }
 
 // The backward sweep's arguments: the net, the buffers, and for each layer
-// the two tensor maps of its tile in the weight image w ([kpc][npc][64]
-// bf16: 8x8 cores, core (i/8, o/8) at ((i/8)·npc + o/8)·64). 0 on success.
+// the two tensor maps of its tile in the weight image w (sdf_layer_map).
+// 0 on success.
 static int sdf_sweep_params(SdfSweepParams* p, const float* pts, long long n,
                             const void* w, const float* b, const int* in_dims,
                             const int* out_dims, const int* skip,
@@ -1413,12 +1708,11 @@ static int sdf_sweep_params(SdfSweepParams* p, const float* pts, long long n,
   const int fwd_box[3] = {64, 32, 2}, rev_box[3] = {64, 2, 32};
   for (int l = 0; l < n_layers; ++l) {
     p->db_len += out_dims[l];
-    const long long npc = rnb_pad16(out_dims[l]) >> 3;
-    const long long kpc = rnb_pad16(in_dims[l]) >> 3;
-    const long long dims[3] = {64, npc, kpc}, strides[2] = {128, npc * 128};
-    const rnb_bf16* wl = static_cast<const rnb_bf16*>(w) + w_off[l];
-    int rc = rnb_tma_map_bf16_3d(&p->wf[l], wl, dims, strides, fwd_box);
-    if (!rc) rc = rnb_tma_map_bf16_3d(&p->wr[l], wl, dims, strides, rev_box);
+    int rc = sdf_layer_map(&p->wf[l], w, w_off[l], in_dims[l], out_dims[l],
+                           fwd_box);
+    if (!rc)
+      rc = sdf_layer_map(&p->wr[l], w, w_off[l], in_dims[l], out_dims[l],
+                         rev_box);
     if (rc) return rc;
   }
   return 0;
@@ -1470,15 +1764,14 @@ extern "C" int rnb_sdf_bwd_wg(RNB_WG_BWD_PARAMS) {
 }
 
 // The tile sweep's instances (rnb_tpu_torch/tools/tune_kernel.py): the
-// production sweeps at ring depths 3-6, SDF_FULL. They are built only into
-// the tune library (ops/_build.py library("tune"), nvcc -DRNB_TUNE); the
-// production library holds the WG_RS forward and the SW_RS backward
-// sweep alone. A forward depth below 3 is invalid (pipe_run waits for all
-// but RS - 3 copy groups); depth 6 takes 95,744 B of shared memory in the
-// forward, under the half of an SM that keeps two blocks there, and
-// 122,944 B in the backward sweep, over it (one block an SM). The
-// production depth is the production instance itself. Another depth
-// returns cudaErrorInvalidValue.
+// production forward at ring depths 4, 8, 12 and 16 and the production
+// backward sweep at 3-6, SDF_FULL; the timing splits of both; the
+// forward's record hints. They are built only into the tune library
+// (ops/_build.py library("tune"), nvcc -DRNB_TUNE); the production library
+// holds the SF_RS forward and the SW_RS backward sweep alone. The
+// forward's deepest ring, 16 stages, is its production depth (225,552 B
+// of shared memory; 17 would pass the SM's 232,448); the backward sweep's
+// depth 6 takes 122,944 B. Another depth returns cudaErrorInvalidValue.
 #ifdef RNB_TUNE
 #define RNB_TUNE_CASES(CALL) \
   case 3: return CALL(3);    \
@@ -1487,28 +1780,34 @@ extern "C" int rnb_sdf_bwd_wg(RNB_WG_BWD_PARAMS) {
   case 6: return CALL(6);
 
 // rnb_sdf_fwd_wg's arguments but the mode (SDF_FULL), after the depth rs.
-extern "C" int rnb_sdf_fwd_wg_tune(int rs, const float* pts, long long n,
-                                   const void* w, const float* b,
-                                   const int* in_dims, const int* out_dims,
-                                   const int* skip, const int* hd,
-                                   const long long* w_off, int n_layers,
-                                   int multires, float scale, float c16,
-                                   float* rec, float* sdf, float* feat,
-                                   float* grad, void* stream) {
-  RnbWgNet net;
-  if (rnb_make_wg_net(&net, in_dims, out_dims, skip, hd, w_off, nullptr,
-                      nullptr, n_layers))
-    return (int)cudaErrorInvalidValue;
-  const rnb_bf16* wb = static_cast<const rnb_bf16*>(w);
-  cudaStream_t st = (cudaStream_t)stream;
-#define RNB_FWD_AT(RS)                                                     \
-  sdf_fwd_wg_launch<SDF_FULL, RS>(pts, n, wb, b, net, multires, scale, c16, \
-                                  rec, sdf, feat, grad, st)
+extern "C" int rnb_sdf_fwd_wg_tune(int rs, RNB_WG_FWD_PARAMS) {
+  RNB_WG_FWD_SETUP;
   switch (rs) {
-    RNB_TUNE_CASES(RNB_FWD_AT)
+    case 4: return sdf_fwd_wg_launch<SDF_FULL, 4>(prm, st);
+    case 8: return sdf_fwd_wg_launch<SDF_FULL, 8>(prm, st);
+    case 12: return sdf_fwd_wg_launch<SDF_FULL, 12>(prm, st);
+    case 16: return sdf_fwd_wg_launch<SDF_FULL, 16>(prm, st);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef RNB_FWD_AT
+}
+
+// The forward's timing split (tools/ablate_kernel.py --fwd_split): split an
+// SdfFwdSplit, SDF_FULL, at the production depth; only FWD_FULL computes
+// the function. rnb_sdf_fwd_wg's arguments after the split.
+extern "C" int rnb_sdf_fwd_wg_split(int split, RNB_WG_FWD_PARAMS) {
+  RNB_WG_FWD_SETUP;
+  switch (split) {
+    case FWD_FULL: return sdf_fwd_wg_launch<SDF_FULL, SF_RS, FWD_FULL>(prm, st);
+    case FWD_NO_RECORD:
+      return sdf_fwd_wg_launch<SDF_FULL, SF_RS, FWD_NO_RECORD>(prm, st);
+    case FWD_NO_EPILOGUE:
+      return sdf_fwd_wg_launch<SDF_FULL, SF_RS, FWD_NO_EPILOGUE>(prm, st);
+    case FWD_K_LOOPS_ONLY:
+      return sdf_fwd_wg_launch<SDF_FULL, SF_RS, FWD_K_LOOPS_ONLY>(prm, st);
+    case FWD_PRODUCTS_ONLY:
+      return sdf_fwd_wg_launch<SDF_FULL, SF_RS, FWD_PRODUCTS_ONLY>(prm, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // rnb_sdf_bwd_wg's arguments after the depth rs.

@@ -1,11 +1,12 @@
 // Hopper's Tensor Memory Accelerator (TMA) and shared-memory barriers
 // (mbarrier) for the warp-specialised kernels (dw_gemm.cu, the SDF core's
-// backward sweep in sdf_core.cu): 2-D and 3-D tiled tensor maps encoded on
-// the host, the bulk tensor loads that one thread issues for a whole box
-// and its bulk prefetch into L2,
-// the barriers that count its bytes and the consumers' releases, register
-// reallocation between warpgroups, and the wgmma descriptor of a
-// 128-byte-swizzled box as TMA writes it.
+// forward and backward sweep in sdf_core.cu): 2-D and 3-D tiled tensor
+// maps encoded on the host, the bulk tensor loads that one thread issues
+// for a whole box and its bulk prefetch into L2, the barriers that count
+// its bytes and the consumers' releases, a ring of stages that one
+// producer thread feeds (RnbRing, rnb_ring_produce), register reallocation
+// between warpgroups, and the wgmma descriptor of a 128-byte-swizzled box
+// as TMA writes it.
 //
 // The host encoder (cuTensorMapEncodeTiled) lives in libcuda; it is fetched
 // through the runtime's entry-point query, so the library links no libcuda
@@ -181,6 +182,55 @@ __device__ __forceinline__ void rnb_prefetch_l2(const void* src,
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
                "r"(bytes)
                : "memory");
+}
+
+// A ring of RS stages in shared memory that one producer thread fills
+// (TMA loads completing on the stage's full barrier) and consumer warps
+// drain: a consumer waits on full, and each of its warps frees the stage
+// on its empty barrier once its reads are done; the producer refills a
+// stage once every consumer warp freed it. Stage `it` (0, 1, ... in the
+// order both sides walk) lies in slot it % RS; the parities follow the
+// passes over the ring. Nothing waits on a warp other than through these
+// two barriers.
+template <int RS>
+struct RnbRing {
+  unsigned char* base;   // RS slots of `bytes` bytes
+  uint64_t* full;        // [RS]
+  uint64_t* empty;       // [RS]
+  int bytes;
+  __device__ __forceinline__ unsigned char* stage(int it) const {
+    return base + (it % RS) * bytes;
+  }
+  // one thread, before the block's first barrier
+  __device__ __forceinline__ void init(unsigned consumer_warps) const {
+    for (int s = 0; s < RS; ++s) {
+      rnb_mbar_init(&full[s], 1);
+      rnb_mbar_init(&empty[s], consumer_warps);
+    }
+  }
+  __device__ __forceinline__ void wait_full(int it) const {
+    rnb_mbar_wait(&full[it % RS], (it / RS) & 1);
+  }
+  // one warp's release of stage `it` (all its lanes call it)
+  __device__ __forceinline__ void release(int it) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) rnb_mbar_arrive(&empty[it % RS]);
+  }
+  __device__ __forceinline__ void wait_empty(int it) const {
+    rnb_mbar_wait(&empty[it % RS], ((it / RS) & 1) ^ 1);
+  }
+};
+
+// The producer thread's loop: every stage of `cur` (done(); issue(stage,
+// full barrier) expects the stage's bytes and starts its loads) into the
+// ring, each once its slot is free.
+template <int RS, class Cursor>
+__device__ __forceinline__ void rnb_ring_produce(const RnbRing<RS>& ring,
+                                                 Cursor& cur) {
+  for (int it = 0; !cur.done(); ++it) {
+    ring.wait_empty(it);
+    cur.issue(ring.stage(it), &ring.full[it % RS]);
+  }
 }
 
 // Register reallocation between the warpgroups of a warp-specialised block

@@ -1,7 +1,9 @@
 // The tensor-core pipeline shared by the bf16 sweep kernels (sdf_core.cu,
 // albedo.cu, nerf.cu): the per-point tile as a K-major bf16 A operand, the
-// padded bf16 weight image streamed through a cp.async ring, the accumulator
-// fragment map of wgmma, and the epilogue helpers.
+// padded bf16 weight image streamed through a cp.async ring (the albedo
+// and NeRF sweeps; the SDF core's are fed by TMA, tma.cuh), the
+// accumulator fragment map of wgmma, a warpgroup's own barrier, and the
+// epilogue helpers.
 //
 // A block owns a tile of WG_M = 64 points, the M of wgmma; every product of
 // a chain is [64 x K] · [K x N] with A (layer input or cotangent row) in
@@ -14,8 +16,8 @@
 
 #define WG_M 64       // points per tile (the M of wgmma)
 
-// Ring stages of the sweep kernels (each one K-step of 16). Four ran
-// fastest of the shapes tried (PERF.md).
+// Ring stages of the albedo and NeRF sweeps (each one K-step of 16). Four
+// ran fastest of the shapes tried (PERF.md).
 #define WG_RS 4
 
 typedef __nv_bfloat16 rnb_bf16;
@@ -123,6 +125,12 @@ __device__ __forceinline__ void pipe_run(rnb_bf16* ring, int ns, Copy copy,
   }
   rnb_wgmma_wait<0>();
   __syncthreads();
+}
+
+// A barrier of the 128 threads of one warpgroup alone (named barrier `id`,
+// 1-15; 0 is __syncthreads').
+__device__ __forceinline__ void rnb_wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 // Accumulator fragment of an N-wide wgmma at warpgroup column base c0:

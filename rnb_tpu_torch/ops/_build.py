@@ -7,12 +7,14 @@ headers, so a build takes seconds). The build happens at first use, into
 and flags; a process that finds the library already built loads it.
 
 ``library("tune")`` is a second library, for the tile sweep
-(``rnb_tpu_torch.tools.tune_kernel``) and the backward sweep's timing
-split (``rnb_tpu_torch.tools.ablate_kernel --bwd``) only:
+(``rnb_tpu_torch.tools.tune_kernel``) and the timing splits of the forward
+and the backward sweep (``rnb_tpu_torch.tools.ablate_kernel --fwd_split``,
+``--bwd``) only:
 ``csrc/sdf_core.cu`` alone under ``-DRNB_TUNE``, which adds the SDF core's
 tensor-core sweeps at other ring depths (``rnb_sdf_fwd_wg_tune``,
-``rnb_sdf_bwd_wg_tune``) and the split instances of the backward sweep
-(``rnb_sdf_bwd_wg_split``) beside the production entries, into
+``rnb_sdf_bwd_wg_tune``) and the split instances of the forward and the
+backward sweep (``rnb_sdf_fwd_wg_split``, ``rnb_sdf_bwd_wg_split``) beside
+the production entries, into
 ``librnb_kernels_tune_<hash>.so``. The production library never holds
 those instances.
 
@@ -43,8 +45,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the ring depths the tune library's instances take (csrc/sdf_core.cu,
-# RNB_TUNE); production runs csrc/wg_pipe.cuh's WG_RS
+# RNB_TUNE): the SDF core's backward sweep (production SW_RS = 16) and
+# its forward (production SF_RS = 16, the deepest that fits)
 TUNE_DEPTHS = (3, 4, 5, 6)
+FWD_TUNE_DEPTHS = (4, 8, 12, 16)
 
 # sdf_core_fwd / sdf_core_bwd, albedo_fwd / albedo_bwd and nerf_fwd /
 # nerf_bwd count the bf16 route (tensor-core kernels), the *_f32 keys the
@@ -58,11 +62,12 @@ launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
             "albedo_bwd_f32": 0, "albedo_dw_gemm": 0, "nerf_fwd": 0,
             "nerf_bwd": 0, "nerf_fwd_f32": 0, "nerf_bwd_f32": 0,
             "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0,
-            # the tune library's timing split of the SDF-core backward sweep
-            "sdf_bwd_split": 0,
+            # the tune library's timing splits of the SDF-core forward and
+            # backward sweep
+            "sdf_fwd_split": 0, "sdf_bwd_split": 0,
             # the tune library's SDF-core sweeps, by ring depth
-            **{f"sdf_core_{d}_rs{rs}": 0 for d in ("fwd", "bwd")
-               for rs in TUNE_DEPTHS}}
+            **{f"sdf_core_fwd_rs{rs}": 0 for rs in FWD_TUNE_DEPTHS},
+            **{f"sdf_core_bwd_rs{rs}": 0 for rs in TUNE_DEPTHS}}
 
 # filled by the first library(kind) call of the process, per kind
 build_info = {kind: {"seconds": None, "path": None, "log": ""}
@@ -143,10 +148,11 @@ _SIGNATURES = {
                         _LLP, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
-# the tune library's entries: the depth, then rnb_sdf_fwd_wg's arguments but
-# the mode, or rnb_sdf_bwd_wg's
+# the tune library's entries: the depth or the split, then rnb_sdf_fwd_wg's
+# arguments but the mode, or rnb_sdf_bwd_wg's
 _TUNE_SIGNATURES = {
     "rnb_sdf_fwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_fwd_wg"][1:]),
+    "rnb_sdf_fwd_wg_split": (_I, *_SIGNATURES["rnb_sdf_fwd_wg"][1:]),
     "rnb_sdf_bwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
     "rnb_sdf_bwd_wg_split": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
 }
@@ -228,9 +234,11 @@ def _load(kind: str) -> ctypes.CDLL:
 def ptxas_summary(*keys: str, kind: str = "main") -> dict:
     """ptxas's report (``-Xptxas -v``) of this process's build of library
     ``kind``, for each kernel whose name holds one of ``keys``: {name: "R
-    registers, S B spill stores, L B spill loads"}, the name with its
-    integer template arguments (``sdf_fwd_wg_kernel<0, 4>``). Empty when
-    the library was already built."""
+    registers, F B stack frame, S B spill stores, L B spill loads"} (a
+    stack frame holds what did not fit in registers, spilled or not), the
+    name with its integer template arguments
+    (``sdf_fwd_wg_kernel<0, 16, 0>``). Empty when the library was already
+    built."""
     out = {}
     for m in re.finditer(r"Compiling entry function '(_Z(\d+)\w*)'(.*?)"
                          r"(?=Compiling entry function|\Z)",
@@ -242,10 +250,12 @@ def ptxas_summary(*keys: str, kind: str = "main") -> dict:
         if targs:
             name += "<" + ", ".join(re.findall(r"Li(\d+)E", targs.group(1))) + ">"
         regs = re.search(r"Used (\d+) registers", body)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", body)
         if any(k in name for k in keys) and regs and spill:
-            out[name] = (f"{regs.group(1)} registers, {spill.group(1)} B spill "
-                         f"stores, {spill.group(2)} B spill loads")
+            out[name] = (f"{regs.group(1)} registers, {spill.group(1)} B stack "
+                         f"frame, {spill.group(2)} B spill stores, "
+                         f"{spill.group(3)} B spill loads")
     return out
 
 

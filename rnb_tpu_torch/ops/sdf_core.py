@@ -315,18 +315,94 @@ def wg_pack(cfg: SDFConfig, ws, bs):
     return image, torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
 
 
+# The forward's weight ring (csrc/sdf_core.cu: sdf_fwd_params encodes the
+# maps, SfCursor walks the stages): the same tensor maps as the backward
+# sweep's (sweep_map), one box a K-step, in the forward at N = 256 (33
+# output cores at the head: its column 256), in the reverse at N = 256 (6
+# input cores at layer 0: its 48 PE channels).
+# A stage slot holds the largest box (8,448 B); two 64-point tiles a block
+# (fwd_blocks) take every stage, each on its own A tile and PE area.
+FWD_STAGE_BYTES, FWD_PE_BYTES, FWD_BIAS = 8448, 12288, 272
+SMEM_LIMIT = 232448   # the H100's shared memory a block can have
+
+
+def fwd_box(lay: dict, kind: str, l: int) -> tuple:
+    """The box of layer l's ``kind`` ("fwd" or "rev") stages: 33 output
+    cores at the head (its N = 8 product reads core 32), 6 input cores in
+    layer 0's reverse."""
+    if kind == "fwd":
+        return (64, 33 if l == len(lay["in_dims"]) - 1 else 32, 2)
+    return (64, 2, 6 if l == 0 else 32)
+
+
+def fwd_steps(lay: dict, primal_only: bool = False) -> list:
+    """The forward's ring stages in the order its products take them, as
+    (kind, layer, box coordinates): layers 0..L-1 forward over
+    pad16(in)/16 K-steps, then (but in the primal-only ablation) layers
+    L-2..0 reverse over pad16(out)/16; both tiles of a block read each."""
+    L, steps = len(lay["in_dims"]), []
+    for l in range(L):
+        steps += [("fwd", l, (0, 0, 2 * t)) for t in range(lay["kp"][l] // 16)]
+    if not primal_only:
+        for l in range(L - 2, -1, -1):
+            steps += [("rev", l, (0, 2 * t, 0)) for t in range(lay["np"][l] // 16)]
+    return steps
+
+
+def fwd_blocks(n: int) -> list:
+    """The forward's blocks: block b runs the 64-point tiles 2b and 2b + 1,
+    the second only where it holds a point. -> [[tile, ...] a block]."""
+    tiles = -(-n // TILE)
+    return [[t for t in (2 * b, 2 * b + 1) if t < tiles]
+            for b in range(-(-tiles // 2))]
+
+
+def fwd_handoff(nk: int, depth: int = wg.FWD_RING_DEPTH) -> int:
+    """The K-step of a product phase after whose issue a consumer hands
+    the turn to the other tile (sdf_fwd_wg_kernel's product): its last at a
+    ring as deep as the phase (the ping-pong), else the ring's reach, where
+    a later step would wait for a slot that only the other tile's next turn
+    frees."""
+    return min(nk, depth) - 1
+
+
+def fwd_smem_bytes(depth: int = wg.FWD_RING_DEPTH) -> int:
+    """The forward's shared memory at ring ``depth`` (sf_smem_bytes): two A
+    tiles of 64 x 256 bf16, ``depth`` stages, two PE areas, the ring's
+    full and empty barriers, the two consumers' turn barriers, a bias area
+    of 272 floats a tile and the reverse seed's 256."""
+    return (2 * TILE * 256 * 2 + depth * FWD_STAGE_BYTES + 2 * FWD_PE_BYTES
+            + (2 * depth + 2) * 8 + (2 * FWD_BIAS + 256) * 4)
+
+
+# the forward's timing split (the tune library's rnb_sdf_fwd_wg_split;
+# index = its split): the production kernel, then without the record's
+# traffic, the softplus arithmetic, everything but the weight ring and its
+# barriers, and both the record and the arithmetic
+FWD_SPLIT = ("full", "no_record", "no_epilogue", "k_loops_only",
+             "products_only")
+
+
 def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
-                  depth: int | None = None, packed=None):
+                  depth: int | None = None, packed=None,
+                  split: str | None = None):
     """bf16 route: launch ``rnb_sdf_fwd_wg`` (``mode``: the C SdfMode, 0 =
-    the production kernel), or with a ring ``depth`` the tune library's
-    ``rnb_sdf_fwd_wg_tune`` (mode 0 only; a depth it was not built for
-    raises), on ``packed`` (``wg_pack``; packed here when None).
-    -> (sdf, feat, grad)."""
+    the production kernel), or one of the tune library's forwards: at ring
+    ``depth`` (``rnb_sdf_fwd_wg_tune``; a depth it was not built for
+    raises) or the timing ``split`` (a ``FWD_SPLIT`` name,
+    ``rnb_sdf_fwd_wg_split``), both mode 0; on ``packed`` (``wg_pack``;
+    packed here when None). -> (sdf, feat, grad)."""
     _check_args(cfg, pts, ws, bs)
     lay = wg_layout(cfg, ws)
     _check_wg(lay)
-    kind = "main" if depth is None else "tune"
-    if depth is not None and mode != 0:
+    if split is not None:
+        entry, lead = "rnb_sdf_fwd_wg_split", FWD_SPLIT.index(split)
+    elif depth is not None:
+        entry, lead = "rnb_sdf_fwd_wg_tune", depth
+    else:
+        entry, lead = "rnb_sdf_fwd_wg", mode
+    kind = "main" if entry == "rnb_sdf_fwd_wg" else "tune"
+    if kind == "tune" and mode != 0:
         raise ValueError("the tune library's forward runs mode 0 only")
     lib = _build.library(kind)
     pts = pts.detach().contiguous()
@@ -338,8 +414,6 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
     sdf = torch.empty(n, device=dev)
     feat = torch.empty(n, lay["out_dims"][-1] - 1, device=dev)
     grad = torch.empty(n, 3, device=dev)
-    entry, lead = (("rnb_sdf_fwd_wg", mode) if depth is None
-                   else ("rnb_sdf_fwd_wg_tune", depth))
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             lead, pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
@@ -351,6 +425,18 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry, kind)
     return sdf, feat, grad
+
+
+def sdf_fwd_split(split: str, cfg: SDFConfig, pts, ws, bs, packed=None):
+    """One launch of the forward's timing split ``split`` (a ``FWD_SPLIT``
+    name) from the tune library, CUDA tensors only; counts under
+    ``sdf_fwd_split``. Its numerics are wrong by design but for ``full``.
+    -> (sdf, feat, grad)."""
+    if split not in FWD_SPLIT:
+        raise ValueError(f"split must be one of {FWD_SPLIT}, got {split!r}")
+    out = launch_fwd_wg(cfg, pts, ws, bs, packed=packed, split=split)
+    _build.launches["sdf_fwd_split"] += 1
+    return out
 
 
 def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,

@@ -20,8 +20,11 @@ import torch
 from rnb_tpu_torch.ops import _build
 
 TILE = 64            # points per block of the tensor-core sweep kernels
-RING_DEPTH = 4       # their cp.async ring's stages, WG_RS of csrc/wg_pipe.cuh
+RING_DEPTH = 4       # the albedo and NeRF sweeps' cp.async ring, WG_RS of
+                     # csrc/wg_pipe.cuh
 SWEEP_RING_DEPTH = 16   # the SDF core's backward sweep's TMA ring, SW_RS of
+                        # csrc/sdf_core.cu
+FWD_RING_DEPTH = 16     # the SDF core's forward's TMA ring, SF_RS of
                         # csrc/sdf_core.cu
 DW_ROWS = 64         # rows per stage of the dW product (a TMA box)
 DW_TILE_M = 128      # rows of dW a unit sums (two consumer warpgroups)

@@ -1,9 +1,11 @@
 """Split the time of the SDF-core forward kernel by timing its ablation
 variants (``rnb_tpu_torch.ops.sdf_ablate``: full, no_pe, no_act,
 primal_only) and their plain PyTorch versions, on one CUDA card; with
-``--bwd``, split the bf16 backward sweep instead.
+``--fwd_split``, split the bf16 forward by what it does instead; with
+``--bwd``, split the bf16 backward sweep.
 
     python -m rnb_tpu_torch.tools.ablate_kernel [--n 65536] [--iters 50]
+    python -m rnb_tpu_torch.tools.ablate_kernel --fwd_split [--n 65536] [--iters 20]
     python -m rnb_tpu_torch.tools.ablate_kernel --bwd [--n 65536] [--iters 20]
 
 Shipped SDF net (8x256, geometric init from seed 3), N points uniform in
@@ -11,6 +13,15 @@ Shipped SDF net (8x256, geometric init from seed 3), N points uniform in
 events over ``--iters`` launches after 3 warm-up launches. Prints one JSON
 line: the card (nvidia-smi name and power limit) and ms per mode for the
 kernel and for the plain version.
+
+``--fwd_split`` times the bf16 forward's split instances from the tune
+library (``sdf_core.sdf_fwd_split``, ``sdf_core.FWD_SPLIT``: the
+production kernel, then without the record's traffic, the softplus /
+sigmoid arithmetic, everything but the weight ring and its barriers, and
+both the record and the arithmetic) on the weight image packed once, on
+``bench_sdf_fwd``'s net and points: the median of three turns of
+``--iters`` launches, with min and max. The ``full`` instance is held bit
+for bit against the production forward first.
 
 ``--bwd`` times the backward sweep's split instances from the tune library
 (``sdf_core.sdf_bwd_split``, ``sdf_core.BWD_SPLIT``: the production sweep,
@@ -86,19 +97,49 @@ def bwd_split(n: int, iters: int) -> dict:
     return res
 
 
+def fwd_split(n: int, iters: int) -> dict:
+    """The bf16 forward's split (``--fwd_split``), on bench_sdf_fwd's
+    inputs."""
+    from rnb_tpu_torch.ops import _build, sdf_core
+    from rnb_tpu_torch.tools.bench_sdf_bwd import setup, turns
+
+    _build.library("tune")
+    cfg, ws, bs, pts, _ = setup(n, torch.device("cuda"))
+    packed = sdf_core.wg_pack(cfg, ws, bs)
+    prod = sdf_core.launch_fwd_wg(cfg, pts, ws, bs, packed=packed)
+    full = sdf_core.sdf_fwd_split("full", cfg, pts, ws, bs, packed)
+    torch.cuda.synchronize()
+    res = {"card": card(), "n": n, "iters": iters, "dtype": "bf16",
+           "full_bitwise_production": all(torch.equal(a, b)
+                                          for a, b in zip(full, prod)),
+           "production": turns(
+               lambda: sdf_core.launch_fwd_wg(cfg, pts, ws, bs,
+                                              packed=packed), iters),
+           "split": {}}
+    for split in sdf_core.FWD_SPLIT:
+        res["split"][split] = turns(
+            lambda s=split: sdf_core.sdf_fwd_split(s, cfg, pts, ws, bs,
+                                                   packed), iters)
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=65536)
     ap.add_argument("--iters", type=int, default=None,
-                    help="launches a timing (default 50; 20 with --bwd)")
-    ap.add_argument("--bwd", action="store_true",
-                    help="split the bf16 backward sweep instead")
+                    help="launches a timing (default 50; 20 with --bwd or "
+                         "--fwd_split)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--fwd_split", action="store_true",
+                       help="split the bf16 forward by what it does")
+    which.add_argument("--bwd", action="store_true",
+                       help="split the bf16 backward sweep instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernel: no CUDA device; the kernels run only "
                          "on a GPU")
-    if args.bwd:
-        res = bwd_split(args.n, args.iters or 20)
+    if args.bwd or args.fwd_split:
+        res = (bwd_split if args.bwd else fwd_split)(args.n, args.iters or 20)
         print(json.dumps(res), flush=True)
         return res
     args.iters = args.iters or 50

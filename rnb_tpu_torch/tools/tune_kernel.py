@@ -1,19 +1,19 @@
 """Tile sweep of the SDF core's tensor-core kernels on one CUDA card: the
-ring depth of the forward sweep (cp.async) and the backward sweep (TMA),
+ring depth of the forward and the backward sweep (both fed by TMA),
 and the row-split count of the grouped dW product (the port's counterpart
 of ``tools/tune_kernel.py``, which swept the Pallas block sizes).
 
     python -m rnb_tpu_torch.tools.tune_kernel [--n 65536] [--iters 30]
-        [--fwd_rs 3 4 5 6] [--bwd_rs 3 4 5 6] [--splits S ...]
+        [--fwd_rs 4 8 12 16] [--bwd_rs 3 4 5 6] [--splits S ...]
 
 Shipped SDF net (8x256; geometric init from seed 3, its ``v`` moved by
 0.02·N(0, 1) so that every layer carries signal), ``--n`` points uniform in
 [-0.8, 0.8]³ (numpy seed 4), cotangents from numpy seed 5. Axes:
 
   fwd       the forward (``sdf_core_fwd_tune``) at each depth of ``--fwd_rs``;
-  fwd_bwd   forward plus backward (``sdf_core_bwd_tune``, then the
-            production dW products) at each depth of ``--bwd_rs``, both at
-            that depth (``ms``), and the backward alone (``bwd_ms``);
+  fwd_bwd   the production forward plus the backward sweep at each depth
+            of ``--bwd_rs`` (``sdf_core_bwd_tune``, then the production dW
+            products; ``ms``), and that backward alone (``bwd_ms``);
   splits    ``ops.wg.dw_products`` over the SDF core's 9 layers
             (``sdf_core.wg_layout``) on 2·``--n`` rows of bf16 operands
             (N(0, 1) from a card generator, seed 6) at each count of
@@ -25,7 +25,7 @@ The depth instances come from the tune library (``_build.library("tune")``,
 built only here: ``build/kernels/librnb_kernels_tune_<hash>.so``). The
 depth changes when a weight tile is loaded, not the order of any sum, so
 every depth is held bit for bit against the production library's kernels
-(the forward's production depth is ``WG_RS`` = 4, the backward sweep's
+(the forward's production depth is ``SF_RS`` = 16, the backward sweep's
 ``SW_RS`` = 16, ``production`` in the summary); a stale or
 overwritten ring stage shows there even where it corrupts too few tiles to
 move the error norm. Every instance is also held against the plain
@@ -114,7 +114,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=65536)
     ap.add_argument("--iters", type=int, default=30)
-    ap.add_argument("--fwd_rs", type=int, nargs="*", default=list(_build.TUNE_DEPTHS))
+    ap.add_argument("--fwd_rs", type=int, nargs="*",
+                    default=list(_build.FWD_TUNE_DEPTHS))
     ap.add_argument("--bwd_rs", type=int, nargs="*", default=list(_build.TUNE_DEPTHS))
     ap.add_argument("--splits", type=int, nargs="*", default=None)
     args = ap.parse_args(argv)
@@ -140,7 +141,7 @@ def main(argv=None) -> dict:
 
     cs, cf, cg = draw(args.n), draw(args.n, cfg.d_out - 1, scale=0.1), draw(args.n, 3)
     bf16 = torch.bfloat16
-    prod_rs = wg.RING_DEPTH
+    prod_rs = wg.FWD_RING_DEPTH
 
     fwd_plain = list(sdf_core.sdf_core_fwd_plain(cfg, pts, ws, bs, bf16))
     fwd_prod = list(sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16))
@@ -166,7 +167,7 @@ def main(argv=None) -> dict:
                                                   rs), [])
 
         def fwd_bwd(rs=rs):
-            sdf_core.sdf_core_fwd_tune(cfg, pts, ws, bs, rs)
+            sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16)
             return bwd(rs)
 
         row = checked_row({"axis": "fwd_bwd", "rs": rs, "n": args.n}, bwd,

@@ -18,11 +18,12 @@ activation, one bf16 ulp = 2^-8 relative). The grouped dW product
 product (bf16 operands: only the order of f32 sums differs), its TMA
 boxes one piece at a time and each shipped backward's layers in one
 launch, bit for bit from call to call. The tile sweep's library
-(``_build.library("tune")``: the SDF core's sweeps at ring depths 3-6) is
-held bit for bit against the production kernels at every depth (the depth
-changes no sum's order), and against the plain version. The bf16 backward
-sweep (TMA-fed) repeats bit for bit, and the ``full`` instance of its
-timing split is the production sweep.
+(``_build.library("tune")``: the SDF core's forward at ring depths 4-16 and
+backward sweep at 3-6) is held bit for bit against the production kernels
+at every depth (the depth changes no sum's order), and against the plain
+version. The bf16 forward (two tiles a block) gives a point the same bits
+in any launch and repeats bit for bit, as does the backward sweep; the
+``full`` instance of each timing split is the production kernel.
 """
 
 import pytest
@@ -340,6 +341,45 @@ def test_sdf_ablation_variants(cuda, mode):
         _close(got, want, TOL[dtype])
 
 
+@pytest.mark.parametrize("n", [N, 37, 129])
+def test_sdf_fwd_parts_and_repeats(cuda, n):
+    """The bf16 forward (two 64-point tiles a block, one weight ring) gives
+    each point the bits it gets in any other launch: a whole launch of n
+    points (1037: 17 tiles, a block whose second tile is empty; 37: one
+    tile; 129: three) equals, row for row and bit for bit, two launches
+    of ragged parts (517 + 520 at 1037) and a second call."""
+    cfg, ws, bs, pts, _ = _sdf_setup(cuda, n)
+    bf16 = torch.bfloat16
+    whole = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16)
+    again = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16)
+    assert all(torch.equal(a, b) for a, b in zip(whole, again))
+    k = min(517, n // 2 + 1)
+    a = sdf_core.sdf_core_fwd(cfg, pts[:k], ws, bs, bf16)
+    b = sdf_core.sdf_core_fwd(cfg, pts[k:], ws, bs, bf16)
+    torch.cuda.synchronize()
+    for w, x, y in zip(whole, a, b):
+        assert torch.equal(w, torch.cat([x, y]))
+    _close(whole, sdf_core.sdf_core_fwd_plain(cfg, pts, ws, bs, bf16),
+           TOL[bf16])
+
+
+def test_sdf_fwd_split_full_is_production(cuda):
+    """The forward's timing split (tune library): ``full`` is the
+    production forward bit for bit, every other instance launches once,
+    counted once, with the production shapes."""
+    cfg, ws, bs, pts, _ = _sdf_setup(cuda)
+    packed = sdf_core.wg_pack(cfg, ws, bs)
+    want = sdf_core.launch_fwd_wg(cfg, pts, ws, bs, packed=packed)
+    for split in sdf_core.FWD_SPLIT:
+        n0 = dict(_build.launches)
+        got = sdf_core.sdf_fwd_split(split, cfg, pts, ws, bs, packed)
+        torch.cuda.synchronize()
+        assert _moved(n0) == {"sdf_fwd_split": 1}
+        assert [t.shape for t in got] == [t.shape for t in want]
+        if split == "full":
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_ablation_full_is_the_production_kernel(cuda):
     """At bf16 the ablation tool's full mode is the tensor-core forward of
     the main path, bit for bit."""
@@ -390,10 +430,10 @@ def test_wrappers_reject_bad_input(cuda):
 
 
 def test_tune_library_depth4_is_production(cuda):
-    """The tile sweep's library at the forward's production ring depth (4)
-    runs the production forward; the backward sweep at depth 4 (production:
-    16) gives the production backward's bits: forward and backward equal
-    bit for bit."""
+    """The tile sweep's library at ring depth 4 gives the production
+    kernels' bits (both production depths are 16): the forward (its two
+    tiles a block then overlap within a product phase) and the backward
+    sweep equal bit for bit."""
     cfg, ws, bs, pts, cots = _sdf_setup(cuda)
     bf16 = torch.bfloat16
     n0 = dict(_build.launches)
@@ -453,18 +493,22 @@ def test_sdf_bwd_split_full_is_production(cuda):
                     assert torch.equal(buf_g[sl], buf_w[sl])
 
 
-@pytest.mark.parametrize("depth", [d for d in _build.TUNE_DEPTHS
-                                   if d != wg.RING_DEPTH])
-def test_tune_library_other_depths(cuda, depth):
-    """The sweep's other ring depths: bit for bit the production kernels
+@pytest.mark.parametrize(
+    "kind,depth", [("fwd", d) for d in _build.FWD_TUNE_DEPTHS if d != 4]
+    + [("bwd", d) for d in _build.TUNE_DEPTHS if d != 4])
+def test_tune_library_other_depths(cuda, kind, depth):
+    """The sweeps' other ring depths: bit for bit the production kernels
     (a stale ring stage in a few tiles would hide under the tolerance), and
     against the plain version at the bf16 tolerance."""
     cfg, ws, bs, pts, cots = _sdf_setup(cuda)
     bf16 = torch.bfloat16
-    got = sdf_core.sdf_core_fwd_tune(cfg, pts, ws, bs, depth)
-    want = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    _close(got, sdf_core.sdf_core_fwd_plain(cfg, pts, ws, bs, bf16), TOL[bf16])
+    if kind == "fwd":
+        got = sdf_core.sdf_core_fwd_tune(cfg, pts, ws, bs, depth)
+        want = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, bf16)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        _close(got, sdf_core.sdf_core_fwd_plain(cfg, pts, ws, bs, bf16),
+               TOL[bf16])
+        return
     gw, gb = sdf_core.sdf_core_bwd_tune(cfg, pts, ws, bs, *cots, depth)
     pw, pb = sdf_core.sdf_core_bwd(cfg, pts, ws, bs, *cots, bf16)
     assert all(torch.equal(a, b) for a, b in zip(gw + gb, pw + pb))
