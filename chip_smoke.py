@@ -18,10 +18,14 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      and for every layer of each backward in one launch (the SDF core's 9
      over 2 x 65,536 rows, the albedo's 3 over 65,536, the NeRF's 11 over
      67,584); f32 operands within 1e-4 and bf16 operands within 1e-2 of
-     the plain result's norm, the bf16 SDF backward (the TMA-fed sweep
-     and its dW products) also bit for bit from call to call; times kernel
-     and plain version with CUDA events (and torch.matmul beside each dW
-     product, one a layer, as its yardstick);
+     the plain result's norm, the SDF backward's bf16 route and both
+     routes of the albedo and NeRF backwards (the TMA-fed sweeps and their
+     dW products, the CUDA-core sweeps and their split-K sums) also bit
+     for bit from call to call; times kernel and plain version with CUDA
+     events (and torch.matmul beside each dW product, one a layer, as its
+     yardstick), and the bf16 albedo and NeRF sweeps alone beside their
+     own bound (``sweep_ms``, ``sweep_bound_ms``: the sweep's products and
+     its operand rows' bytes);
   2. drives the training step at full width (8x256 SDF net, 2x256 albedo
      net, batch 512, 64+64 samples, 3 lights) on the sphere fixture, for
      confs/wmask_rnb.conf and for confs/womask_rnb.conf with n_outside=4
@@ -208,6 +212,9 @@ WMASK_F32 = ("sdf_core_fwd_f32", "sdf_core_bwd_f32", "albedo_fwd_f32",
              "albedo_bwd_f32")
 WOMASK_F32 = WMASK_F32 + ("nerf_fwd_f32", "nerf_bwd_f32")
 F32_ROUTE = WOMASK_F32
+# phase 1's kernels held bit for bit from call to call (the NeRF backward's
+# two routes too, at their own call)
+REPEAT = ("sdf_core_bwd", "albedo_bwd", "albedo_bwd_f32")
 # no_albedo: the albedo net is never run, on either route
 ALBEDO_KERNELS = ("albedo_fwd", "albedo_bwd", "albedo_dw_gemm",
                   "albedo_fwd_f32", "albedo_bwd_f32")
@@ -345,6 +352,27 @@ def nerf_bwd_macs(cfg, ws):
     return fwd + rev + chain_macs(ws)
 
 
+def albedo_sweep_macs(cfg, ws):
+    """Least multiply-adds per point of the albedo backward sweep alone:
+    albedo_bwd_macs without dW."""
+    return albedo_bwd_macs(cfg, ws) - chain_macs(ws)
+
+
+def time_sweep(results, name, sweep, macs):
+    """Time a bf16 backward's sweep alone (``sweep`` -> its outputs, the
+    operand rows first) beside its own bound: its least multiply-adds at
+    the bf16 peak against the bytes of what it writes (the operand rows,
+    db and the per-point outputs) over the memory rate."""
+    from rnb_tpu_torch.tools.ablate_kernel import cuda_ms
+
+    out = [t for t in sweep() if isinstance(t, torch.Tensor)]
+    r = results[name]
+    r["sweep_ms"] = cuda_ms(sweep)
+    r["sweep_bound_ms"] = max(2 * macs / PEAK_BF16, nbytes(out) / HBM) * 1e3
+    log(f"[time] {name} sweep alone: {r['sweep_ms']:.3f} ms, bound "
+        f"{r['sweep_bound_ms']:.3f} ms")
+
+
 def check_kernel(results, name, n, dtype, kern, plain, timed, ins=(),
                  macs=0.0, library=None, repeat=False):
     """Hold one kernel call against its plain version (and, with
@@ -480,7 +508,10 @@ def kernel_checks(dev):
                 base = name.split(":")[0]
                 timed = n == MAIN_N and (dtype == torch.bfloat16 or base in F32_ROUTE)
                 check_kernel(results, base, n, dtype, kern, plain, timed, ins, macs,
-                             repeat=name == "sdf_core_bwd")
+                             repeat=name in REPEAT)
+            if n == MAIN_N and dtype == torch.bfloat16:
+                time_sweep(results, "albedo_bwd", lambda: albedo.bwd_sweep(
+                    acfg, pts, nrm, feat, aw, ab, co, apk), n * albedo_sweep_macs(acfg, aw))
         del pts, nrm, feat, cs, cf, cg, co
         torch.cuda.empty_cache()
 
@@ -537,7 +568,11 @@ def kernel_checks(dev):
                          lambda: sum(nerf.nerf_bwd(ncfg, pts4, views, nw, nb, ca, cr, dtype, npk), []),
                          lambda: sum(nerf.nerf_bwd_plain(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
                          timed, [pts4, views, *nw, *nb, ca, cr],
-                         n * nerf_bwd_macs(ncfg, nw))
+                         n * nerf_bwd_macs(ncfg, nw), repeat=True)
+            if timed and dtype == torch.bfloat16:
+                time_sweep(results, "nerf_bwd", lambda: nerf.bwd_sweep(
+                    ncfg, pts4, views, nw, nb, ca, cr, npk),
+                    n * (nerf_bwd_macs(ncfg, nw) - chain_macs(nw)))
         del pts4, views, ca, cr
         torch.cuda.empty_cache()
     return results
@@ -1692,7 +1727,8 @@ def measuring_tools(card, tune_build, work):
 
     t0 = time.perf_counter()
     tune_build.result()   # the tune library, built beside phase 1 onwards
-    tune_ptxas = _build.ptxas_summary("sdf_", kind="tune")
+    tune_ptxas = _build.ptxas_summary("sdf_", "albedo_bwd", "nerf_bwd",
+                                      kind="tune")
     for name, rep in tune_ptxas.items():
         log(f"[ptxas tune] {name}: {rep}")
     for name, want in PTXAS_NOTE.items():   # the same production instances
@@ -1755,15 +1791,17 @@ def measuring_tools(card, tune_build, work):
     return result, tune_rows
 
 
-# ptxas's report of the production SDF-core kernels (the note in
-# csrc/sdf_core.cu): registers, stack frame, spill stores, spill loads; the
-# tensor-core sweeps exactly, the f32 ones (registers, spill) no worse; the
-# grouped dW kernel's (the note in csrc/dw_gemm.cu) exactly, in the
-# production library only
-PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 16, 0>": (168, 64, 28, 56),
-              "sdf_bwd_sweep_kernel<16, 0>": (128, 32, 0, 0)}
+# ptxas's report of the production tensor-core sweeps (the notes in
+# csrc/sdf_core.cu, csrc/albedo.cu and csrc/nerf.cu): registers, stack
+# frame, spill stores, spill loads, exactly; the SDF core's f32 ones
+# (registers, spill) no worse; the grouped dW kernel's (the note in
+# csrc/dw_gemm.cu) exactly, in the production library only
+PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 16, 0>": (168, 56, 24, 52),
+              "sdf_bwd_sweep_kernel<16, 0>": (128, 32, 0, 0),
+              "albedo_bwd_wg_kernel<16, 0>": (168, 40, 8, 8),
+              "nerf_bwd_wg_kernel<10, 0>": (168, 32, 0, 0)}
 PTXAS_DW = {"rnb_dw_products_kernel": (168, 0, 0, 0)}
-PTXAS_F32 = {"sdf_fwd_kernel<0>": (128, 72), "sdf_bwd_kernel": (72, 0)}
+PTXAS_F32 = {"sdf_fwd_kernel<0>": (128, 64), "sdf_bwd_kernel": (70, 0)}
 
 
 def _ptxas_numbers(rep):
@@ -1786,7 +1824,8 @@ def check_ptxas(report):
         assert got[0] <= regs and max(got[2:]) <= spill, (name, report[name])
     other = [n for n in report
              if re.match(r"sdf_fwd_wg_kernel<\d+, (?!16, 0>)", n)
-             or (n.startswith("sdf_bwd_sweep_kernel<") and n not in PTXAS_NOTE)]
+             or (re.match(r"(sdf_bwd_sweep|albedo_bwd_wg|nerf_bwd_wg)_kernel<", n)
+                 and n not in PTXAS_NOTE)]
     assert not other, f"tune instances in the production library: {other}"
 
 
@@ -1878,7 +1917,9 @@ def main():
          "max_abs_err": kern[k]["max_abs_err"],
          "ms": kern[k]["ms"], "plain_ms": kern[k]["plain_ms"],
          "bound_ms": kern[k]["bound_ms"], "bound_by": kern[k]["bound_by"],
-         "library_ms": kern[k]["library_ms"]}
+         "library_ms": kern[k]["library_ms"],
+         **{key: kern[k][key] for key in ("sweep_ms", "sweep_bound_ms")
+            if key in kern[k]}}
         for k, (src, rep) in KERNELS.items()]
     # the tune instances (phase 11): the work of the production kernel they
     # stand for, so its plain time and bound; their time and error from the

@@ -292,17 +292,19 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
 // the CUDA-core route reaches a few percent of that peak and spends its
 // bandwidth on an f32 record of the pre-activations and f32 operand rows.
 //
-// What the design does about it: a block of four warpgroups owns a tile of
-// 64 points; every product runs on wgmma with the bf16 A tile in shared
-// memory (K-major) and the weight image streamed in K-steps of 16 through
-// the cp.async ring of wg_pipe.cuh, read MN-major for W and K-major for Wᵀ:
-//   recompute  z_l = x_l W_l + b_l (N = 256 as 4 x 64 columns; the head
-//              N = 3 -> 8 by warpgroup 0), the ReLU mask of each hidden
+// What the design does about it (albedo_bwd_wg_kernel below: a
+// producer-fed TMA ring shared by two 64-point tiles at N = 256, the
+// operand rows by TMA store):
+// every product runs on wgmma with the bf16 A tile in shared memory
+// (K-major) and the weight image streamed in K-steps of 16, read MN-major
+// for W and K-major for Wᵀ:
+//   recompute  z_l = x_l W_l + b_l (N = 256; the head N = 3 -> 8), the
+//              ReLU mask of each hidden
 //              layer kept as one bit a fragment register in shared memory
 //              (the reverse epilogue owns the same fragment), the A rows
 //              x_l written as bf16 rows for dW;
-//   reverse    bar_z2 Wᵀ2 (K 16), bar_z1 Wᵀ1 (K 256), then bar_z0 Wᵀ0 at
-//              N = 310 -> 320 as 4 x 80 columns, whose epilogue writes
+//   reverse    bar_z2 Wᵀ2 (K 16), bar_z1 Wᵀ1 (K 256), then bar_z0 Wᵀ0 over
+//              its columns 16..319 in two passes, whose epilogues write
 //              c_feat from the accumulators and stages PE(n)'s cotangent
 //              for c_normals; rnd(bar_z) goes back into the A tile and out
 //              as the B rows; db from per-tile column sums of the unrounded
@@ -312,7 +314,7 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
 // No pre-activation leaves the block; the only scratch is the bf16 operand
 // rows (A 1.7 KB and B 1.1 KB a point), written and read once.
 
-#include "wg_pipe.cuh"
+#include "wg_bwd.cuh"
 
 #define ALB_NT 512     // four warpgroups of 64 columns
 #define ALB_KW 320     // widest A tile: x0 (2E + F = 310 -> 320)
@@ -409,148 +411,308 @@ albedo_fwd_wg_kernel(const float* __restrict__ pts,
   }
 }
 
-static __global__ void __launch_bounds__(ALB_NT, 1)
-albedo_bwd_wg_kernel(const float* __restrict__ pts,
-                     const float* __restrict__ nrm,
-                     const float* __restrict__ feat, long long n, int F,
-                     const rnb_bf16* __restrict__ w, const float* __restrict__ b,
-                     RnbWgNet net, int multires,
-                     const float* __restrict__ cout,
-                     rnb_bf16* __restrict__ abuf, rnb_bf16* __restrict__ bbuf,
-                     float* __restrict__ dbp, int db_len,
-                     float* __restrict__ cnrm, float* __restrict__ cfeat) {
-  constexpr int RS = WG_RS;
-  extern __shared__ __align__(128) unsigned char wg_smem[];
-  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][320]
-  rnb_bf16* ring = X + WG_M * ALB_KW;
-  float* red = reinterpret_cast<float*>(ring + RS * ALB_STG);      // [4][256]
-  uint32_t* mbits = reinterpret_cast<uint32_t*>(red + 4 * 256);  // [L-1][512]
-  WG_FRAG_ROWS;
-  const int tid = threadIdx.x;
-  const long long tile = blockIdx.x, n0 = tile * WG_M;
-  const int L = net.n_layers, E = net.E, kp0 = rnb_pad16(net.in_dim[0]);
-  float* dbt = dbp + tile * db_len;
+// albedo_bwd_wg_kernel, the backward sweep on the tensor cores, designed
+// for Hopper as nerf_bwd_wg_kernel is (nerf.cu; wg_bwd.cuh): one
+// block of 384 threads a pair of 64-point tiles, a producer warpgroup
+// whose one thread loads every weight stage by TMA into a ring of AB_RS
+// slots in the order of the phase table (ops/albedo.py bwd_steps), two
+// consumer warpgroups (232 registers) each a whole tile at m64n256k16,
+// taking turns at the ring (RnbTurns) so one tile's epilogue runs under
+// the other's products; the bias staged by cp.async, the epilogues without
+// a branch an element, the column sums by the lane scatter, the operand
+// rows by TMA stores. What held the cp.async sweep it replaced (four
+// warpgroups of N = 64 on one tile): the same block barrier and shared
+// copy at each of a tile's ~85 K-steps (PERF.md §6).
+//
+// Layer 0's reverse is 320 wide (x0 = [PE(p), PE(n), feat], 310 -> 320)
+// and wgmma stops at N = 256; its first 27 columns (PE(p): pts gets no
+// cotangent) are never needed. It runs as two passes over the same 16
+// K-steps (the producer streams them twice): N = 48 over input cores
+// 34..39 (columns 272..319, all c_feat), then N = 256 over cores 2..33
+// (columns 16..271: PE(n)'s cotangent for c_normals, the rest c_feat),
+// both into the registers of the one 128-accumulator set; after the second,
+// PE(n)'s cotangent overlays the A tile.
+// Each element is summed from the same bf16 operands in the same K order as
+// the cp.async sweep's, the column sums in the same order: the same bits.
+// Two wgmma groups in flight ran slower on one H100: 0.44 against 0.41 ms
+// (PERF.md §6).
+//
+// ptxas (chip_smoke.py holds it to this note): albedo_bwd_wg_kernel<16, 0>
+// 168 registers at launch (the consumers take 232 by setmaxnreg), 40 B
+// stack frame, 8 B spill stores and loads (the batched feature loads);
+// 231,696 B dynamic shared memory.
 
-  albedo_wg_x0(pts, nrm, feat, n, F, multires, E, kp0, n0, X);
-  wg_tile_out(X, kp0, n0, n, abuf + net.a_off[0]);
+// x0 = [PE(p), PE(n), feat] of the tile in bf16 into the swizzled A tile X
+// (wb_sidx; rows past n from 0), its pad columns up to kp0 zero, by the 128
+// threads of one warpgroup (this one lt). The features (F a multiple of 4,
+// rows 16-byte aligned) as float4 loads, eight a thread in flight at once:
+// one at a time, each waits out its own trip to device memory, and the
+// first products of the pair wait for them.
+__device__ __forceinline__ void albedo_wb_x0(const float* __restrict__ pts,
+                                             const float* __restrict__ nrm,
+                                             const float* __restrict__ feat,
+                                             long long n, int F, int multires,
+                                             int E, int kp0, long long n0,
+                                             rnb_bf16* X, int lt) {
+  const int f4n = F >> 2, total = WG_M * f4n;
+  for (int base = lt; base < total; base += 128 * 8) {
+    float4 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = base + 128 * u;
+      const int pp = idx / f4n, q = idx - pp * f4n;
+      const long long row = n0 + pp;
+      v[u] = idx < total && row < n
+                 ? __ldg(reinterpret_cast<const float4*>(feat + row * F) + q)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = base + 128 * u;
+      if (idx < total) {
+        const int pp = idx / f4n, c = 2 * E + 4 * (idx - pp * f4n);
+        wb_put2(X, pp, c, v[u].x, v[u].y);
+        wb_put2(X, pp, c + 2, v[u].z, v[u].w);
+      }
+    }
+  }
+  for (int idx = lt; idx < WG_M * 6; idx += 128) {
+    const int pp = idx / 6, q = (idx % 6) / 3, d = idx % 3;
+    const long long row = n0 + pp;
+    const float x = row < n ? (q ? nrm : pts)[row * 3 + d] : 0.0f;
+    const int o = q * E;
+    X[wb_sidx(pp, o + d)] = wg_bf(x);
+    float s = sinf(x), c = cosf(x);
+    for (int k = 0; k < multires; ++k) {
+      X[wb_sidx(pp, o + 3 + 6 * k + d)] = wg_bf(s);
+      X[wb_sidx(pp, o + 6 + 6 * k + d)] = wg_bf(c);
+      if (k + 1 < multires) {
+        const float s2 = 2.0f * s * c;
+        c = 1.0f - 2.0f * s * s;
+        s = s2;
+      }
+    }
+  }
+  const int fw = kp0 - 2 * E - F;
+  for (int idx = lt; idx < WG_M * fw; idx += 128) {
+    const int pp = idx / fw, c = 2 * E + F + idx % fw;
+    X[wb_sidx(pp, c)] = wg_bf(0.0f);
+  }
+}
 
-  WgProduct prod;
-  float acc[32];
-  prod.set(w, net, 0, 0, 256);
-  pipe_prologue<RS, ALB_STG>(ring, prod.nk, prod);
+#define AB_RS 16        // the production ring depth (the deepest that fits)
+#define AB_X (WG_M * ALB_KW * 2)                 // the A tile: 5 blocks of 64
+#define AB_MB (2 * 128 * 16)                     // two hidden layers' masks
+#define AB_TILE (AB_X + AB_MB + 4 * 256 * 4 + 256 * 4)   // + red + bias
 
+// RS: the ring's stages (AB_RS in production; the tune library's instances
+// take 4, 8 and 12 too); SPLIT: a WgBwdSplit.
+template <int RS, int SPLIT = WB_FULL>
+static __global__ void __launch_bounds__(WB_NT, 1)
+albedo_bwd_wg_kernel(const __grid_constant__ WgBwdParams p) {
+  static_assert(RS >= 2 && wb_smem_bytes(RS, AB_TILE) <= 232448, "ring depth");
+  constexpr bool k_mma = SPLIT != WB_K_LOOPS_ONLY;
+  constexpr bool k_epi = SPLIT == WB_FULL || SPLIT == WB_NO_ROWS;
+  constexpr bool k_rows = SPLIT == WB_FULL || SPLIT == WB_NO_EPILOGUE;
+  extern __shared__ __align__(1024) unsigned char wb_smem[];
+  const RnbWgNet& net = p.net;
+  const long long n = p.n, tiles = (n + WG_M - 1) / WG_M;
+  const int pair = tiles > 2 * (long long)blockIdx.x + 1 ? 2 : 1;
+  RnbRing<RS> ring;
+  ring.base = wb_smem;
+  ring.bytes = WB_STAGE;
+  ring.full = reinterpret_cast<uint64_t*>(wb_smem + RS * WB_STAGE + 2 * AB_TILE);
+  ring.empty = ring.full + RS;
+  const int ci = (threadIdx.x >> 7) - 1;   // a consumer's tile of the pair
+  RnbTurns<RS> turns{ring, ring.empty + RS, ci, pair, 1 + ci};
+  if (threadIdx.x == 0) {
+    ring.init(4 * pair);
+    turns.init();
+    rnb_fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    rnb_setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      WbCursor cur{&p, 0, 0};
+      rnb_ring_produce<RS>(ring, cur);
+    }
+    return;
+  }
+  rnb_setmaxnreg_inc<232>();
+  if (ci >= pair) return;
+  const int lt = threadIdx.x & 127, bar_id = 1 + ci;
+  const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2), cq = 2 * (lt & 3);
+  const long long tile = 2 * (long long)blockIdx.x + ci, n0 = tile * WG_M;
+  const bool live0 = n0 + r0 < n, live1 = n0 + r0 + 8 < n;
+  unsigned char* ta = wb_smem + RS * WB_STAGE + ci * AB_TILE;
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(ta);      // A tile [64][320]
+  uint4* mb = reinterpret_cast<uint4*>(ta + AB_X);    // [2][128]
+  float* red = reinterpret_cast<float*>(ta + AB_X + AB_MB);   // [4][256]
+  float* sb = red + 4 * 256;                          // the layer's bias
+  float* dbt = p.dbp + tile * p.db_len;
+  const int L = net.n_layers, E = net.E, F = p.F, kp0 = rnb_pad16(net.in_dim[0]);
+
+  auto stage_bias = [&](int l) {
+    const float* bl = p.b + net.b_off[l];
+    const int out = net.out_dim[l];
+    for (int c = lt; c < 256; c += 128)
+      rnb_cp_async4(sb + c, c < out ? bl + c : bl, c < out);
+    rnb_cp_async_commit();
+  };
+  auto tail = [&] {
+    rnb_cp_async_wait<0>();
+    if (lt == 0) rnb_bulk_wait_read<0>();
+  };
+  auto product = [&](int nk, auto mma) {
+    turns.template product<k_mma>(nk, mma, tail);
+  };
+  auto rows_out = [&](const CUtensorMap* map, int kw) {
+    rnb_fence_proxy_async();
+    rnb_wg_sync(bar_id);
+    if (k_rows && lt == 0) wb_rows_out(map, X, kw, n0);
+  };
+  auto db_out = [&](int l, int cols) {
+    for (int c = lt; c < cols; c += 128)
+      dbt[net.b_off[l] + c] = wg_colsum_get(red, c);
+  };
+
+  albedo_wb_x0(p.in0, p.in1, p.in2, n, F, p.multires, E, kp0, n0, X, lt);
+  rows_out(&p.amap[0], kp0);
+
+  float acc[128];
+  uint32_t bits[4];
   // --- recompute the hidden layers: masks as bits, A rows out ---
   for (int l = 0; l < L - 1; ++l) {
-    pipe_run<RS, ALB_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                          rnb_desc(st + wg * 8 * 64, 32 * 128, 128), t > 0);
+    if constexpr (k_epi) stage_bias(l);
+    product(rnb_pad16(net.in_dim[l]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 1>(acc, wb_desc_a(X, t),
+                           rnb_desc(st, 32 * 128, 128), t > 0);
     });
-    if (l + 1 < L - 1) prod.set(w, net, l + 1, 0, 256);
-    else prod.set(w, net, L - 1, 0, 16);
-    pipe_prologue<RS, ALB_STG>(ring, prod.nk, prod);
-    mbits[l * ALB_NT + tid] =
-        wg_relu_put<8>(acc, b + net.b_off[l], net.out_dim[l], X, wg * 64);
-    __syncthreads();
-    wg_tile_out(X, rnb_pad16(net.in_dim[l + 1]), n0, n,
-                abuf + net.a_off[l + 1]);
+    if constexpr (!k_mma) continue;
+    wb_fwd_put<32, true, k_epi>(acc, sb, X, bits);
+    if (k_epi) mb[l * 128 + lt] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+    rows_out(&p.amap[l + 1], rnb_pad16(net.in_dim[l + 1]));
   }
 
-  // --- the sigmoid head (N = 8, warpgroup 0): bar_z = c_out s (1 - s) ---
+  // --- the sigmoid head (N = 8): bar_z = c_out s (1 - s) ---
   float acc8[4];
-  pipe_run<RS, ALB_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    if (wg == 0)
-      rnb_wgmma_n8<0, 1>(acc8, rnb_desc(X + t * 1024, 1024, 128),
-                         rnb_desc(st, 2 * 128, 128), t > 0);
+  product(rnb_pad16(net.in_dim[L - 1]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n8<0, 1>(acc8, wb_desc_a(X, t),
+                       rnb_desc(st, 2 * 128, 128), t > 0);
   });
-  prod.set(w, net, L - 1, 1, 256);
-  pipe_prologue<RS, ALB_STG>(ring, prod.nk, prod);
-  {
+  if constexpr (k_mma) {
     const int out = net.out_dim[L - 1];
-    const float* bl = b + net.b_off[L - 1];
-    for (int idx = tid; idx < WG_M * 8; idx += ALB_NT)
-      X[wg_tidx(idx >> 3, 8 + (idx & 7))] = wg_bf(0.0f);
-    if (wg == 0) {
-      float cs[2] = {0.0f, 0.0f};
+    const float* bl = p.b + net.b_off[L - 1];
+    for (int idx = lt; idx < WG_M * 8; idx += 128)
+      X[wb_sidx(idx >> 3, 8 + (idx & 7))] = wg_bf(0.0f);
+    float cs[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = r0 + 8 * h;
-        const long long row = n0 + p;
-        float v[2];
+    for (int h = 0; h < 2; ++h) {
+      const int pp = r0 + 8 * h;
+      const long long row = n0 + pp;
+      float v[2];
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int cc = cq + u;
-          float bz = 0.0f;
-          if (cc < out && row < n) {
-            const float s = rnb_sigmoid(acc8[2 * h + u] + bl[cc]);
-            bz = cout[row * out + cc] * s * (1.0f - s);
-          }
-          cs[u] += bz;
-          v[u] = bz;
+      for (int u = 0; u < 2; ++u) {
+        const int cc = cq + u;
+        float bz = 0.0f;
+        if (!k_epi) {
+          bz = acc8[2 * h + u];
+        } else if (cc < out && row < n) {
+          const float s = rnb_sigmoid(acc8[2 * h + u] + bl[cc]);
+          bz = p.cot0[row * out + cc] * s * (1.0f - s);
         }
-        wg_put2(X, p, cq, v[0], v[1]);
+        cs[u] += bz;
+        v[u] = bz;
       }
-      wg_colsum_put<1>(cs, red, 0);
+      wb_put2(X, pp, cq, v[0], v[1]);
     }
-    __syncthreads();
-    if (tid < out) dbt[net.b_off[L - 1] + tid] = wg_colsum_get(red, tid);
-    wg_tile_out(X, 16, n0, n, bbuf + net.bb_off[L - 1]);
+    if (k_epi) wg_colsum_put<1>(cs, red, 0);
+    rows_out(&p.bmap[L - 1], 16);
+    if (k_epi) db_out(L - 1, out);
   }
 
   // --- reverse through the hidden layers: bar_z_{l-1} = bar_z_l Wᵀ ⊙ mask ---
   for (int l = L - 1; l >= 1; --l) {
-    pipe_run<RS, ALB_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-      rnb_wgmma_n64<0, 0>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                          rnb_desc(st + wg * 8 * 128, 128, 256), t > 0);
+    product(rnb_pad16(net.out_dim[l]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 0>(acc, wb_desc_a(X, t),
+                           rnb_desc(st, 128, 256), t > 0);
     });
-    prod.set(w, net, l - 1, 1, l > 1 ? 256 : ALB_KW);
-    pipe_prologue<RS, ALB_STG>(ring, prod.nk, prod);
-    const int out = net.out_dim[l - 1];
-    wg_mask_put<8>(acc, mbits[(l - 1) * ALB_NT + tid], X, red, wg * 64, n0, n);
-    __syncthreads();
-    if (tid < out) dbt[net.b_off[l - 1] + tid] = wg_colsum_get(red, tid);
-    wg_tile_out(X, rnb_pad16(out), n0, n, bbuf + net.bb_off[l - 1]);
+    if constexpr (!k_mma) continue;
+    wb_rev_put<32, true, k_epi>(
+        acc, reinterpret_cast<const uint32_t*>(&mb[(l - 1) * 128 + lt]), X,
+        red, live0, live1);
+    rows_out(&p.bmap[l - 1], rnb_pad16(net.out_dim[l - 1]));
+    if (k_epi) db_out(l - 1, net.out_dim[l - 1]);
   }
 
-  // --- bar_x0 = bar_z0 Wᵀ0 (N = 320 as 4 x 80): c_feat, c_normals ---
-  float acc80[40];
-  pipe_run<RS, ALB_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    rnb_wgmma_n80<0, 0>(acc80, rnb_desc(X + t * 1024, 1024, 128),
-                        rnb_desc(st + wg * 10 * 128, 128, 256), t > 0);
-  });
-  float* bn = reinterpret_cast<float*>(X);  // [64][E]: bar of PE(n)
-#pragma unroll
-  for (int j = 0; j < 10; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int p = r0 + 8 * h, cc = wg * 80 + 8 * j + cq + u;
-        const long long row = n0 + p;
-        const float v = acc80[4 * j + 2 * h + u];
-        if (cc >= E && cc < 2 * E) bn[p * E + cc - E] = v;
-        else if (cc >= 2 * E && cc < 2 * E + F && row < n)
-          cfeat[row * F + cc - 2 * E] = v;
-      }
-  __syncthreads();
-  for (int idx = tid; idx < WG_M * 3; idx += ALB_NT) {
-    const int p = idx / 3, d = idx % 3;
-    const long long row = n0 + p;
-    if (row >= n) continue;
-    const float* be = bn + p * E;
-    const float x = nrm[row * 3 + d];
-    float cn = be[d];
-    float sk = sinf(x), ck = cosf(x), f = 1.0f;
-    for (int k = 0; k < multires; ++k) {
-      cn = cn + f * (ck * be[3 + 6 * k + d] - sk * be[6 + 6 * k + d]);
-      if (k + 1 < multires) {
-        const float s2 = 2.0f * sk * ck;
-        ck = 1.0f - 2.0f * sk * sk;
-        sk = s2;
-      }
-      f *= 2.0f;
+  // --- bar_x0 = bar_z0 Wᵀ0 in two passes: c_feat, c_normals ---
+  // column c of bar_x0 (value v, row pp): PE(n)'s cotangent into bn, or
+  // c_feat (a pair of columns 2f, 2f + 1 as one 8-byte store where both
+  // are features)
+  float* bn = reinterpret_cast<float*>(X);   // [64][E] after the products
+  auto feat_out = [&](int c, int pp, float v0, float v1) {
+    const long long row = n0 + pp;
+    const int f = c - 2 * E;
+    if (row >= n) return;
+    if (f >= 0 && f + 1 < F && !(F & 1)) {
+      *reinterpret_cast<float2*>(p.out1 + row * F + f) = make_float2(v0, v1);
+    } else {
+      if (f >= 0 && f < F) p.out1[row * F + f] = v0;
+      if (f + 1 >= 0 && f + 1 < F) p.out1[row * F + f + 1] = v1;
     }
-    cnrm[row * 3 + d] = cn;
+  };
+  float (&a48)[24] = *reinterpret_cast<float(*)[24]>(acc);
+  product(rnb_pad16(net.out_dim[0]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n48<0, 0>(a48, wb_desc_a(X, t),
+                        rnb_desc(st, 128, 256), t > 0);
+  });
+  if constexpr (k_mma) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        feat_out(272 + 8 * j + cq, r0 + 8 * h, a48[4 * j + 2 * h],
+                 a48[4 * j + 2 * h + 1]);
   }
+  product(rnb_pad16(net.out_dim[0]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n256<0, 0>(acc, wb_desc_a(X, t),
+                         rnb_desc(st, 128, 256), t > 0);
+  });
+  if constexpr (k_mma) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pp = r0 + 8 * h, c = 16 + 8 * j + cq;
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (c + u >= E && c + u < 2 * E) bn[pp * E + c + u - E] = acc[4 * j + 2 * h + u];
+        if (c + 1 >= 2 * E)
+          feat_out(c, pp, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    rnb_wg_sync(bar_id);
+    for (int idx = lt; idx < WG_M * 3; idx += 128) {
+      const int pp = idx / 3, d = idx % 3;
+      const long long row = n0 + pp;
+      if (row >= n) continue;
+      const float* be = bn + pp * E;
+      const float x = p.in1[row * 3 + d];
+      float cn = be[d];
+      float sk = sinf(x), ck = cosf(x), f = 1.0f;
+      for (int k = 0; k < p.multires; ++k) {
+        cn = cn + f * (ck * be[3 + 6 * k + d] - sk * be[6 + 6 * k + d]);
+        if (k + 1 < p.multires) {
+          const float s2 = 2.0f * sk * ck;
+          ck = 1.0f - 2.0f * sk * sk;
+          sk = s2;
+        }
+        f *= 2.0f;
+      }
+      p.out0[row * 3 + d] = cn;
+    }
+  }
+  if (lt == 0) rnb_bulk_wait<0>();
 }
 
 // RnbWgNet of the albedo net (b and db offsets in layer order); a_off and
@@ -605,40 +767,133 @@ extern "C" int rnb_albedo_fwd_wg(const float* pts, const float* nrm,
   return (int)cudaGetLastError();
 }
 
-// The bf16 backward sweep: fills the bf16 dW scratch (A rows at a_off, B
-// rows at bb_off, n rows of pad16(width) each), writes db, c_normals and
-// c_feat; the wrapper then runs rnb_dw_products over all layers. w is the bf16 weight
-// image (ops/wg.py pack_weights) at w_off; dbp holds ceil(n/64)·Σ out
-// floats.
-extern "C" int rnb_albedo_bwd_wg(const float* pts, const float* nrm,
-                                 const float* feat, long long n, int F,
-                                 const void* w, const float* b,
-                                 const int* in_dims, const int* out_dims,
-                                 const long long* w_off,
-                                 const long long* a_off,
-                                 const long long* bb_off, int n_layers,
-                                 int multires, const float* cout, void* abuf,
-                                 void* bbuf, float* dbp, float* db,
-                                 float* cnrm, float* cfeat, void* stream) {
-  RnbWgNet net;
-  const int db_len = albedo_wg_net(&net, in_dims, out_dims, w_off, a_off,
+// The backward sweep's arguments: the net, the buffers, the phase table of
+// its ring and the tensor maps. The phases, in the products' order
+// (ops/albedo.py bwd_steps): the hidden layers forward (box {64, 32, 2}),
+// the head forward ({64, 2, 2}: N = 8); the head and the hidden layers but
+// layer 0 reverse ({64, 2, 32}), layer 0's reverse as two passes, input
+// cores 34..39 ({64, 2, 6}) then 2..33 ({64, 2, 32}). 0 on success.
+static int albedo_bwd_params(WgBwdParams* p, const float* pts,
+                             const float* nrm, const float* feat, long long n,
+                             int F, const void* w, const float* b,
+                             const int* in_dims, const int* out_dims,
+                             const long long* w_off, const long long* a_off,
+                             const long long* bb_off, int n_layers,
+                             int multires, const float* cout, void* abuf,
+                             void* bbuf, float* dbp, float* cnrm,
+                             float* cfeat) {
+  const int db_len = albedo_wg_net(&p->net, in_dims, out_dims, w_off, a_off,
                                    bb_off, n_layers, multires, F);
-  if (db_len < 0) return (int)cudaErrorInvalidValue;
-  const int smem = (int)(sizeof(rnb_bf16) * (WG_M * ALB_KW + WG_RS * ALB_STG) +
-                         sizeof(float) * 4 * 256 +
-                         sizeof(uint32_t) * (n_layers - 1) * ALB_NT);
+  // two hidden layers' masks at most, PE(n) past layer 0's first pass-A
+  // column (16), the feature rows as float4
+  if (db_len < 0 || n_layers > 3 || p->net.E < 16 || F % 4 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(feat) % 16)
+    return (int)cudaErrorInvalidValue;
+  p->in0 = pts;
+  p->in1 = nrm;
+  p->in2 = feat;
+  p->b = b;
+  p->cot0 = cout;
+  p->cot1 = nullptr;
+  p->dbp = dbp;
+  p->out0 = cnrm;
+  p->out1 = cfeat;
+  p->n = n;
+  p->db_len = db_len;
+  p->C = 3;
+  p->F = F;
+  p->multires = multires;
+  p->multires_view = 0;
+  p->of = 0;
+  p->n_ph = 0;
+  const int L = n_layers;
+  int rc = 0;
+  for (int l = 0; l < L - 1 && !rc; ++l) rc = wb_phase(p, w, l, 0, 32, 0);
+  if (!rc) rc = wb_phase(p, w, L - 1, 0, 2, 0);
+  for (int l = L - 1; l >= 1 && !rc; --l) rc = wb_phase(p, w, l, 1, 32, 0);
+  if (!rc) rc = wb_phase(p, w, 0, 1, 6, 34);
+  if (!rc) rc = wb_phase(p, w, 0, 1, 32, 2);
+  if (!rc) rc = wb_rows(p, abuf, bbuf);
+  return rc;
+}
+
+// The sweep at ring depth RS, then the fixed-order sum of the per-tile db
+// partials (dbp) into db.
+template <int RS, int SPLIT = WB_FULL>
+static int albedo_bwd_launch(const WgBwdParams& p, float* db,
+                             cudaStream_t st) {
+  constexpr int smem = wb_smem_bytes(RS, AB_TILE);
   cudaError_t err = cudaFuncSetAttribute(
-      albedo_bwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      albedo_bwd_wg_kernel<RS, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long tiles = (n + WG_M - 1) / WG_M;
-  albedo_bwd_wg_kernel<<<(unsigned)tiles, ALB_NT, smem, st>>>(
-      pts, nrm, feat, n, F, static_cast<const rnb_bf16*>(w), b, net, multires,
-      cout, static_cast<rnb_bf16*>(abuf), static_cast<rnb_bf16*>(bbuf), dbp,
-      db_len, cnrm, cfeat);
+  const long long tiles = (p.n + WG_M - 1) / WG_M;
+  albedo_bwd_wg_kernel<RS, SPLIT>
+      <<<(unsigned)((tiles + 1) / 2), WB_NT, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  rnb_sum_splits_kernel<<<(unsigned)((db_len + 255) / 256), 256, 0, st>>>(
-      dbp, (int)tiles, db_len, db);
+  rnb_sum_splits_kernel<<<(unsigned)((p.db_len + 255) / 256), 256, 0, st>>>(
+      p.dbp, (int)tiles, p.db_len, db);
   return (int)cudaGetLastError();
 }
+
+#define RNB_ALB_BWD_PARAMS                                                   \
+  const float *pts, const float *nrm, const float *feat, long long n, int F, \
+      const void *w, const float *b, const int *in_dims,                     \
+      const int *out_dims, const long long *w_off, const long long *a_off,   \
+      const long long *bb_off, int n_layers, int multires,                   \
+      const float *cout, void *abuf, void *bbuf, float *dbp, float *db,      \
+      float *cnrm, float *cfeat, void *stream
+#define RNB_ALB_BWD_SETUP                                                    \
+  WgBwdParams prm;                                                           \
+  const int rc = albedo_bwd_params(&prm, pts, nrm, feat, n, F, w, b,         \
+                                   in_dims, out_dims, w_off, a_off, bb_off,  \
+                                   n_layers, multires, cout, abuf, bbuf,     \
+                                   dbp, cnrm, cfeat);                        \
+  if (rc) return rc;                                                         \
+  cudaStream_t st = (cudaStream_t)stream
+
+// The bf16 backward sweep: fills the bf16 dW scratch (A rows at a_off, B
+// rows at bb_off, n rows of pad16(width) each), writes db, c_normals and
+// c_feat; the wrapper then runs rnb_dw_products over all layers. w is the
+// bf16 weight image (ops/wg.py pack_weights) at w_off; dbp holds
+// ceil(n/64)·Σ out floats.
+extern "C" int rnb_albedo_bwd_wg(RNB_ALB_BWD_PARAMS) {
+  RNB_ALB_BWD_SETUP;
+  return albedo_bwd_launch<AB_RS>(prm, db, st);
+}
+
+// The tune library's instances (ops/_build.py library("tune"), nvcc
+// -DRNB_TUNE; tools/tune_kernel.py, tools/ablate_kernel.py --wg_bwd): the
+// production sweep at ring depths 4, 8, 12 and 16 (AB_RS, the deepest that
+// fits: 231,696 B of shared memory) and its timing split.
+#ifdef RNB_TUNE
+extern "C" int rnb_albedo_bwd_wg_tune(int rs, RNB_ALB_BWD_PARAMS) {
+  RNB_ALB_BWD_SETUP;
+  switch (rs) {
+    case 4: return albedo_bwd_launch<4>(prm, db, st);
+    case 8: return albedo_bwd_launch<8>(prm, db, st);
+    case 12: return albedo_bwd_launch<12>(prm, db, st);
+    case AB_RS: return albedo_bwd_launch<AB_RS>(prm, db, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The production sweep's timing split: split a WgBwdSplit; only WB_FULL
+// computes the function.
+extern "C" int rnb_albedo_bwd_wg_split(int split, RNB_ALB_BWD_PARAMS) {
+  RNB_ALB_BWD_SETUP;
+  switch (split) {
+    case WB_FULL: return albedo_bwd_launch<AB_RS, WB_FULL>(prm, db, st);
+    case WB_K_LOOPS_ONLY:
+      return albedo_bwd_launch<AB_RS, WB_K_LOOPS_ONLY>(prm, db, st);
+    case WB_PRODUCTS_ONLY:
+      return albedo_bwd_launch<AB_RS, WB_PRODUCTS_ONLY>(prm, db, st);
+    case WB_NO_ROWS: return albedo_bwd_launch<AB_RS, WB_NO_ROWS>(prm, db, st);
+    case WB_NO_EPILOGUE:
+      return albedo_bwd_launch<AB_RS, WB_NO_EPILOGUE>(prm, db, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // RNB_TUNE

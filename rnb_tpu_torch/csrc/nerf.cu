@@ -444,11 +444,12 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 // most threads idle in the 1- and 3-wide heads and moves ~2 GB of f32
 // scratch (the pre-activation record and the operand rows).
 //
-// What the design does about it: a block of four warpgroups owns a tile of
-// 64 points, every product runs on wgmma from the bf16 A tile in shared
-// memory and the weight image streamed through the cp.async ring of
-// wg_pipe.cuh. The wrapper lays the image out in the order the products
-// want (ops/nerf.py wg_weights):
+// What the design does about it (nerf_bwd_wg_kernel below: a producer-fed
+// TMA ring shared by two 64-point tiles at N = 256, the operand rows by TMA
+// store): every product runs on wgmma from the bf16 A tile in shared
+// memory and the weight image. The
+// wrapper lays the image out in the order the products want (ops/nerf.py
+// wg_weights):
 //   * a skip layer's input [e, h] is held as [h, e] (its weight rows
 //     permuted alike), so its reverse product is the N = 256 block of the h
 //     rows and the PE slice is never computed;
@@ -458,8 +459,7 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 //     product; its dW is one product too, split by the wrapper;
 //   * the views layer's input [feat, v] keeps the feature rows first, so
 //     its reverse is the N = 256 block of those rows.
-// Recompute: trunk N = 256 (4 x 64), head N = 256, views N = 128 (4 x 32);
-// the nine ReLU masks (eight trunk layers and the views layer) are kept as
+// The nine ReLU masks (eight trunk layers and the views layer) are kept as
 // one bit a fragment register in shared memory, set from the f32
 // pre-activation (z > 0), and read back by the reverse epilogue that owns
 // the same fragment. The A rows x_l and B rows rnd(bar_z_l) go out as bf16
@@ -468,7 +468,7 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 // dW is one grouped launch over the 11 image layers (dw_gemm.cu). No f32
 // record leaves the block.
 
-#include "wg_pipe.cuh"
+#include "wg_bwd.cuh"
 
 #define NRF_NT 512    // four warpgroups of 64 columns
 #define NRF_KW 352    // widest A tile: the skip input [h, e] (256 + 84 -> 352)
@@ -634,155 +634,299 @@ nerf_fwd_wg_kernel(const float* __restrict__ pts,
   }
 }
 
-// Image layers (net): 0..D-1 the trunk (skip[l]: input [h, e]), D the fused
-// head [W_f | W_a] (feature columns 0..of-1), D+1 views, D+2 rgb; b and db
-// in the same order.
-static __global__ void __launch_bounds__(NRF_NT, 1)
-nerf_bwd_wg_kernel(const float* __restrict__ pts,
-                   const float* __restrict__ views, long long n, int C,
-                   const rnb_bf16* __restrict__ w, const float* __restrict__ b,
-                   RnbWgNet net, int of, int multires, int multires_view,
-                   const float* __restrict__ calpha,
-                   const float* __restrict__ crgb, rnb_bf16* __restrict__ abuf,
-                   rnb_bf16* __restrict__ bbuf, float* __restrict__ dbp,
-                   int db_len) {
-  constexpr int RS = WG_RS;
-  extern __shared__ __align__(128) unsigned char wg_smem[];
-  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][352]
-  rnb_bf16* ring = X + WG_M * NRF_KW;
-  rnb_bf16* e16 = ring + RS * NRF_STG;  // [64][96] PE(pts)
-  rnb_bf16* v16 = e16 + WG_M * NRF_EW;  // [64][32] PE(views)
-  float* red = reinterpret_cast<float*>(v16 + WG_M * NRF_VW);    // [4][256]
-  uint32_t* mbits = reinterpret_cast<uint32_t*>(red + 4 * 256);  // [D+1][512]
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const long long tile = blockIdx.x, n0 = tile * WG_M;
+// nerf_bwd_wg_kernel, the backward sweep on the tensor cores, designed for
+// Hopper. What held the cp.async sweep it replaced (four
+// warpgroups of N = 64 on one 64-point tile; its timing split on one H100
+// in PERF.md §6): a block
+// barrier and a share of every weight stage's copy at each of a tile's 296
+// K-steps, every warpgroup reading the whole A tile at N = 64, and nothing
+// under its epilogues and the 512 threads' operand-row stores.
+//
+// What the design does about it (the SDF forward's shape, sdf_core.cu):
+//   * one block of 384 threads a pair of 64-point tiles (2b, 2b + 1), one
+//     block an SM: a producer warpgroup (setmaxnreg 40) whose one thread
+//     loads every weight stage by TMA into a ring of NB_RS slots in the
+//     order of the phase table (WbCursor, wg_bwd.cuh; ops/nerf.py
+//     bwd_steps), and two consumer warpgroups (232 registers), each a whole
+//     tile: m64n256k16 for the trunk, the feature head, the views layer's
+//     reverse (its feature rows), the fused head's reverse and the trunk's;
+//     m64n128k16 for the views layer and the rgb head's reverse;
+//   * one stage feeds both tiles; the consumers take turns at their
+//     product phases (RnbTurns, tma.cuh), so one tile's epilogue runs under
+//     the other's products;
+//   * the epilogues: each layer's bias staged in shared memory by cp.async
+//     under the products (zero past its width, so no column test), ReLU,
+//     mask bits (4 words a thread and layer) and rounding with no branch an
+//     element; the column sums of db reduced by a scatter over the lanes
+//     (wb_colsum_put) in the butterfly's order; PE(pts) written once into
+//     both places it is read (columns 0.. for layer 0, 256.. for the skip
+//     input [h, e], which layers 1-4 never overwrite), PE(views) computed
+//     into columns 256.. after the feature head: no PE area;
+//   * the operand rows leave by TMA stores: the A tile is K-major in
+//     wgmma's 128-byte swizzle (wb_sidx), so each block of 64 of its
+//     columns is one box {64, 64} of the [n, ld] bf16 rows in the same
+//     swizzle, written as whole 128-byte rows; one thread issues a layer's
+//     stores after its epilogue, and the next epilogue writes the tile
+//     once they have read it (the product's tail). (Boxes {8, 64} from the
+//     8x8-core layout wrote 16-byte pieces of 64 rows: 0.45 ms of 0.89 in
+//     the first build on the H100, PERF.md §6.)
+// Each element is summed from the same bf16 operands in the same K order as
+// the cp.async sweep's, the column sums in the same order: the same bits.
+// What did not pay (one H100, PERF.md §6): two wgmma groups in flight
+// (0.69 against 0.65 ms), the two heads' 64-row
+// db sums with their loads unrolled (they spilled: 0.65 -> 0.75 ms).
+//
+// ptxas (chip_smoke.py holds it to this note): nerf_bwd_wg_kernel<10, 0>
+// 168 registers at launch (the consumers take 232 by setmaxnreg), 32 B
+// stack frame, no spill; 227,504 B dynamic shared memory.
+
+#define NB_RS 10        // the production ring depth (the deepest that fits)
+#define NB_MASKS 9      // ReLU masks kept: 8 trunk layers and the views layer
+#define NB_X (WG_M * 384 * 2)   // the A tile: 6 blocks of 64 columns, the
+                                // skip input [h, e] (256 + 84 -> 352) wide
+#define NB_MB (NB_MASKS * 128 * 16)             // mask bits: a uint4 a thread
+#define NB_TILE (NB_X + NB_MB + 4 * 256 * 4 + 256 * 4)   // + red + bias
+
+// RS: the ring's stages (NB_RS in production; the tune library's instances
+// take 4 and 8 too); SPLIT: a WgBwdSplit.
+template <int RS, int SPLIT = WB_FULL>
+static __global__ void __launch_bounds__(WB_NT, 1)
+nerf_bwd_wg_kernel(const __grid_constant__ WgBwdParams p) {
+  static_assert(RS >= 2 && wb_smem_bytes(RS, NB_TILE) <= 232448, "ring depth");
+  constexpr bool k_mma = SPLIT != WB_K_LOOPS_ONLY;
+  constexpr bool k_epi = SPLIT == WB_FULL || SPLIT == WB_NO_ROWS;
+  constexpr bool k_rows = SPLIT == WB_FULL || SPLIT == WB_NO_EPILOGUE;
+  extern __shared__ __align__(1024) unsigned char wb_smem[];
+  const RnbWgNet& net = p.net;
+  const long long n = p.n, tiles = (n + WG_M - 1) / WG_M;
+  const int pair = tiles > 2 * (long long)blockIdx.x + 1 ? 2 : 1;
+  RnbRing<RS> ring;
+  ring.base = wb_smem;
+  ring.bytes = WB_STAGE;
+  ring.full = reinterpret_cast<uint64_t*>(wb_smem + RS * WB_STAGE + 2 * NB_TILE);
+  ring.empty = ring.full + RS;
+  const int ci = (threadIdx.x >> 7) - 1;   // a consumer's tile of the pair
+  RnbTurns<RS> turns{ring, ring.empty + RS, ci, pair, 1 + ci};
+  if (threadIdx.x == 0) {
+    ring.init(4 * pair);
+    turns.init();
+    rnb_fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    rnb_setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      WbCursor cur{&p, 0, 0};
+      rnb_ring_produce<RS>(ring, cur);
+    }
+    return;
+  }
+  rnb_setmaxnreg_inc<232>();
+  if (ci >= pair) return;
+  const int lt = threadIdx.x & 127, bar_id = 1 + ci;
+  const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2);
+  const long long tile = 2 * (long long)blockIdx.x + ci, n0 = tile * WG_M;
+  const bool live0 = n0 + r0 < n, live1 = n0 + r0 + 8 < n;
+  unsigned char* ta = wb_smem + RS * WB_STAGE + ci * NB_TILE;
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(ta);      // A tile [64][384]
+  uint4* mb = reinterpret_cast<uint4*>(ta + NB_X);    // [NB_MASKS][128]
+  float* red = reinterpret_cast<float*>(ta + NB_X + NB_MB);   // [4][256]
+  float* sb = red + 4 * 256;                          // the layer's bias
+  float* dbt = p.dbp + tile * p.db_len;
   const int D = net.n_layers - 3, lh = D, lv = D + 1, lr = D + 2;
-  const int E = net.E, V = 3 * (1 + 2 * multires_view);
-  float* dbt = dbp + tile * db_len;
+  const int E = net.E, C = p.C, kp0 = rnb_pad16(E);
+  const int V = 3 * (1 + 2 * p.multires_view);
 
-  nerf_wg_pe(pts, views, n, C, multires, multires_view, E, n0, e16, v16, X);
-  wg_tile_out(X, rnb_pad16(E), n0, n, abuf + net.a_off[0]);
+  // layer l's bias into sb by cp.async, under the products before the
+  // epilogue that reads it; zeros past its width (and past 256: the fused
+  // head's alpha column is never added here)
+  auto stage_bias = [&](int l) {
+    const float* bl = p.b + net.b_off[l];
+    const int out = net.out_dim[l];
+    for (int c = lt; c < 256; c += 128)
+      rnb_cp_async4(sb + c, c < out ? bl + c : bl, c < out);
+    rnb_cp_async_commit();
+  };
+  // once the products retired: the bias has landed and the operand-row
+  // stores issued before the phase have read the tile
+  auto tail = [&] {
+    rnb_cp_async_wait<0>();
+    if (lt == 0) rnb_bulk_wait_read<0>();
+  };
+  auto product = [&](int nk, auto mma) {
+    turns.template product<k_mma>(nk, mma, tail);
+  };
+  // the tile's writers are done: make it visible to the async proxy, then
+  // one thread stores the first kw columns as the rows of `map`
+  auto rows_out = [&](const CUtensorMap* map, int kw) {
+    rnb_fence_proxy_async();
+    rnb_wg_sync(bar_id);
+    if (k_rows && lt == 0) wb_rows_out(map, X, kw, n0);
+  };
+  // db of layer l from the column sums in red (a barrier after they were
+  // written)
+  auto db_out = [&](int l, int cols) {
+    for (int c = lt; c < cols; c += 128)
+      dbt[net.b_off[l] + c] = wg_colsum_get(red, c);
+  };
 
-  WgProduct prod;
-  float acc[32];
-  prod.set(w, net, 0, 0, 256);
-  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
+  // --- PE(pts) (rows past n from 0) into columns 0..E-1 (layer 0's input)
+  // and 256..256+E-1 (the skip input [h, e]), pads zero ---
+  for (int idx = lt; idx < WG_M * C; idx += 128) {
+    const int pp = idx / C, d = idx - pp * C;
+    const long long row = n0 + pp;
+    const float x = row < n ? p.in0[row * C + d] : 0.0f;
+    auto put = [&](int c, float v) {
+      const rnb_bf16 h = wg_bf(v);
+      X[wb_sidx(pp, c)] = h;
+      X[wb_sidx(pp, 256 + c)] = h;
+    };
+    put(d, x);
+    float s = sinf(x), c = cosf(x);
+    for (int k = 0; k < p.multires; ++k) {
+      put(C * (1 + 2 * k) + d, s);
+      put(C * (2 + 2 * k) + d, c);
+      if (k + 1 < p.multires) {
+        const float s2 = 2.0f * s * c;
+        c = 1.0f - 2.0f * s * s;
+        s = s2;
+      }
+    }
+  }
+  for (int idx = lt; idx < WG_M * (kp0 - E); idx += 128) {
+    const int pp = idx / (kp0 - E), c = E + idx % (kp0 - E);
+    X[wb_sidx(pp, c)] = wg_bf(0.0f);
+    X[wb_sidx(pp, 256 + c)] = wg_bf(0.0f);
+  }
+  rows_out(&p.amap[0], kp0);
+
+  float acc[128];
+  float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
+  uint32_t bits[4];
 
   // --- recompute: the trunk (ReLU, masks as bits), then the feature head;
-  // each epilogue writes the next A tile [h or rnd(feat), appended slice] ---
+  // each epilogue writes the next A tile (h or rnd(feat)) into columns
+  // 0..255, the slice after them already in place (e) or written here (v)
   for (int l = 0; l <= D; ++l) {
-    pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                          rnb_desc(st + wg * 8 * 64, 32 * 128, 128), t > 0);
+    if constexpr (k_epi) stage_bias(l);
+    product(rnb_pad16(net.in_dim[l]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 1>(acc, wb_desc_a(X, t),
+                           rnb_desc(st, 32 * 128, 128), t > 0);
     });
-    if (l < D) prod.set(w, net, l + 1, 0, 256);
-    else prod.set(w, net, lv, 0, 128);
-    pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
-    // trunk and feature head are 256 wide (the wrapper holds them to it):
-    // the epilogue fills columns 0..255, then the slice appended after
-    // them: e before a skip layer (held as [h, e]), v before the views
-    // layer, else none
-    const bool head = l == D;
-    const uint32_t bits =
-        wg_relu_put<8>(acc, b + net.b_off[l], 256, X, wg * 64, !head);
-    if (!head) mbits[l * NRF_NT + tid] = bits;
-    const int kn = rnb_pad16(net.in_dim[l + 1]);
-    nerf_wg_append(X, kn, head ? v16 : (net.skip[l + 1] ? e16 : nullptr),
-                   head ? NRF_VW : NRF_EW, head ? V : E);
-    __syncthreads();
-    wg_tile_out(X, kn, n0, n, abuf + net.a_off[l + 1]);
+    if constexpr (!k_mma) continue;
+    if (l < D) {
+      wb_fwd_put<32, true, k_epi>(acc, sb, X, bits);
+      if (k_epi) mb[l * 128 + lt] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+    } else {
+      wb_fwd_put<32, false, k_epi>(acc, sb, X, bits);
+      // [rnd(feat), PE(views)] is the views layer's input
+      for (int idx = lt; idx < WG_M * 3; idx += 128) {
+        const int pp = idx / 3, d = idx - 3 * pp;
+        const long long row = n0 + pp;
+        const float x = row < n ? p.in1[row * 3 + d] : 0.0f;
+        X[wb_sidx(pp, 256 + d)] = wg_bf(x);
+        float s = sinf(x), c = cosf(x);
+        for (int k = 0; k < p.multires_view; ++k) {
+          X[wb_sidx(pp, 256 + 3 * (1 + 2 * k) + d)] = wg_bf(s);
+          X[wb_sidx(pp, 256 + 3 * (2 + 2 * k) + d)] = wg_bf(c);
+          if (k + 1 < p.multires_view) {
+            const float s2 = 2.0f * s * c;
+            c = 1.0f - 2.0f * s * s;
+            s = s2;
+          }
+        }
+      }
+      const int kv = rnb_pad16(net.in_dim[lv]) - 256;
+      for (int idx = lt; idx < WG_M * (kv - V); idx += 128) {
+        const int pp = idx / (kv - V), c = 256 + V + idx % (kv - V);
+        X[wb_sidx(pp, c)] = wg_bf(0.0f);
+      }
+    }
+    rows_out(&p.amap[l + 1], rnb_pad16(net.in_dim[l + 1]));
   }
 
-  // --- views layer (N = 128 as 4 x 32): its mask, the rgb head's A rows ---
-  float acc16[16];
-  pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    rnb_wgmma_n32<0, 1>(acc16, rnb_desc(X + t * 1024, 1024, 128),
-                        rnb_desc(st + wg * 4 * 64, 16 * 128, 128), t > 0);
+  // --- the views layer (N = 128): its mask, the rgb head's A rows ---
+  if constexpr (k_epi) stage_bias(lv);
+  product(rnb_pad16(net.in_dim[lv]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n128<0, 1>(a64, wb_desc_a(X, t),
+                         rnb_desc(st, 16 * 128, 128), t > 0);
   });
-  prod.set(w, net, lr, 1, 128);
-  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
-  mbits[D * NRF_NT + tid] = wg_relu_put<4>(acc16, b + net.b_off[lv],
-                                           net.out_dim[lv], X, wg * 32);
-  __syncthreads();
-  wg_tile_out(X, rnb_pad16(net.out_dim[lv]), n0, n, abuf + net.a_off[lr]);
-  __syncthreads();
+  if constexpr (k_mma) {
+    wb_fwd_put<16, true, k_epi>(a64, sb, X, *reinterpret_cast<uint32_t(*)[2]>(bits));
+    if (k_epi) mb[D * 128 + lt] = make_uint4(bits[0], bits[1], 0u, 0u);
+    rows_out(&p.amap[lr], rnb_pad16(net.in_dim[lr]));
 
-  // --- rgb head: bar_z = c_rgb; then bar_z_v = (c_rgb W_rgbᵀ) ⊙ mask ---
-  {
+    // --- the rgb head: bar_z = c_rgb into the A tile once its rows left ---
+    if (lt == 0) rnb_bulk_wait_read<0>();
+    rnb_wg_sync(bar_id);
     const int orr = net.out_dim[lr];
-    for (int idx = tid; idx < WG_M * 16; idx += NRF_NT) {
-      const int p = idx >> 4, j = idx & 15;
-      const long long row = n0 + p;
-      X[wg_tidx(p, j)] = wg_bf(row < n && j < orr ? crgb[row * orr + j] : 0.0f);
+    for (int idx = lt; idx < WG_M * 16; idx += 128) {
+      const int pp = idx >> 4, j = idx & 15;
+      const long long row = n0 + pp;
+      X[wb_sidx(pp, j)] =
+          wg_bf(row < n && j < orr ? p.cot1[row * orr + j] : 0.0f);
     }
-    if (tid < orr) {
+    if (k_epi && lt < orr) {
       float s = 0.0f;
-      for (int p = 0; p < WG_M && n0 + p < n; ++p) s += crgb[(n0 + p) * orr + tid];
-      dbt[net.b_off[lr] + tid] = s;
+      for (int q = 0; q < WG_M && n0 + q < n; ++q) s += p.cot1[(n0 + q) * orr + lt];
+      dbt[net.b_off[lr] + lt] = s;
     }
-    __syncthreads();
-    wg_tile_out(X, 16, n0, n, bbuf + net.bb_off[lr]);
+    rows_out(&p.bmap[lr], 16);
   }
-  pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    rnb_wgmma_n32<0, 0>(acc16, rnb_desc(X + t * 1024, 1024, 128),
-                        rnb_desc(st + wg * 4 * 128, 128, 256), t > 0);
+  // --- bar_z_v = (c_rgb W_rgbᵀ) ⊙ mask_v (N = 128) ---
+  product(rnb_pad16(net.out_dim[lr]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n128<0, 0>(a64, wb_desc_a(X, t),
+                         rnb_desc(st, 128, 256), t > 0);
   });
-  prod.set(w, net, lv, 1, 256);
-  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
-  {
-    const int out = net.out_dim[lv];
-    wg_mask_put<4>(acc16, mbits[D * NRF_NT + tid], X, red, wg * 32, n0, n);
-    __syncthreads();
-    if (tid < out) dbt[net.b_off[lv] + tid] = wg_colsum_get(red, tid);
-    wg_tile_out(X, rnb_pad16(out), n0, n, bbuf + net.bb_off[lv]);
+  if constexpr (k_mma) {
+    wb_rev_put<16, true, k_epi>(
+        a64, reinterpret_cast<const uint32_t*>(&mb[D * 128 + lt]), X, red,
+        live0, live1);
+    rows_out(&p.bmap[lv], rnb_pad16(net.out_dim[lv]));
+    if (k_epi) db_out(lv, net.out_dim[lv]);
   }
-
-  // --- bar_feat = (bar_z_v W_vᵀ)[:, :of]; the head's B rows
-  // [rnd(bar_feat) | rnd(c_alpha)] become the next A tile (K = 272) ---
-  pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    rnb_wgmma_n64<0, 0>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                        rnb_desc(st + wg * 8 * 128, 128, 256), t > 0);
+  // --- bar_feat = (bar_z_v W_vᵀ)[:, :of] (the feature rows of W_v, N =
+  // 256, no mask); the head's B rows [rnd(bar_feat) | rnd(c_alpha)] are
+  // the next A tile (K = 272) ---
+  product(rnb_pad16(net.out_dim[lv]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n256<0, 0>(acc, wb_desc_a(X, t),
+                         rnb_desc(st, 128, 256), t > 0);
   });
-  prod.set(w, net, lh, 1, 256);
-  pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
-  {
-    // the N = 256 block is the feature rows of W_v (of == 256): no mask
-    wg_mask_put<8>(acc, 0xffffffffu, X, red, wg * 64, n0, n);
-    __syncthreads();
-    const int oa = net.out_dim[lh] - of, kh = rnb_pad16(net.out_dim[lh]);
-    if (tid < of) dbt[net.b_off[lh] + tid] = wg_colsum_get(red, tid);
-    for (int idx = tid; idx < WG_M * (kh - of); idx += NRF_NT) {
-      const int p = idx / (kh - of), a = idx % (kh - of);
-      const long long row = n0 + p;
-      X[wg_tidx(p, of + a)] =
-          wg_bf(a < oa && row < n ? calpha[row * oa + a] : 0.0f);
+  if constexpr (k_mma) {
+    wb_rev_put<32, false, k_epi>(acc, nullptr, X, red, live0, live1);
+    const int of = p.of, oa = net.out_dim[lh] - of;
+    const int kh = rnb_pad16(net.out_dim[lh]) - of;
+    for (int idx = lt; idx < WG_M * kh; idx += 128) {
+      const int pp = idx / kh, a = idx - pp * kh;
+      const long long row = n0 + pp;
+      X[wb_sidx(pp, of + a)] =
+          wg_bf(a < oa && row < n ? p.cot0[row * oa + a] : 0.0f);
     }
-    if (tid < oa) {
-      float s = 0.0f;
-      for (int p = 0; p < WG_M && n0 + p < n; ++p) s += calpha[(n0 + p) * oa + tid];
-      dbt[net.b_off[lh] + of + tid] = s;
+    rows_out(&p.bmap[lh], of + kh);
+    if (k_epi) {
+      db_out(lh, of);
+      if (lt < oa) {
+        float s = 0.0f;
+        for (int q = 0; q < WG_M && n0 + q < n; ++q) s += p.cot0[(n0 + q) * oa + lt];
+        dbt[net.b_off[lh] + of + lt] = s;
+      }
     }
-    __syncthreads();
-    wg_tile_out(X, kh, n0, n, bbuf + net.bb_off[lh]);
   }
-
   // --- the head's reverse, then the trunk's: bar_z_{l-1} = (bar_z_l W_lᵀ)
   // [the h rows] ⊙ mask_{l-1}; layer 0 has no reverse ---
   for (int l = lh; l >= 1; --l) {
-    pipe_run<RS, NRF_STG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-      rnb_wgmma_n64<0, 0>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                          rnb_desc(st + wg * 8 * 128, 128, 256), t > 0);
+    product(rnb_pad16(net.out_dim[l]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 0>(acc, wb_desc_a(X, t),
+                           rnb_desc(st, 128, 256), t > 0);
     });
-    if (l > 1) {
-      prod.set(w, net, l - 1, 1, 256);
-      pipe_prologue<RS, NRF_STG>(ring, prod.nk, prod);
-    }
-    const int out = net.out_dim[l - 1];
-    wg_mask_put<8>(acc, mbits[(l - 1) * NRF_NT + tid], X, red, wg * 64, n0, n);
-    __syncthreads();
-    if (tid < out) dbt[net.b_off[l - 1] + tid] = wg_colsum_get(red, tid);
-    wg_tile_out(X, rnb_pad16(out), n0, n, bbuf + net.bb_off[l - 1]);
+    if constexpr (!k_mma) continue;
+    wb_rev_put<32, true, k_epi>(
+        acc, reinterpret_cast<const uint32_t*>(&mb[(l - 1) * 128 + lt]), X,
+        red, live0, live1);
+    rows_out(&p.bmap[l - 1], rnb_pad16(net.out_dim[l - 1]));
+    if (k_epi) db_out(l - 1, net.out_dim[l - 1]);
   }
+  if (lt == 0) rnb_bulk_wait<0>();
 }
 
 // RnbWgNet of the NeRF's image layers (b and db offsets in image order);
@@ -851,43 +995,129 @@ extern "C" int rnb_nerf_fwd_wg(const float* pts, const float* views,
   return (int)cudaGetLastError();
 }
 
+// The backward sweep's arguments: the net, the buffers, the phase table of
+// its ring and the tensor maps (each phase's layer tile with its box, each
+// layer's A and B rows). The phases, in the products' order (ops/nerf.py
+// bwd_steps): the trunk and the feature head forward (box {64, 32, 2}),
+// the views layer forward ({64, 16, 2}: N = 128); the rgb head reverse
+// ({64, 2, 16}: N = 128), the views layer reverse ({64, 2, 32}: its
+// feature rows), the fused head's and the trunk's reverse ({64, 2, 32}:
+// the h rows). 0 on success.
+static int nerf_bwd_params(WgBwdParams* p, const float* pts,
+                           const float* views, long long n, int C,
+                           const void* w, const float* b, const int* in_dims,
+                           const int* out_dims, const int* skip,
+                           const long long* w_off, const long long* a_off,
+                           const long long* bb_off, int n_layers, int of,
+                           int multires, int multires_view,
+                           const float* calpha, const float* crgb, void* abuf,
+                           void* bbuf, float* dbp) {
+  const int db_len = nerf_wg_net(&p->net, in_dims, out_dims, skip, w_off,
+                                 a_off, bb_off, n_layers, of, C, multires,
+                                 multires_view);
+  const int D = n_layers - 3;
+  if (db_len < 0 || D + 1 > NB_MASKS || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  p->in0 = pts;
+  p->in1 = views;
+  p->in2 = nullptr;
+  p->b = b;
+  p->cot0 = calpha;
+  p->cot1 = crgb;
+  p->dbp = dbp;
+  p->out0 = p->out1 = nullptr;
+  p->n = n;
+  p->db_len = db_len;
+  p->C = C;
+  p->F = 0;
+  p->multires = multires;
+  p->multires_view = multires_view;
+  p->of = of;
+  p->n_ph = 0;
+  int rc = 0;
+  for (int l = 0; l <= D && !rc; ++l) rc = wb_phase(p, w, l, 0, 32, 0);
+  if (!rc) rc = wb_phase(p, w, D + 1, 0, 16, 0);
+  if (!rc) rc = wb_phase(p, w, D + 2, 1, 16, 0);
+  for (int l = D + 1; l >= 1 && !rc; --l) rc = wb_phase(p, w, l, 1, 32, 0);
+  if (!rc) rc = wb_rows(p, abuf, bbuf);
+  return rc;
+}
+
+// The sweep at ring depth RS, then the fixed-order sum of the per-tile db
+// partials (dbp) into db.
+template <int RS, int SPLIT = WB_FULL>
+static int nerf_bwd_launch(const WgBwdParams& p, float* db, cudaStream_t st) {
+  constexpr int smem = wb_smem_bytes(RS, NB_TILE);
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_bwd_wg_kernel<RS, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (p.n + WG_M - 1) / WG_M;
+  nerf_bwd_wg_kernel<RS, SPLIT>
+      <<<(unsigned)((tiles + 1) / 2), WB_NT, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rnb_sum_splits_kernel<<<(unsigned)((p.db_len + 255) / 256), 256, 0, st>>>(
+      p.dbp, (int)tiles, p.db_len, db);
+  return (int)cudaGetLastError();
+}
+
+#define RNB_NERF_BWD_PARAMS                                                  \
+  const float *pts, const float *views, long long n, int C, const void *w,   \
+      const float *b, const int *in_dims, const int *out_dims,               \
+      const int *skip, const long long *w_off, const long long *a_off,       \
+      const long long *bb_off, int n_layers, int of, int multires,           \
+      int multires_view, const float *calpha, const float *crgb, void *abuf, \
+      void *bbuf, float *dbp, float *db, void *stream
+#define RNB_NERF_BWD_SETUP                                                   \
+  WgBwdParams prm;                                                           \
+  const int rc = nerf_bwd_params(&prm, pts, views, n, C, w, b, in_dims,      \
+                                 out_dims, skip, w_off, a_off, bb_off,       \
+                                 n_layers, of, multires, multires_view,      \
+                                 calpha, crgb, abuf, bbuf, dbp);             \
+  if (rc) return rc;                                                         \
+  cudaStream_t st = (cudaStream_t)stream
+
 // The bf16 backward sweep over the image layers (see nerf_bwd_wg_kernel):
 // fills the bf16 dW scratch (A rows at a_off, B rows at bb_off, n rows of
 // pad16(width) each) and writes db in image order; the wrapper then runs
 // rnb_dw_products over the image layers and splits the head. dbp holds
 // ceil(n/64)·Σ out floats.
-extern "C" int rnb_nerf_bwd_wg(const float* pts, const float* views,
-                               long long n, int C, const void* w,
-                               const float* b, const int* in_dims,
-                               const int* out_dims, const int* skip,
-                               const long long* w_off, const long long* a_off,
-                               const long long* bb_off, int n_layers, int of,
-                               int multires, int multires_view,
-                               const float* calpha, const float* crgb,
-                               void* abuf, void* bbuf, float* dbp, float* db,
-                               void* stream) {
-  RnbWgNet net;
-  const int db_len = nerf_wg_net(&net, in_dims, out_dims, skip, w_off, a_off,
-                                 bb_off, n_layers, of, C, multires,
-                                 multires_view);
-  if (db_len < 0) return (int)cudaErrorInvalidValue;
-  const int D = n_layers - 3;
-  const int smem =
-      (int)(sizeof(rnb_bf16) * (WG_M * (NRF_KW + NRF_EW + NRF_VW) +
-                                WG_RS * NRF_STG) +
-            sizeof(float) * 4 * 256 + sizeof(uint32_t) * (D + 1) * NRF_NT);
-  cudaError_t err = cudaFuncSetAttribute(
-      nerf_bwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long tiles = (n + WG_M - 1) / WG_M;
-  nerf_bwd_wg_kernel<<<(unsigned)tiles, NRF_NT, smem, st>>>(
-      pts, views, n, C, static_cast<const rnb_bf16*>(w), b, net, of,
-      multires, multires_view, calpha, crgb, static_cast<rnb_bf16*>(abuf),
-      static_cast<rnb_bf16*>(bbuf), dbp, db_len);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rnb_sum_splits_kernel<<<(unsigned)((db_len + 255) / 256), 256, 0, st>>>(
-      dbp, (int)tiles, db_len, db);
-  return (int)cudaGetLastError();
+extern "C" int rnb_nerf_bwd_wg(RNB_NERF_BWD_PARAMS) {
+  RNB_NERF_BWD_SETUP;
+  return nerf_bwd_launch<NB_RS>(prm, db, st);
 }
+
+// The tune library's instances (ops/_build.py library("tune"), nvcc
+// -DRNB_TUNE; tools/tune_kernel.py, tools/ablate_kernel.py --wg_bwd): the
+// production sweep at ring depths 4, 8 and 10 (NB_RS, the deepest that
+// fits: 227,504 B of shared memory; 11 would pass the SM's 232,448) and
+// its timing split.
+#ifdef RNB_TUNE
+extern "C" int rnb_nerf_bwd_wg_tune(int rs, RNB_NERF_BWD_PARAMS) {
+  RNB_NERF_BWD_SETUP;
+  switch (rs) {
+    case 4: return nerf_bwd_launch<4>(prm, db, st);
+    case 8: return nerf_bwd_launch<8>(prm, db, st);
+    case NB_RS: return nerf_bwd_launch<NB_RS>(prm, db, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The production sweep's timing split: split a WgBwdSplit; only WB_FULL
+// computes the function.
+extern "C" int rnb_nerf_bwd_wg_split(int split, RNB_NERF_BWD_PARAMS) {
+  RNB_NERF_BWD_SETUP;
+  switch (split) {
+    case WB_FULL: return nerf_bwd_launch<NB_RS, WB_FULL>(prm, db, st);
+    case WB_K_LOOPS_ONLY:
+      return nerf_bwd_launch<NB_RS, WB_K_LOOPS_ONLY>(prm, db, st);
+    case WB_PRODUCTS_ONLY:
+      return nerf_bwd_launch<NB_RS, WB_PRODUCTS_ONLY>(prm, db, st);
+    case WB_NO_ROWS: return nerf_bwd_launch<NB_RS, WB_NO_ROWS>(prm, db, st);
+    case WB_NO_EPILOGUE:
+      return nerf_bwd_launch<NB_RS, WB_NO_EPILOGUE>(prm, db, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // RNB_TUNE

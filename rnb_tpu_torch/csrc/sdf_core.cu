@@ -56,15 +56,16 @@
 // instances are the forward at ring depth SF_RS = 16, the backward sweep at
 // SW_RS = 16):
 //   sdf_fwd_wg_kernel<SDF_FULL, 16, 0>  168 registers at launch (the
-//                                consumers take 232 by setmaxnreg), 64 B
-//                                stack frame, 28 B spill stores, 56 B
+//                                consumers take 232 by setmaxnreg), 56 B
+//                                stack frame, 24 B spill stores, 52 B
 //                                spill loads (the 16 record loads held
 //                                across a product, which bought ~2%);
 //                                228,752 B dynamic shared memory
 //   sdf_bwd_sweep_kernel<16, 0>  128 registers, 32 B stack frame, no
 //                                spill; 217,344 B dynamic shared memory
-//   sdf_fwd_kernel<SDF_FULL>     128 registers, 72 B spill (f32 route)
-//   sdf_bwd_kernel               72 registers, no spill (f32 route)
+//   sdf_fwd_kernel<SDF_FULL>     128 registers, 96 B stack frame, 64 B
+//                                spill stores and loads (f32 route)
+//   sdf_bwd_kernel               70 registers, no spill (f32 route)
 #include "common.cuh"
 
 // Ablation variants of the forward kernel (counterparts of the variants in
@@ -749,10 +750,11 @@ sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
     seed[cc] =
         cc < inL ? wg_f(WL[((cc >> 3) * npcL) * 64 + (cc & 7) * 8]) : 0.0f;
   }
+  const int ci = (threadIdx.x >> 7) - 1;   // a consumer's tile of the pair
+  RnbTurns<RS> turns{ring, order, ci, pair, 1 + ci};
   if (threadIdx.x == 0) {
     ring.init(4 * pair);
-    rnb_mbar_init(&order[0], 1);
-    rnb_mbar_init(&order[1], 1);
+    turns.init();
     rnb_fence_mbar_init();
   }
   __syncthreads();
@@ -765,7 +767,6 @@ sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
     return;
   }
   rnb_setmaxnreg_inc<232>();
-  const int ci = (threadIdx.x >> 7) - 1;   // this consumer's tile of the pair
   if (ci >= pair) return;
   const int lt = threadIdx.x & 127, bar_id = 1 + ci;
   const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2), cq = 2 * (lt & 3);
@@ -822,31 +823,11 @@ sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
   rnb_fence_proxy_async();
   rnb_wg_sync(bar_id);
 
-  // One product phase over nk stages of the ring: mma(t, stage) issues
-  // K-step t's wgmmas on X. One wgmma group stays in flight; a stage is
-  // freed once its products retired. Its turn taken from, and handed on
-  // to, the other tile of the pair.
-  int it = 0, phase = 0;
+  // One product phase over nk stages of the ring, its turn taken from, and
+  // handed on to, the other tile of the pair (RnbTurns, tma.cuh); the
+  // epilogue's bias (stage_bias) has landed when it returns.
   auto product = [&](int nk, auto mma) {
-    const bool turns = pair == 2;
-    if (turns) rnb_mbar_wait(&order[ci], (phase & 1) ^ (ci == 0));
-    const int handoff = (nk < RS ? nk : RS) - 1;
-    for (int t = 0; t < nk; ++t, ++it) {
-      ring.wait_full(it);
-      if constexpr (k_mma) {
-        rnb_wgmma_fence();
-        mma(t, reinterpret_cast<const rnb_bf16*>(ring.stage(it)));
-        rnb_wgmma_commit();
-        rnb_wgmma_wait<1>();
-      }
-      if (t > 0) ring.release(it - 1);
-      if (turns && t == handoff && lt == 0) rnb_mbar_arrive(&order[ci ^ 1]);
-    }
-    if constexpr (k_mma) rnb_wgmma_wait<0>();
-    rnb_cp_async_wait<0>();   // the epilogue's bias (stage_bias)
-    ring.release(it - 1);
-    ++phase;
-    rnb_wg_sync(bar_id);   // every warp's products read X: it may be written
+    turns.template product<k_mma>(nk, mma, [] { rnb_cp_async_wait<0>(); });
   };
 
   float acc[128];

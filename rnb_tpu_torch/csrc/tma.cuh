@@ -1,12 +1,14 @@
 // Hopper's Tensor Memory Accelerator (TMA) and shared-memory barriers
 // (mbarrier) for the warp-specialised kernels (dw_gemm.cu, the SDF core's
-// forward and backward sweep in sdf_core.cu): 2-D and 3-D tiled tensor
-// maps encoded on the host, the bulk tensor loads that one thread issues
-// for a whole box and its bulk prefetch into L2, the barriers that count
-// its bytes and the consumers' releases, a ring of stages that one
-// producer thread feeds (RnbRing, rnb_ring_produce), register reallocation
-// between warpgroups, and the wgmma descriptor of a 128-byte-swizzled box
-// as TMA writes it.
+// forward and backward sweep in sdf_core.cu, the albedo and NeRF backward
+// sweeps through wg_bwd.cuh): 2-D and 3-D tiled tensor maps encoded on the
+// host, the bulk tensor loads and stores that one thread issues for a
+// whole box and its bulk prefetch into L2, the barriers that count its
+// bytes and the consumers' releases, a ring of stages that one producer
+// thread feeds (RnbRing, rnb_ring_produce), the turns two consumer
+// warpgroups take at it (RnbTurns), register reallocation between
+// warpgroups, and the wgmma descriptor of a 128-byte-swizzled box as TMA
+// writes it.
 //
 // The host encoder (cuTensorMapEncodeTiled) lives in libcuda; it is fetched
 // through the runtime's entry-point query, so the library links no libcuda
@@ -175,6 +177,34 @@ __device__ __forceinline__ void rnb_tma_load_3d(void* dst,
       : "memory");
 }
 
+// The box of `map` at (column c0, row r0) written from shared memory at src
+// (128-B aligned), in this thread's current bulk group; rows past the
+// map's are not written. The writers of src fence (rnb_fence_proxy_async)
+// and meet the issuing thread at a barrier first.
+__device__ __forceinline__ void rnb_tma_store_2d(const CUtensorMap* map,
+                                                 const void* src, int c0,
+                                                 int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(rnb_smem_addr(src)), "r"(c0), "r"(r0)
+      : "memory");
+}
+__device__ __forceinline__ void rnb_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared
+// memory (their source may then be written again).
+template <int N>
+__device__ __forceinline__ void rnb_bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void rnb_bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Starts bringing `bytes` (a multiple of 16) of global memory at src
 // (16-B aligned) into L2, without waiting; later loads of it hit L2.
 __device__ __forceinline__ void rnb_prefetch_l2(const void* src,
@@ -232,6 +262,57 @@ __device__ __forceinline__ void rnb_ring_produce(const RnbRing<RS>& ring,
     cur.issue(ring.stage(it), &ring.full[it % RS]);
   }
 }
+
+// The turns two consumer warpgroups of a block take at one ring (a
+// ping-pong, as CUTLASS's ping-pong GEMM): both read every stage, each on
+// its own tile, and they alternate their product phases through two order
+// barriers (consumer c's turn at order[c], consumer 0 first), so that one
+// tile's epilogue runs under the other tile's products. A consumer hands
+// the turn on once it has issued min(nk, RS) K-steps of a phase: its whole
+// phase where the ring is as deep as the phase, else the ring's reach, where
+// a later step would wait for a slot that only the other tile's next turn
+// frees. A block with one tile (pair == 1) takes no turns. One wgmma
+// group stays in flight; a stage is freed once its products retired.
+template <int RS>
+struct RnbTurns {
+  RnbRing<RS> ring;
+  uint64_t* order;   // [2], count 1 each
+  int ci, pair, bar_id;
+  int it = 0, phase = 0;
+  // one thread, before the block's first barrier
+  __device__ __forceinline__ void init() const {
+    rnb_mbar_init(&order[0], 1);
+    rnb_mbar_init(&order[1], 1);
+  }
+  // One product phase over nk stages: mma(t, stage) issues K-step t's
+  // wgmmas (none where MMA is false: the timing splits' K loops alone);
+  // tail() runs once the products retired, before the stage is freed and
+  // the warpgroup meets at its named barrier (1 + ci) to close the phase:
+  // the products read the A tile, which the epilogue then writes.
+  template <bool MMA, class Mma, class Tail>
+  __device__ __forceinline__ void product(int nk, Mma mma, Tail tail) {
+    const int lt = threadIdx.x & 127;
+    const bool turns = pair == 2;
+    if (turns) rnb_mbar_wait(&order[ci], (phase & 1) ^ (ci == 0));
+    const int handoff = (nk < RS ? nk : RS) - 1;
+    for (int t = 0; t < nk; ++t, ++it) {
+      ring.wait_full(it);
+      if constexpr (MMA) {
+        rnb_wgmma_fence();
+        mma(t, reinterpret_cast<const __nv_bfloat16*>(ring.stage(it)));
+        rnb_wgmma_commit();
+        rnb_wgmma_wait<1>();
+      }
+      if (t > 0) ring.release(it - 1);
+      if (turns && t == handoff && lt == 0) rnb_mbar_arrive(&order[ci ^ 1]);
+    }
+    if constexpr (MMA) rnb_wgmma_wait<0>();
+    tail();
+    ring.release(it - 1);
+    ++phase;
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+  }
+};
 
 // Register reallocation between the warpgroups of a warp-specialised block
 // (sm_90a): the producer gives registers back, the consumers take them.

@@ -1,7 +1,8 @@
 // The tensor-core pipeline shared by the bf16 sweep kernels (sdf_core.cu,
 // albedo.cu, nerf.cu): the per-point tile as a K-major bf16 A operand, the
 // padded bf16 weight image streamed through a cp.async ring (the albedo
-// and NeRF sweeps; the SDF core's are fed by TMA, tma.cuh), the
+// and NeRF forwards; the backward sweeps and the SDF core's kernels are fed
+// by TMA, tma.cuh), the
 // accumulator fragment map of wgmma, a warpgroup's own barrier, and the
 // epilogue helpers.
 //
@@ -16,7 +17,7 @@
 
 #define WG_M 64       // points per tile (the M of wgmma)
 
-// Ring stages of the albedo and NeRF sweeps (each one K-step of 16). Four
+// Ring stages of the albedo and NeRF forwards (each one K-step of 16). Four
 // ran fastest of the shapes tried (PERF.md).
 #define WG_RS 4
 
@@ -140,22 +141,6 @@ __device__ __forceinline__ void rnb_wg_sync(int id) {
   const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2);                        \
   const int cq = 2 * (lt & 3)
 
-// The tile's rows (16-byte runs of a K-major tile of width ld) to rows
-// n0 + p < n of a [n, ld] bf16 buffer.
-__device__ __forceinline__ void wg_tile_out(const rnb_bf16* T, int ld,
-                                            long long n0, long long n,
-                                            rnb_bf16* dst) {
-  const int kb_n = ld >> 3;
-  for (int q = threadIdx.x; q < WG_M * kb_n; q += blockDim.x) {
-    const int p = q / kb_n, kb = q - p * kb_n;
-    const long long row = n0 + p;
-    if (row >= n) continue;
-    *reinterpret_cast<uint4*>(dst + row * ld + kb * 8) =
-        *reinterpret_cast<const uint4*>(T + (kb * 8 + (p >> 3)) * 64 +
-                                        (p & 7) * 8);
-  }
-}
-
 // Column sums of a warpgroup's fragment over its 64 rows, NJ groups of 8
 // columns at column base c0: cs[2j + v] holds this thread's sum over its
 // two rows of column c0 + 8j + cq + v. Each warp's 16-row sum goes to
@@ -238,36 +223,3 @@ __device__ __forceinline__ uint32_t wg_relu_put(const float (&acc)[4 * NJ],
   return bits;
 }
 
-// Reverse epilogue over a warpgroup's NJ groups of 8 columns at base c0:
-// bar_z = acc where the bit of `keep` is set (a ReLU mask), else 0; rounded
-// into the A tile X (the next product's operand and the B rows), and its
-// unrounded sums over the tile's rows below n into red (wg_colsum_put).
-template <int NJ>
-__device__ __forceinline__ void wg_mask_put(const float (&acc)[4 * NJ],
-                                            uint32_t keep, rnb_bf16* X,
-                                            float* red, int c0, long long n0,
-                                            long long n) {
-  const int lt = threadIdx.x & 127;
-  const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2), cq = 2 * (lt & 3);
-  float cs[2 * NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    cs[2 * j] = 0.0f;
-    cs[2 * j + 1] = 0.0f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = r0 + 8 * h;
-      const bool live = n0 + p < n;
-      float v[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int idx = 4 * j + 2 * h + u;
-        const float bz = (keep >> idx) & 1u ? acc[idx] : 0.0f;
-        if (live) cs[2 * j + u] += bz;
-        v[u] = bz;
-      }
-      wg_put2(X, p, c0 + 8 * j + cq, v[0], v[1]);
-    }
-  }
-  wg_colsum_put<NJ>(cs, red, c0);
-}

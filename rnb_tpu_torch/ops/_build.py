@@ -2,21 +2,24 @@
 
 All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into ONE
 shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The build happens at first use, into
+headers, so a build takes seconds): one ``nvcc -c`` a source, all started
+together, then one link. The build happens at first use, into
 ``build/kernels/`` at the repository root, keyed by a hash of the sources
 and flags; a process that finds the library already built loads it.
 
 ``library("tune")`` is a second library, for the tile sweep
-(``rnb_tpu_torch.tools.tune_kernel``) and the timing splits of the forward
-and the backward sweep (``rnb_tpu_torch.tools.ablate_kernel --fwd_split``,
-``--bwd``) only:
-``csrc/sdf_core.cu`` alone under ``-DRNB_TUNE``, which adds the SDF core's
+(``rnb_tpu_torch.tools.tune_kernel``) and the timing splits
+(``rnb_tpu_torch.tools.ablate_kernel --fwd_split``, ``--bwd``,
+``--wg_bwd``) only: ``csrc/sdf_core.cu``, ``csrc/albedo.cu`` and
+``csrc/nerf.cu`` under ``-DRNB_TUNE``, which adds the SDF core's
 tensor-core sweeps at other ring depths (``rnb_sdf_fwd_wg_tune``,
-``rnb_sdf_bwd_wg_tune``) and the split instances of the forward and the
-backward sweep (``rnb_sdf_fwd_wg_split``, ``rnb_sdf_bwd_wg_split``) beside
-the production entries, into
-``librnb_kernels_tune_<hash>.so``. The production library never holds
-those instances.
+``rnb_sdf_bwd_wg_tune``) and the split instances of its forward and
+backward sweep (``rnb_sdf_fwd_wg_split``, ``rnb_sdf_bwd_wg_split``), the
+albedo and NeRF backward sweeps at other ring depths
+(``rnb_albedo_bwd_wg_tune``, ``rnb_nerf_bwd_wg_tune``) and in their timing
+split (``rnb_albedo_bwd_wg_split``, ``rnb_nerf_bwd_wg_split``), beside the
+production entries, into ``librnb_kernels_tune_<hash>.so``. The production
+library never holds those instances.
 
 Every C entry returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on anything but 0. ``launches`` counts, per wrapper, the
@@ -43,12 +46,15 @@ from rnb_tpu_torch.models.fields import round_to
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the ring depths the tune library's instances take (csrc/sdf_core.cu,
 # RNB_TUNE): the SDF core's backward sweep (production SW_RS = 16) and
 # its forward (production SF_RS = 16, the deepest that fits)
 TUNE_DEPTHS = (3, 4, 5, 6)
 FWD_TUNE_DEPTHS = (4, 8, 12, 16)
+# the albedo and NeRF backward sweeps' (production AB_RS = 16 and NB_RS =
+# 10: the deepest that fit, csrc/albedo.cu and csrc/nerf.cu)
+BWD_TUNE_DEPTHS = {"albedo": (4, 8, 12, 16), "nerf": (4, 8, 10)}
 
 # sdf_core_fwd / sdf_core_bwd, albedo_fwd / albedo_bwd and nerf_fwd /
 # nerf_bwd count the bf16 route (tensor-core kernels), the *_f32 keys the
@@ -63,11 +69,14 @@ launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
             "nerf_bwd": 0, "nerf_fwd_f32": 0, "nerf_bwd_f32": 0,
             "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0,
             # the tune library's timing splits of the SDF-core forward and
-            # backward sweep
-            "sdf_fwd_split": 0, "sdf_bwd_split": 0,
-            # the tune library's SDF-core sweeps, by ring depth
+            # backward sweep, and of the albedo and NeRF backward sweeps
+            "sdf_fwd_split": 0, "sdf_bwd_split": 0, "albedo_bwd_split": 0,
+            "nerf_bwd_split": 0,
+            # the tune library's sweeps, by ring depth
             **{f"sdf_core_fwd_rs{rs}": 0 for rs in FWD_TUNE_DEPTHS},
-            **{f"sdf_core_bwd_rs{rs}": 0 for rs in TUNE_DEPTHS}}
+            **{f"sdf_core_bwd_rs{rs}": 0 for rs in TUNE_DEPTHS},
+            **{f"{op}_bwd_rs{rs}": 0
+               for op, depths in BWD_TUNE_DEPTHS.items() for rs in depths}}
 
 # filled by the first library(kind) call of the process, per kind
 build_info = {kind: {"seconds": None, "path": None, "log": ""}
@@ -149,13 +158,19 @@ _SIGNATURES = {
 }
 
 # the tune library's entries: the depth or the split, then rnb_sdf_fwd_wg's
-# arguments but the mode, or rnb_sdf_bwd_wg's
+# arguments but the mode, or the production backward's
 _TUNE_SIGNATURES = {
     "rnb_sdf_fwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_fwd_wg"][1:]),
     "rnb_sdf_fwd_wg_split": (_I, *_SIGNATURES["rnb_sdf_fwd_wg"][1:]),
     "rnb_sdf_bwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
     "rnb_sdf_bwd_wg_split": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
+    **{f"rnb_{op}_bwd_{kind}": (_I, *_SIGNATURES[f"rnb_{op}_bwd_wg"])
+       for op in ("albedo", "nerf")
+       for kind in ("wg_tune", "wg_split")},
 }
+# the production entries the tune library also exports
+_TUNE_PRODUCTION = ("rnb_sdf_fwd_wg", "rnb_sdf_bwd_wg", "rnb_albedo_bwd_wg",
+                    "rnb_nerf_bwd_wg")
 
 
 def _nvcc() -> str:
@@ -169,9 +184,9 @@ def _nvcc() -> str:
 
 def _sources(kind: str = "main"):
     """(sources, headers) of a library: every .cu for the production one,
-    sdf_core.cu alone for the tune one."""
-    srcs = ([CSRC / "sdf_core.cu"] if kind == "tune"
-            else sorted(CSRC.glob("*.cu")))
+    the three sweeps' for the tune one."""
+    srcs = ([CSRC / f for f in ("albedo.cu", "nerf.cu", "sdf_core.cu")]
+            if kind == "tune" else sorted(CSRC.glob("*.cu")))
     return srcs, sorted(CSRC.glob("*.cuh"))
 
 
@@ -208,17 +223,38 @@ def _load(kind: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         srcs, _ = _sources(kind)
-        cmd = [_nvcc(), *_flags(kind), "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{info['log']}")
+        nvcc, flags = _nvcc(), _flags(kind)
+        # one compile a source, all at once, then the link
+        jobs = []
+        for src in srcs:
+            obj = tmp.with_name(f"{tmp.stem}.{src.stem}.o")
+            cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], None
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, cmd)
+        if failed is None:
+            cmd = [nvcc, *flags[:2], "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (proc.returncode, cmd)
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        info["log"] = "".join(logs)
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                               f"{' '.join(failed[1])}\n{info['log']}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     sigs = dict(_SIGNATURES)
     if kind == "tune":
-        sigs = {k: sigs[k] for k in ("rnb_sdf_fwd_wg", "rnb_sdf_bwd_wg")}
+        sigs = {k: sigs[k] for k in _TUNE_PRODUCTION}
         sigs.update(_TUNE_SIGNATURES)
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -244,14 +244,65 @@ def _fwd_wg(cfg, pts, nrm, feat, ws, bs, packed):
     return out
 
 
-def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out, packed):
+# The backward sweep's ring (csrc/albedo.cu albedo_bwd_params;
+# csrc/wg_bwd.cuh WbCursor walks it), as (kind, layer, box, c2): the hidden
+# layers forward at N = 256 (32 output cores), the head forward at N = 8 (2
+# cores, its N = 8 product reads the first); the head and the hidden
+# layers but layer 0 reverse at N = 256 (32 input cores); layer 0's
+# reverse (320 wide, past wgmma's N = 256) as two passes over the same
+# K-steps, input cores 34..39 (N = 48: c_feat) then 2..33 (N = 256: PE(n)'s
+# cotangent and c_feat; columns 0..15 hold PE(p), which gets no
+# cotangent). One block a pair of 64-point tiles (wg.pair_blocks); each
+# tile's area: the A tile [64][320] bf16, two hidden layers' ReLU masks (a
+# uint4 a thread), the column sums [4][256] and the bias, f32.
+BWD_TILE_BYTES = 64 * 320 * 2 + 2 * 128 * 16 + 4 * 256 * 4 + 256 * 4
+
+
+def bwd_phases(lay: dict) -> list:
+    """The backward sweep's phase table, in the products' order."""
+    L = len(lay["in_dims"])
+    ph = [("fwd", l, (64, 32, 2), 0) for l in range(L - 1)]
+    ph.append(("fwd", L - 1, (64, 2, 2), 0))
+    ph += [("rev", l, (64, 2, 32), 0) for l in range(L - 1, 0, -1)]
+    ph += [("rev", 0, (64, 2, 6), 34), ("rev", 0, (64, 2, 32), 2)]
+    return ph
+
+
+def bwd_steps(lay: dict) -> list:
+    """The backward sweep's ring stages in the order its products take
+    them: (kind, layer, box, coordinates); both tiles of a block read
+    each."""
+    return wg.phase_steps(lay, bwd_phases(lay))
+
+
+def bwd_smem_bytes(depth: int = wg.ALBEDO_BWD_RING_DEPTH) -> int:
+    """The backward sweep's shared memory at ring ``depth``."""
+    return wg.ring_smem_bytes(depth, BWD_TILE_BYTES)
+
+
+def bwd_sweep(cfg, pts, nrm, feat, ws, bs, c_out, packed=None, tune=None):
+    """The bf16 backward sweep alone (CUDA tensors): ``rnb_albedo_bwd_wg``,
+    or the tune library's instance ``tune`` = (entry, leading arguments)
+    that ``wg.bwd_tune`` names; on ``packed`` (``wg_pack``; packed here when
+    None). Counts nothing. -> (abuf, bbuf, db, c_normals, c_feat, lay): the
+    bf16 dW operand rows of ``wg_layout(ws, n)`` and db flat."""
     _check_args(cfg, pts, nrm, feat, ws, bs)
     pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
     n, L, F = pts.shape[0], len(ws), feat.shape[1]
     lay = wg_layout(ws, n)
     _check_wg(lay)
+    if L > 3 or (lay["in_dims"][0] - F) // 2 < 16 or F % 4:
+        raise ValueError(
+            "the bf16 albedo backward takes at most two hidden layers, a PE "
+            "of the normals at least 16 wide and a feature width that is a "
+            f"multiple of 4; got in {lay['in_dims']}, out {lay['out_dims']}, "
+            f"F {F}")
     c_out = _cotangent(c_out, n, lay["out_dims"][-1])
-    lib = _build.library()
+    if feat.data_ptr() % 16:   # the sweep reads the feature rows as float4
+        feat = feat.clone()
+    entry, lead = tune or ("rnb_albedo_bwd_wg", ())
+    kind = "tune" if tune else "main"
+    lib = _build.library(kind)
     dev = pts.device
     image, bflat = packed or wg_pack(ws, bs)
     abuf = torch.empty(lay["a_len"], dtype=torch.bfloat16, device=dev)
@@ -261,8 +312,8 @@ def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out, packed):
     cnrm = torch.empty(n, 3, device=dev)
     cfeat = torch.empty(n, F, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.rnb_albedo_bwd_wg(
-            pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n, F,
+        rc = getattr(lib, entry)(
+            *lead, pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n, F,
             image.data_ptr(), bflat.data_ptr(),
             _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
             _build.ll_array(lay["w_off"]), _build.ll_array(lay["a_off"]),
@@ -270,8 +321,14 @@ def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out, packed):
             c_out.data_ptr(), abuf.data_ptr(), bbuf.data_ptr(), dbp.data_ptr(),
             db.data_ptr(), cnrm.data_ptr(), cfeat.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rnb_albedo_bwd_wg")
-    dws = wg.dw_products(abuf, bbuf, lay, n, "albedo_dw_gemm")
+    _build.check(rc, entry, kind)
+    return abuf, bbuf, db, cnrm, cfeat, lay
+
+
+def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out, packed):
+    abuf, bbuf, db, cnrm, cfeat, lay = bwd_sweep(cfg, pts, nrm, feat, ws, bs,
+                                                 c_out, packed)
+    dws = wg.dw_products(abuf, bbuf, lay, pts.shape[0], "albedo_dw_gemm")
     return dws, _build.unflat(db, [tuple(b.shape) for b in bs]), cnrm, cfeat
 
 

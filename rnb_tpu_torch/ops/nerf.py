@@ -335,6 +335,41 @@ def wg_pack(cfg: NeRFConfig, ws, bs):
     return image, torch.cat([b.reshape(-1) for b in ib]).contiguous()
 
 
+# The backward sweep's ring (csrc/nerf.cu nerf_bwd_params; csrc/wg_bwd.cuh
+# WbCursor walks it): each phase one product of a layer's tile of the weight
+# image, a 3-D TMA box a K-step, as (kind, image layer, box, c2): the trunk
+# and the feature head forward at N = 256 (32 output cores), the views
+# layer forward at N = 128 (16); the rgb head reverse at N = 128 (16 input
+# cores), the views layer reverse over its feature rows (32), the fused
+# head's and the trunk's reverse over their h rows (32). One block a pair
+# of 64-point tiles (wg.pair_blocks); each tile's area: the A tile [64][384]
+# bf16 (six swizzled blocks of 64 columns: the 352-wide skip input), the
+# nine ReLU masks (a uint4 a thread), the column sums [4][256] and the
+# bias, f32.
+BWD_TILE_BYTES = 64 * 384 * 2 + 9 * 128 * 16 + 4 * 256 * 4 + 256 * 4
+
+
+def bwd_phases(lay: dict) -> list:
+    """The backward sweep's phase table, in the products' order."""
+    D = len(lay["in_dims"]) - 3
+    ph = [("fwd", l, (64, 32, 2), 0) for l in range(D + 1)]
+    ph += [("fwd", D + 1, (64, 16, 2), 0), ("rev", D + 2, (64, 2, 16), 0)]
+    ph += [("rev", l, (64, 2, 32), 0) for l in range(D + 1, 0, -1)]
+    return ph
+
+
+def bwd_steps(lay: dict) -> list:
+    """The backward sweep's ring stages in the order its products take
+    them: (kind, image layer, box, coordinates); both tiles of a block
+    read each."""
+    return wg.phase_steps(lay, bwd_phases(lay))
+
+
+def bwd_smem_bytes(depth: int = wg.NERF_BWD_RING_DEPTH) -> int:
+    """The backward sweep's shared memory at ring ``depth``."""
+    return wg.ring_smem_bytes(depth, BWD_TILE_BYTES)
+
+
 def _fwd_wg(cfg, pts, views, ws, bs, packed):
     _check_args(cfg, pts, views, ws, bs)
     pts, views = (t.detach().contiguous() for t in (pts, views))
@@ -357,7 +392,13 @@ def _fwd_wg(cfg, pts, views, ws, bs, packed):
     return alpha, rgb
 
 
-def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed):
+def bwd_sweep(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed=None,
+              tune=None):
+    """The bf16 backward sweep alone (CUDA tensors): ``rnb_nerf_bwd_wg``, or
+    the tune library's instance ``tune`` = (entry, leading arguments) that
+    ``wg.bwd_tune`` names; on ``packed`` (``wg_pack``; packed here when
+    None). Counts nothing. -> (abuf, bbuf, db, lay): the bf16 dW operand
+    rows of ``wg_layout(cfg, ws, n)`` and db flat, in image order."""
     _check_args(cfg, pts, views, ws, bs)
     pts, views = (t.detach().contiguous() for t in (pts, views))
     n, D, dev = pts.shape[0], cfg.D, pts.device
@@ -365,15 +406,17 @@ def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed):
     _check_wg(cfg, lay)
     c_alpha, c_rgb = _cotangents(c_alpha, c_rgb, n, ws[D].shape[1],
                                  ws[-1].shape[1])
-    lib = _build.library()
+    entry, lead = tune or ("rnb_nerf_bwd_wg", ())
+    kind = "tune" if tune else "main"
+    lib = _build.library(kind)
     image, bflat = packed or wg_pack(cfg, ws, bs)
     abuf = torch.empty(lay["a_len"], dtype=torch.bfloat16, device=dev)
     bbuf = torch.empty(lay["b_len"], dtype=torch.bfloat16, device=dev)
     dbp = torch.empty(-(-n // wg.TILE) * bflat.numel(), device=dev)
     db = torch.empty(bflat.numel(), device=dev)
     with torch.cuda.device(dev):
-        rc = lib.rnb_nerf_bwd_wg(
-            pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
+        rc = getattr(lib, entry)(
+            *lead, pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
             image.data_ptr(), bflat.data_ptr(),
             _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
             _build.int_array(lay["skip"]), _build.ll_array(lay["w_off"]),
@@ -382,7 +425,14 @@ def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed):
             c_alpha.data_ptr(), c_rgb.data_ptr(), abuf.data_ptr(),
             bbuf.data_ptr(), dbp.data_ptr(), db.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rnb_nerf_bwd_wg")
+    _build.check(rc, entry, kind)
+    return abuf, bbuf, db, lay
+
+
+def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed):
+    abuf, bbuf, db, lay = bwd_sweep(cfg, pts, views, ws, bs, c_alpha, c_rgb,
+                                    packed)
+    n = pts.shape[0]
     dws = wg.dw_products(abuf, bbuf, lay, n, "nerf_dw_gemm")
     dbs = _build.unflat(db, [(o,) for o in lay["out_dims"]])
     return from_image(cfg, dws, dbs, lay["E"], lay["of"])

@@ -321,9 +321,8 @@ def wg_pack(cfg: SDFConfig, ws, bs):
 # output cores at the head: its column 256), in the reverse at N = 256 (6
 # input cores at layer 0: its 48 PE channels).
 # A stage slot holds the largest box (8,448 B); two 64-point tiles a block
-# (fwd_blocks) take every stage, each on its own A tile and PE area.
+# (wg.pair_blocks) take every stage, each on its own A tile and PE area.
 FWD_STAGE_BYTES, FWD_PE_BYTES, FWD_BIAS = 8448, 12288, 272
-SMEM_LIMIT = 232448   # the H100's shared memory a block can have
 
 
 def fwd_box(lay: dict, kind: str, l: int) -> tuple:
@@ -347,23 +346,6 @@ def fwd_steps(lay: dict, primal_only: bool = False) -> list:
         for l in range(L - 2, -1, -1):
             steps += [("rev", l, (0, 2 * t, 0)) for t in range(lay["np"][l] // 16)]
     return steps
-
-
-def fwd_blocks(n: int) -> list:
-    """The forward's blocks: block b runs the 64-point tiles 2b and 2b + 1,
-    the second only where it holds a point. -> [[tile, ...] a block]."""
-    tiles = -(-n // TILE)
-    return [[t for t in (2 * b, 2 * b + 1) if t < tiles]
-            for b in range(-(-tiles // 2))]
-
-
-def fwd_handoff(nk: int, depth: int = wg.FWD_RING_DEPTH) -> int:
-    """The K-step of a product phase after whose issue a consumer hands
-    the turn to the other tile (sdf_fwd_wg_kernel's product): its last at a
-    ring as deep as the phase (the ping-pong), else the ring's reach, where
-    a later step would wait for a slot that only the other tile's next turn
-    frees."""
-    return min(nk, depth) - 1
 
 
 def fwd_smem_bytes(depth: int = wg.FWD_RING_DEPTH) -> int:

@@ -19,9 +19,11 @@ import torch
 
 from rnb_tpu_torch.ops import _build
 
-TILE = 64            # points per block of the tensor-core sweep kernels
-RING_DEPTH = 4       # the albedo and NeRF sweeps' cp.async ring, WG_RS of
+TILE = 64            # points per tile of the tensor-core sweep kernels
+RING_DEPTH = 4       # the albedo and NeRF forwards' cp.async ring, WG_RS of
                      # csrc/wg_pipe.cuh
+ALBEDO_BWD_RING_DEPTH = 16   # the albedo backward sweep's TMA ring, AB_RS
+NERF_BWD_RING_DEPTH = 10     # the NeRF backward sweep's, NB_RS
 SWEEP_RING_DEPTH = 16   # the SDF core's backward sweep's TMA ring, SW_RS of
                         # csrc/sdf_core.cu
 FWD_RING_DEPTH = 16     # the SDF core's forward's TMA ring, SF_RS of
@@ -29,6 +31,110 @@ FWD_RING_DEPTH = 16     # the SDF core's forward's TMA ring, SF_RS of
 DW_ROWS = 64         # rows per stage of the dW product (a TMA box)
 DW_TILE_M = 128      # rows of dW a unit sums (two consumer warpgroups)
 DW_SMS = 132         # the H100 SXM's SMs: about one dW unit each
+
+
+# The albedo and NeRF backward sweeps (csrc/wg_bwd.cuh): one block a pair
+# of 64-point tiles, a ring of BWD_STAGE_BYTES slots, each stage one 3-D
+# TMA box of a layer's tile of the weight image; their timing split (the
+# tune library; index = the C WgBwdSplit): the production sweep, then the
+# ring and its barriers alone, the products without epilogue arithmetic or
+# operand rows, without the operand-row stores, and without the bias, ReLU
+# and mask work.
+BWD_STAGE_BYTES = 8192
+SMEM_LIMIT = 232448   # the H100's shared memory a block can have
+WG_BWD_SPLIT = ("full", "k_loops_only", "products_only", "no_rows",
+                "no_epilogue")
+
+
+def bwd_tune(sweep, *args, split: str | None = None,
+             depth: int | None = None):
+    """One launch of an albedo or NeRF backward sweep from the tune library
+    (CUDA tensors only): ``sweep`` is ``ops.albedo.bwd_sweep`` or
+    ``ops.nerf.bwd_sweep``, called on ``args`` as the production sweep is,
+    either in the timing ``split`` (a ``WG_BWD_SPLIT`` name; only "full"
+    computes the function), counted under ``{op}_bwd_split``, or at ring
+    ``depth`` (one of ``_build.BWD_TUNE_DEPTHS[op]``), counted under
+    ``{op}_bwd_rs{depth}``. -> as ``sweep``."""
+    op = sweep.__module__.rsplit(".", 1)[-1]
+    if (split is None) == (depth is None):
+        raise ValueError("give one of split and depth")
+    if split is not None:
+        if split not in WG_BWD_SPLIT:
+            raise ValueError(f"split must be one of {WG_BWD_SPLIT}, "
+                             f"got {split!r}")
+        tune = (f"rnb_{op}_bwd_wg_split", (WG_BWD_SPLIT.index(split),))
+        key = f"{op}_bwd_split"
+    else:
+        if depth not in _build.BWD_TUNE_DEPTHS[op]:
+            raise ValueError(f"depth must be one of "
+                             f"{_build.BWD_TUNE_DEPTHS[op]}, got {depth}")
+        tune, key = (f"rnb_{op}_bwd_wg_tune", (depth,)), f"{op}_bwd_rs{depth}"
+    out = sweep(*args, tune=tune)
+    _build.launches[key] += 1
+    return out
+
+
+def pair_blocks(n: int) -> list:
+    """The blocks of a sweep that runs one block a pair of 64-point tiles:
+    block b runs tiles 2b and 2b + 1, the second only where it holds a
+    point. -> [[tile, ...] a block]."""
+    tiles = -(-n // TILE)
+    return [[t for t in (2 * b, 2 * b + 1) if t < tiles]
+            for b in range(-(-tiles // 2))]
+
+
+def handoff(nk: int, depth: int) -> int:
+    """The K-step of a product phase after whose issue a consumer hands the
+    turn to the other tile of its pair (RnbTurns, csrc/tma.cuh): its last
+    at a ring as deep as the phase, else the ring's reach."""
+    return min(nk, depth) - 1
+
+
+def ring_smem_bytes(depth: int, tile_bytes: int) -> int:
+    """wb_smem_bytes of csrc/wg_bwd.cuh: ``depth`` ring slots, two tiles'
+    areas of ``tile_bytes``, the ring's full and empty barriers and the two
+    turn barriers."""
+    return depth * BWD_STAGE_BYTES + 2 * tile_bytes + (2 * depth + 2) * 8
+
+
+def sidx(p: int, k: int) -> int:
+    """Element (p, k) of the backward sweeps' A tile (wb_sidx of
+    csrc/wg_bwd.cuh): K-major in wgmma's 128-byte swizzle, blocks of 64
+    columns (4096 elements), each 64 rows of 64, the 8-element chunk c of
+    row p at chunk c ^ (p % 8)."""
+    chunk = ((k >> 3) & 7) ^ (p & 7)
+    return ((k >> 6) << 12) + (p << 6) + (chunk << 3) + (k & 7)
+
+
+def store_boxes(kw: int, n0: int) -> list:
+    """The TMA stores that write a tile's first ``kw`` columns as operand
+    rows (wb_rows_out of csrc/wg_bwd.cuh): per block kc of 64 columns, the
+    tile's 8 KB at element 4096·kc as the box {64, 64} in the 128-byte
+    swizzle at (column 64kc, row n0) of the [n, ld] rows; columns past ld
+    and rows past n are not written."""
+    return [(kc << 12, (64 * kc, n0)) for kc in range(-(-kw // 64))]
+
+
+def phase_steps(lay: dict, phases) -> list:
+    """The ring stages of a phase table ([(kind, layer, box, c2)], as
+    WbCursor walks it), as (kind, layer, box, coordinates): a forward
+    phase over pad16(in)/16 K-steps at (0, 0, 2t), a reverse one over
+    pad16(out)/16 at (0, 2t, c2)."""
+    steps = []
+    for kind, l, box, c2 in phases:
+        if kind == "fwd":
+            steps += [(kind, l, box, (0, 0, 2 * t))
+                      for t in range(lay["kp"][l] // 16)]
+        else:
+            steps += [(kind, l, box, (0, 2 * t, c2))
+                      for t in range(lay["np"][l] // 16)]
+    return steps
+
+
+def phase_nks(lay: dict, phases) -> list:
+    """The K-steps of each phase of a table, in order."""
+    return [(lay["kp"] if kind == "fwd" else lay["np"])[l] // 16
+            for kind, l, _, _ in phases]
 
 
 def _pad16(x: int) -> int:

@@ -2,11 +2,14 @@
 variants (``rnb_tpu_torch.ops.sdf_ablate``: full, no_pe, no_act,
 primal_only) and their plain PyTorch versions, on one CUDA card; with
 ``--fwd_split``, split the bf16 forward by what it does instead; with
-``--bwd``, split the bf16 backward sweep.
+``--bwd``, split the bf16 backward sweep; with ``--wg_bwd``, the albedo
+or NeRF backward sweep.
 
     python -m rnb_tpu_torch.tools.ablate_kernel [--n 65536] [--iters 50]
     python -m rnb_tpu_torch.tools.ablate_kernel --fwd_split [--n 65536] [--iters 20]
     python -m rnb_tpu_torch.tools.ablate_kernel --bwd [--n 65536] [--iters 20]
+    python -m rnb_tpu_torch.tools.ablate_kernel --wg_bwd nerf [--n 67584] [--iters 20]
+    python -m rnb_tpu_torch.tools.ablate_kernel --wg_bwd albedo [--n 65536]
 
 Shipped SDF net (8x256, geometric init from seed 3), N points uniform in
 [-0.8, 0.8]^3 (numpy seed 0), bf16 operands; each variant timed with CUDA
@@ -32,6 +35,18 @@ cotangents: the median of three turns of ``--iters`` launches, with min
 and max. The ``full`` instance is held bit for bit against the production
 sweep first. Only ``full`` computes the function; the others are for
 timing.
+
+``--wg_bwd {albedo,nerf}`` times, from the tune library, the timing split
+(``wg.WG_BWD_SPLIT``: the production sweep, then the ring and its
+barriers alone, the products without epilogue arithmetic or operand rows,
+without the row stores, and without the bias, ReLU and mask work) of the
+production sweep (``split``), and the production sweep at each ring depth
+the tune library builds (``depths``), all through ``wg.bwd_tune``: the
+sweep alone (no dW products) on the weight image packed once, on
+``bench_wg_bwd``'s net and inputs (``--n`` default 65,536 albedo, 67,584
+NeRF): the median of three turns of ``--iters`` launches, with min and
+max. The ``full`` instance and every depth are held bit for bit against
+the production sweep first.
 
 Without a CUDA device it exits non-zero and prints no timing.
 """
@@ -123,21 +138,65 @@ def fwd_split(n: int, iters: int) -> dict:
     return res
 
 
+def wg_bwd_split(op: str, n: int | None, iters: int) -> dict:
+    """The albedo or NeRF backward sweep's split (``--wg_bwd``), on
+    bench_wg_bwd's inputs."""
+    from rnb_tpu_torch.ops import _build, albedo, nerf, wg
+    from rnb_tpu_torch.tools.bench_sdf_bwd import turns
+    from rnb_tpu_torch.tools.bench_wg_bwd import N_DEFAULT, setup
+
+    _build.library("tune")
+    n = n or N_DEFAULT[op]
+    mod = albedo if op == "albedo" else nerf
+    cfg, ws, bs, ins, cots = setup(op, n, torch.device("cuda"))
+    packed = (albedo.wg_pack(ws, bs) if op == "albedo"
+              else nerf.wg_pack(cfg, ws, bs))
+    args = (cfg, *ins, ws, bs, *cots, packed)
+    depths = _build.BWD_TUNE_DEPTHS[op]
+    split = lambda s: wg.bwd_tune(mod.bwd_sweep, *args, split=s)
+    depth = lambda rs: wg.bwd_tune(mod.bwd_sweep, *args, depth=rs)
+
+    def parts(out):   # the operand rows, db (and the per-point cotangents)
+        return [t for t in out if isinstance(t, torch.Tensor)]
+
+    prod = parts(mod.bwd_sweep(*args))
+    same = lambda out: all(torch.equal(a, b) for a, b in zip(parts(out), prod))
+    res = {"card": card(), "op": op, "n": n, "iters": iters, "dtype": "bf16",
+           "split_full_bitwise_production": same(split("full")),
+           "depth_bitwise_production": {rs: same(depth(rs)) for rs in depths},
+           "production_sweep": turns(lambda: mod.bwd_sweep(*args), iters),
+           "split": {}, "depths": {}}
+    torch.cuda.synchronize()
+    for s in wg.WG_BWD_SPLIT:
+        res["split"][s] = turns(lambda s=s: split(s), iters)
+    for rs in depths:
+        res["depths"][rs] = turns(lambda rs=rs: depth(rs), iters)
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=65536)
+    ap.add_argument("--n", type=int, default=None,
+                    help="points (default 65,536; 67,584 with --wg_bwd nerf)")
     ap.add_argument("--iters", type=int, default=None,
-                    help="launches a timing (default 50; 20 with --bwd or "
-                         "--fwd_split)")
+                    help="launches a timing (default 50; 20 with --bwd, "
+                         "--fwd_split or --wg_bwd)")
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--fwd_split", action="store_true",
                        help="split the bf16 forward by what it does")
     which.add_argument("--bwd", action="store_true",
                        help="split the bf16 backward sweep instead")
+    which.add_argument("--wg_bwd", choices=("albedo", "nerf"),
+                       help="split the albedo or NeRF backward sweep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernel: no CUDA device; the kernels run only "
                          "on a GPU")
+    if args.wg_bwd:
+        res = wg_bwd_split(args.wg_bwd, args.n, args.iters or 20)
+        print(json.dumps(res), flush=True)
+        return res
+    args.n = args.n or 65536
     if args.bwd or args.fwd_split:
         res = (bwd_split if args.bwd else fwd_split)(args.n, args.iters or 20)
         print(json.dumps(res), flush=True)

@@ -17,7 +17,11 @@ activation, one bf16 ulp = 2^-8 relative). The grouped dW product
 (``wg.dw_products``, csrc/dw_gemm.cu) is held within 1e-5 of the f32
 product (bf16 operands: only the order of f32 sums differs), its TMA
 boxes one piece at a time and each shipped backward's layers in one
-launch, bit for bit from call to call. The tile sweep's library
+launch, bit for bit from call to call. The albedo and NeRF backward
+sweeps (one block a pair of tiles on a TMA ring) are held against their
+plain versions at the main path's and ragged counts, bit for bit from call
+to call, and their tune instances (depths, timing split, the cp.async
+sweeps they replaced) against them bit for bit. The tile sweep's library
 (``_build.library("tune")``: the SDF core's forward at ring depths 4-16 and
 backward sweep at 3-6) is held bit for bit against the production kernels
 at every depth (the depth changes no sum's order), and against the plain
@@ -327,6 +331,80 @@ def test_nerf_forward_ragged_parts(cuda, dtype):
     a = nerf.nerf_fwd(cfg, pts[:k], views[:k], ws, bs, dtype)
     b = nerf.nerf_fwd(cfg, pts[k:], views[k:], ws, bs, dtype)
     _close(full, [torch.cat([x, y]) for x, y in zip(a, b)], 1e-6)
+
+
+# the redesigned albedo and NeRF backward sweeps (csrc/wg_bwd.cuh): the
+# main path's counts, ragged counts (an odd tile count leaves a block one
+# tile), one padded tile
+WG_BWD_N = {"albedo": (65536, 65573, 129, 37), "nerf": (67584, 67617, 129, 37)}
+
+
+def _wg_bwd(op, dev, n, dtype=torch.bfloat16):
+    """(backward, plain, sweep) of ``op`` on bench_wg_bwd's inputs: each ->
+    a flat list of tensors (the sweep: its operand rows, db and, for the
+    albedo, the per-point cotangents)."""
+    from rnb_tpu_torch.tools import bench_wg_bwd
+
+    cfg, ws, bs, ins, cots = bench_wg_bwd.setup(op, n, dev)
+    bwd, plain, _ = bench_wg_bwd.calls(op, cfg, ws, bs, ins, cots, dtype)
+    mod = albedo if op == "albedo" else nerf
+    packed = (albedo.wg_pack(ws, bs) if op == "albedo"
+              else nerf.wg_pack(cfg, ws, bs))
+    args = (cfg, *ins, ws, bs, *cots, packed)
+    return bwd, plain, mod, args
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3])
+@pytest.mark.parametrize("op", ["albedo", "nerf"])
+def test_wg_bwd_sweeps_match_plain(cuda, op, n):
+    """The bf16 backward (the TMA-ring sweep and the grouped dW) against
+    its plain version at the main path's count, ragged counts and one
+    padded tile, all tensors together (_close_joint: a one-ulp bf16 flip of
+    an activation weighs ~1e-2 in a db that cancels), counted once."""
+    n = WG_BWD_N[op][n]
+    bwd, plain, _, _ = _wg_bwd(op, cuda, n)
+    n0 = dict(_build.launches)
+    got = bwd()
+    torch.cuda.synchronize()
+    assert _moved(n0) == {f"{op}_bwd": 1, f"{op}_dw_gemm": 1}
+    _close_joint(got, plain(), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["albedo", "nerf"])
+def test_wg_bwd_repeats_bit_for_bit(cuda, op, dtype):
+    """Each route's backward gives the same bits call after call (five
+    calls), at a ragged count: no race in the sweeps or the reductions."""
+    bwd, _, _, _ = _wg_bwd(op, cuda, N, dtype)
+    first = bwd()
+    for _ in range(4):
+        assert all(torch.equal(a, b) for a, b in zip(first, bwd()))
+
+
+@pytest.mark.parametrize("op", ["albedo", "nerf"])
+def test_wg_bwd_tune_instances_are_production(cuda, op):
+    """From the tune library (``wg.bwd_tune``): the timing split's ``full``
+    instance and the production sweep at every tune depth give the
+    production sweep's bits (the same bf16 operands in the same K order;
+    the column sums in the same order); every other split instance
+    launches, counted once, and fills buffers of the production shapes."""
+    _, _, mod, args = _wg_bwd(op, cuda, N)
+    parts = lambda out: [t for t in out if isinstance(t, torch.Tensor)]
+    want = parts(mod.bwd_sweep(*args))
+    for rs in _build.BWD_TUNE_DEPTHS[op]:
+        n0 = dict(_build.launches)
+        got = parts(wg.bwd_tune(mod.bwd_sweep, *args, depth=rs))
+        torch.cuda.synchronize()
+        assert _moved(n0) == {f"{op}_bwd_rs{rs}": 1}
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), rs
+    for split in wg.WG_BWD_SPLIT:
+        n0 = dict(_build.launches)
+        got = parts(wg.bwd_tune(mod.bwd_sweep, *args, split=split))
+        torch.cuda.synchronize()
+        assert _moved(n0) == {f"{op}_bwd_split": 1}
+        assert [t.shape for t in got] == [t.shape for t in want]
+        if split == "full":
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("mode", sdf_ablate.MODES)

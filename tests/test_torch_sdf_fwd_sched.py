@@ -86,7 +86,7 @@ def test_fwd_ring_of_the_shipped_net():
     size = sum(int(np.prod(sdf_core.fwd_box(lay, k, l))) * 2
                for k, l, _ in steps)
     assert size == 257 * 8192 + 16 * 256 - 16 * (8192 - 1536)
-    assert size * len(sdf_core.fwd_blocks(65536)) == 1_025_507_328
+    assert size * len(wg.pair_blocks(65536)) == 1_025_507_328
     nks = [lay["kp"][l] // 16 for l in range(len(lay["kp"]))]
     nks += [lay["np"][l] // 16 for l in range(len(lay["np"]) - 1)]
     assert max(nks) == wg.FWD_RING_DEPTH
@@ -138,7 +138,7 @@ def test_fwd_turns_never_deadlock(depth):
     L = len(lay["kp"])
     nks = [lay["kp"][l] // 16 for l in range(L)]
     nks += [lay["np"][l] // 16 for l in range(L - 2, -1, -1)]
-    assert _ping_pong(nks, depth, lambda nk: sdf_core.fwd_handoff(nk, depth))
+    assert _ping_pong(nks, depth, lambda nk: wg.handoff(nk, depth))
     at_end = _ping_pong(nks, depth, lambda nk: nk - 1)
     assert at_end == (depth >= max(nks))
 
@@ -148,7 +148,7 @@ def test_fwd_blocks_cover_every_point_once(n):
     """The forward runs one block a pair of 64-point tiles (2b, 2b + 1),
     ceil(tiles / 2) blocks; a block whose second tile would hold no point
     runs its first alone. The tiles' rows partition [0, n)."""
-    blocks = sdf_core.fwd_blocks(n)
+    blocks = wg.pair_blocks(n)
     tiles = -(-n // wg.TILE)
     assert len(blocks) == -(-tiles // 2)
     assert all(len(b) == 2 for b in blocks[:-1])
@@ -163,9 +163,9 @@ def test_fwd_shared_memory_budget():
     H100's 232,448 B of shared memory a block; a 17th stage would not."""
     assert wg.FWD_RING_DEPTH == max(_build.FWD_TUNE_DEPTHS) == 16
     for depth in _build.FWD_TUNE_DEPTHS:
-        assert sdf_core.fwd_smem_bytes(depth) <= sdf_core.SMEM_LIMIT
+        assert sdf_core.fwd_smem_bytes(depth) <= wg.SMEM_LIMIT
     assert sdf_core.fwd_smem_bytes(16) == 228_752
-    assert sdf_core.fwd_smem_bytes(17) > sdf_core.SMEM_LIMIT
+    assert sdf_core.fwd_smem_bytes(17) > wg.SMEM_LIMIT
 
 
 def test_fwd_split_names():
