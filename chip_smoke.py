@@ -18,14 +18,21 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      and for every layer of each backward in one launch (the SDF core's 9
      over 2 x 65,536 rows, the albedo's 3 over 65,536, the NeRF's 11 over
      67,584); f32 operands within 1e-4 and bf16 operands within 1e-2 of
-     the plain result's norm, the SDF backward's bf16 route and both
-     routes of the albedo and NeRF backwards (the TMA-fed sweeps and their
-     dW products, the CUDA-core sweeps and their split-K sums) also bit
-     for bit from call to call; times kernel and plain version with CUDA
-     events (and torch.matmul beside each dW product, one a layer, as its
-     yardstick), and the bf16 albedo and NeRF sweeps alone beside their
-     own bound (``sweep_ms``, ``sweep_bound_ms``: the sweep's products and
-     its operand rows' bytes);
+     the plain result's norm, the SDF backward's bf16 route, the albedo
+     and NeRF bf16 forwards (the TMA-fed sweeps of csrc/wg_sweep.cuh) and
+     both routes of the albedo and NeRF backwards (the TMA-fed sweeps and
+     their dW products, the CUDA-core sweeps and their split-K sums) also
+     bit for bit from call to call; times kernel and plain version with
+     CUDA events (and torch.matmul beside each dW product, one a layer, as
+     its yardstick; the bf16 albedo and NeRF forwards beside their layer
+     products as bf16 torch.matmul calls without the epilogues,
+     ``matmul_ms``, a yardstick the port never calls), and the bf16 albedo
+     and NeRF sweeps alone beside their own bound (``sweep_ms``,
+     ``sweep_bound_ms``: the sweep's products and its operand rows'
+     bytes); then, once the tune library (built beside) is loaded, the
+     albedo and NeRF forwards at ring depths 4 and 8, each bit for bit the
+     production forward on bench_wg_bwd's inputs and timed
+     (``tune_ms``);
   2. drives the training step at full width (8x256 SDF net, 2x256 albedo
      net, batch 512, 64+64 samples, 3 lights) on the sphere fixture, for
      confs/wmask_rnb.conf and for confs/womask_rnb.conf with n_outside=4
@@ -136,10 +143,11 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      torchrun rank on NCCL, no efficiency figure), and consolidate_parity
      on phase 10's directory (the cut e2e gate's row passes, the other
      five gates are missing rows); every time finite and positive, every
-     line with the card. At the build it holds the production SDF-core
-     kernels' ptxas lines against the note in csrc/sdf_core.cu and the dW
-     kernel's against csrc/dw_gemm.cu, and checks that the production
-     library holds no tune instance.
+     line with the card. At the build it holds the production tensor-core
+     kernels' ptxas lines against the notes in csrc/sdf_core.cu,
+     csrc/albedo.cu and csrc/nerf.cu (and the albedo and NeRF sweeps'
+     dynamic shared memory) and the dW kernel's against csrc/dw_gemm.cu,
+     and checks that the production library holds no tune instance.
 It prints the card (nvidia-smi name and power limit), a JSON line of the
 kernels, and last {"ok": true, "device": {...}}. In that line `launches`
 counts each kernel's launches on its path (the wmask step for the SDF core's
@@ -214,7 +222,7 @@ WOMASK_F32 = WMASK_F32 + ("nerf_fwd_f32", "nerf_bwd_f32")
 F32_ROUTE = WOMASK_F32
 # phase 1's kernels held bit for bit from call to call (the NeRF backward's
 # two routes too, at their own call)
-REPEAT = ("sdf_core_bwd", "albedo_bwd", "albedo_bwd_f32")
+REPEAT = ("sdf_core_bwd", "albedo_fwd", "albedo_bwd", "albedo_bwd_f32")
 # no_albedo: the albedo net is never run, on either route
 ALBEDO_KERNELS = ("albedo_fwd", "albedo_bwd", "albedo_dw_gemm",
                   "albedo_fwd_f32", "albedo_bwd_f32")
@@ -438,11 +446,56 @@ def check_dw_products(results, name, counter, lay, gen):
         list(zip(lay["in_dims"], lay["out_dims"])), rows)[0]
 
 
+def time_layer_matmuls(results, name, lay, n, gen):
+    """The layer products of a bf16 forward (``lay``'s [in, out] layers
+    over n rows) as bf16 torch.matmul calls, without the epilogues, on
+    operands drawn from ``gen``: a yardstick beside the kernel
+    (``matmul_ms``), never a path of the port."""
+    from rnb_tpu_torch.tools.ablate_kernel import cuda_ms
+
+    dev = gen.device
+    ops = [(torch.randn(n, i, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(i, o, generator=gen, device=dev).to(torch.bfloat16))
+           for i, o in zip(lay["in_dims"], lay["out_dims"])]
+    results[name]["matmul_ms"] = cuda_ms(lambda: [a @ b for a, b in ops])
+    log(f"[time] {name}: its {len(ops)} layer products as bf16 torch.matmul "
+        f"{results[name]['matmul_ms']:.3f} ms")
+
+
+def fwd_tune_checks(results, dev, tune_build):
+    """The albedo and NeRF forwards from the tune library at ring depths 4
+    and 8 (``wg.fwd_tune``) on bench_wg_bwd's inputs at the main path's
+    counts: each bit for bit the production forward, then timed."""
+    from rnb_tpu_torch.ops import _build, albedo, nerf, wg
+    from rnb_tpu_torch.tools.ablate_kernel import cuda_ms
+    from rnb_tpu_torch.tools.bench_wg_bwd import N_DEFAULT, setup
+
+    tune_build.result()
+    for op, mod in (("albedo", albedo), ("nerf", nerf)):
+        cfg, ws, bs, ins, _ = setup(op, N_DEFAULT[op], dev)
+        packed = (albedo.wg_pack(ws, bs) if op == "albedo"
+                  else nerf.wg_pack(cfg, ws, bs))
+        args = (cfg, *ins, ws, bs, packed)
+        flat = lambda out: list(out) if isinstance(out, tuple) else [out]
+        want = flat(mod.fwd_wg(*args))
+        tune_ms = {}
+        for rs in SMOKE_FWD_DEPTHS:
+            run = lambda rs=rs: flat(wg.fwd_tune(mod.fwd_wg, *args, depth=rs))
+            assert all(torch.equal(a, b) for a, b in zip(run(), want)), (op, rs)
+            tune_ms[rs] = cuda_ms(run)
+        results[f"{op}_fwd"]["tune_ms"] = tune_ms
+        results[f"{op}_fwd"]["tune_bitwise_production"] = True
+        log(f"[kernel] {op}_fwd at ring depths {list(tune_ms)}: bit for bit "
+            f"the production forward; ms {tune_ms}")
+        del ins, packed
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 1: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def kernel_checks(dev):
+def kernel_checks(dev, tune_build):
     from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.ops import albedo, nerf, sdf_ablate, sdf_core
 
@@ -512,6 +565,8 @@ def kernel_checks(dev):
             if n == MAIN_N and dtype == torch.bfloat16:
                 time_sweep(results, "albedo_bwd", lambda: albedo.bwd_sweep(
                     acfg, pts, nrm, feat, aw, ab, co, apk), n * albedo_sweep_macs(acfg, aw))
+                time_layer_matmuls(results, "albedo_fwd", albedo.wg_layout(aw), n,
+                                   torch.Generator(device=dev).manual_seed(2))
         del pts, nrm, feat, cs, cf, cg, co
         torch.cuda.empty_cache()
 
@@ -563,7 +618,8 @@ def kernel_checks(dev):
             check_kernel(results, "nerf_fwd" + route, n, dtype,
                          lambda: list(nerf.nerf_fwd(ncfg, pts4, views, nw, nb, dtype, npk)),
                          lambda: list(nerf.nerf_fwd_plain(ncfg, pts4, views, nw, nb, dtype)),
-                         timed, [pts4, views, *nw, *nb], n * chain_macs(nw))
+                         timed, [pts4, views, *nw, *nb], n * chain_macs(nw),
+                         repeat=True)
             check_kernel(results, "nerf_bwd" + route, n, dtype,
                          lambda: sum(nerf.nerf_bwd(ncfg, pts4, views, nw, nb, ca, cr, dtype, npk), []),
                          lambda: sum(nerf.nerf_bwd_plain(ncfg, pts4, views, nw, nb, ca, cr, dtype), []),
@@ -573,8 +629,11 @@ def kernel_checks(dev):
                 time_sweep(results, "nerf_bwd", lambda: nerf.bwd_sweep(
                     ncfg, pts4, views, nw, nb, ca, cr, npk),
                     n * (nerf_bwd_macs(ncfg, nw) - chain_macs(nw)))
+                time_layer_matmuls(results, "nerf_fwd", nerf.wg_layout(ncfg, nw), n,
+                                   torch.Generator(device=dev).manual_seed(3))
         del pts4, views, ca, cr
         torch.cuda.empty_cache()
+    fwd_tune_checks(results, dev, tune_build)
     return results
 
 
@@ -1662,6 +1721,8 @@ def resume_launch_path(card, tmp):
 # the tune instances phase 11 launches: (counter, kernel of phase 1 whose
 # work it does, its TPU kernel)
 SMOKE_DEPTHS = {"fwd": (4, 8), "bwd": (3, 4)}
+# phase 1's depths of the albedo and NeRF forwards from the tune library
+SMOKE_FWD_DEPTHS = (4, 8)
 TUNE_KERNELS = {f"sdf_core_{d}_rs{rs}": (f"sdf_core_{d}", KERNELS[f"sdf_core_{d}"][1])
                 for d, depths in SMOKE_DEPTHS.items() for rs in depths}
 
@@ -1716,7 +1777,8 @@ def measuring_tools(card, tune_build, work):
 
     t0 = time.perf_counter()
     r = roofline.main(["--iters", "10"])
-    assert r["env"]["card"] == card and r["env"]["ring_depth"] == 4
+    assert r["env"]["card"] == card
+    assert r["env"]["ring_depth"] == roofline.RING_DEPTHS, r["env"]
     for k in ("step_main", "step_warm", "core_fwd", "core_fwd_bwd",
               "upsample_render_fwd", "color_fwd", "adam", "data_sample"):
         _positive(r[k]["ms"], f"roofline {k}")
@@ -1727,8 +1789,7 @@ def measuring_tools(card, tune_build, work):
 
     t0 = time.perf_counter()
     tune_build.result()   # the tune library, built beside phase 1 onwards
-    tune_ptxas = _build.ptxas_summary("sdf_", "albedo_bwd", "nerf_bwd",
-                                      kind="tune")
+    tune_ptxas = _build.ptxas_summary("sdf_", "albedo_", "nerf_", kind="tune")
     for name, rep in tune_ptxas.items():
         log(f"[ptxas tune] {name}: {rep}")
     for name, want in PTXAS_NOTE.items():   # the same production instances
@@ -1798,8 +1859,14 @@ def measuring_tools(card, tune_build, work):
 # csrc/dw_gemm.cu) exactly, in the production library only
 PTXAS_NOTE = {"sdf_fwd_wg_kernel<0, 16, 0>": (168, 56, 24, 52),
               "sdf_bwd_sweep_kernel<16, 0>": (128, 32, 0, 0),
-              "albedo_bwd_wg_kernel<16, 0>": (168, 40, 8, 8),
+              "albedo_fwd_wg_kernel<18, 0>": (168, 32, 0, 0),
+              "albedo_bwd_wg_kernel<16, 0>": (168, 56, 20, 20),
+              "nerf_fwd_wg_kernel<15, 0>": (168, 32, 0, 0),
               "nerf_bwd_wg_kernel<10, 0>": (168, 32, 0, 0)}
+# the dynamic shared memory the albedo and NeRF sweeps launch with (the
+# same notes; rnb_{albedo,nerf}_wg_smem, and ops' fwd_ / bwd_smem_bytes)
+SMEM_NOTE = {("albedo", 0): 231_728, ("albedo", 1): 231_696,
+             ("nerf", 0): 231_168, ("nerf", 1): 227_504}
 PTXAS_DW = {"rnb_dw_products_kernel": (168, 0, 0, 0)}
 PTXAS_F32 = {"sdf_fwd_kernel<0>": (128, 64), "sdf_bwd_kernel": (70, 0)}
 
@@ -1809,9 +1876,20 @@ def _ptxas_numbers(rep):
 
 
 def check_ptxas(report):
-    """Log the production build's ptxas lines and hold the SDF core's
-    against the source's note; the production library holds no instance
-    at another ring depth."""
+    """Log the production build's ptxas lines and hold the tensor-core
+    sweeps' against the sources' notes, and the albedo and NeRF sweeps'
+    shared memory; the production library holds no instance at another
+    ring depth."""
+    from rnb_tpu_torch.ops import _build, albedo, nerf
+
+    lib = _build.library()
+    for (op, bwd), want in SMEM_NOTE.items():
+        mod = albedo if op == "albedo" else nerf
+        got = getattr(lib, f"rnb_{op}_wg_smem")(bwd)
+        py = mod.bwd_smem_bytes() if bwd else mod.fwd_smem_bytes()
+        assert got == py == want, (op, bwd, got, py, want)
+    log(f"[ptxas] albedo and NeRF sweeps' dynamic shared memory as noted: "
+        f"{SMEM_NOTE}")
     for name, rep in report.items():
         log(f"[ptxas] {name}: {rep}")
     if not report:
@@ -1824,7 +1902,7 @@ def check_ptxas(report):
         assert got[0] <= regs and max(got[2:]) <= spill, (name, report[name])
     other = [n for n in report
              if re.match(r"sdf_fwd_wg_kernel<\d+, (?!16, 0>)", n)
-             or (re.match(r"(sdf_bwd_sweep|albedo_bwd_wg|nerf_bwd_wg)_kernel<", n)
+             or (re.match(r"(sdf_bwd_sweep|(albedo|nerf)_(fwd|bwd)_wg)_kernel<", n)
                  and n not in PTXAS_NOTE)]
     assert not other, f"tune instances in the production library: {other}"
 
@@ -1853,9 +1931,11 @@ def main():
     assert not hasattr(_build.library(), "rnb_sdf_fwd_wg_tune"), \
         "the production library holds the tune entries"
 
-    kern = kernel_checks(dev)
+    kern = kernel_checks(dev, tune_build)
     summary = {"card": card, "dw_products": {
-        k: kern[k] for k in DW_GROUPS}}
+        k: kern[k] for k in DW_GROUPS}, "forwards": {
+        k: {key: kern[k][key] for key in ("matmul_ms", "tune_ms")}
+        for k in ("albedo_fwd", "nerf_fwd")}}
     counts = {}
     for label, spec, kernels, f32_kernels in (
             ("wmask", WMASK, WMASK_KERNELS, WMASK_F32),

@@ -274,13 +274,23 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
 // _fwd_kernel :85) at bf16 operands; albedo_fwd_kernel above stays as the
 // f32 route. What bounds it on the H100: 145,664 multiply-adds and 1,048 B
 // of feature row read a point at the shipped conf, 0.019 ms of bf16 peak
-// and 0.020 ms of HBM for 65,536 points. What the design does about it: the
-// recompute half of albedo_bwd_wg_kernel below (x0 and every h in bf16 in
-// shared memory, the two hidden products as 4 warpgroups x 64 columns from
-// the streamed weight image, bias and ReLU in f32 in the epilogue), plus the
-// sigmoid head as one N = 8 product by warpgroup 0, written from its
-// accumulators; no mask bits, no operand rows. Two blocks an SM, so one
-// block's x0 loads overlap another's products.
+// and 0.020 ms of HBM for 65,536 points. What the design does about it
+// (albedo_fwd_wg_kernel below): the recompute half of albedo_bwd_wg_kernel
+// on the same block, ring, phase walk and epilogues (wg_sweep.cuh): one
+// block of 384 threads a pair of 64-point tiles, a producer warpgroup
+// loading every weight stage by TMA into a ring of AF_RS slots in the order
+// of the forward phase table (ops/albedo.py fwd_steps: 52 stages a pair),
+// two consumer warpgroups each a whole tile at m64n256k16 taking turns at
+// the ring; x0 built by albedo_wb_x0 (the features as float4 loads, eight
+// in flight), the bias staged by cp.async, ReLU and rounding into the
+// swizzled A tile with no branch an element, and the sigmoid head as one
+// m64n8k16 written from the accumulators of the warpgroup that owns the
+// tile, rows < n only; no mask bits, no operand rows. What held the
+// cp.async forward it replaced (four warpgroups of N = 64 on one tile, a
+// 4-stage ring, x0's features read a float at a time): the ring's block
+// barriers and shared copies, 76% of its time (PERF.md §6). Each output is
+// summed from the same bf16 operands in the same K order through the same
+// epilogue as that forward's: the same bits.
 //
 // albedo_bwd_wg_kernel replaces the same TPU kernel (pallas_albedo.py
 // _bwd_kernel :101) at bf16 operands; albedo_bwd_kernel above stays as the
@@ -314,105 +324,12 @@ extern "C" int rnb_albedo_bwd(const float* pts, const float* nrm,
 // No pre-activation leaves the block; the only scratch is the bf16 operand
 // rows (A 1.7 KB and B 1.1 KB a point), written and read once.
 
-#include "wg_bwd.cuh"
+#include "wg_sweep.cuh"
 
-#define ALB_NT 512     // four warpgroups of 64 columns
 #define ALB_KW 320     // widest A tile: x0 (2E + F = 310 -> 320)
-#define ALB_STG 5120   // ring stage: the 320-wide reverse product, 2 x 40 cores
-#define ALB_FSTG 4096  // forward ring stage: N = 256, 2 x 32 cores
-
-// x0 = [PE(p), PE(n), feat] of the tile in bf16 into the A tile X (rows past
-// n from 0), its pad columns up to kp0 zero; ALB_NT threads (a constant
-// stride, so the feature loads are unrolled and in flight together).
-__device__ __forceinline__ void albedo_wg_x0(const float* __restrict__ pts,
-                                             const float* __restrict__ nrm,
-                                             const float* __restrict__ feat,
-                                             long long n, int F, int multires,
-                                             int E, int kp0, long long n0,
-                                             rnb_bf16* X) {
-  for (int idx = threadIdx.x; idx < WG_M * 6; idx += ALB_NT) {
-    const int p = idx / 6, q = (idx % 6) / 3, d = idx % 3;
-    const long long row = n0 + p;
-    const float x = row < n ? (q ? nrm : pts)[row * 3 + d] : 0.0f;
-    const int o = q * E;
-    X[wg_tidx(p, o + d)] = wg_bf(x);
-    float s = sinf(x), c = cosf(x);
-    for (int k = 0; k < multires; ++k) {
-      X[wg_tidx(p, o + 3 + 6 * k + d)] = wg_bf(s);
-      X[wg_tidx(p, o + 6 + 6 * k + d)] = wg_bf(c);
-      if (k + 1 < multires) {
-        const float s2 = 2.0f * s * c;
-        c = 1.0f - 2.0f * s * s;
-        s = s2;
-      }
-    }
-  }
-  const int fw = kp0 - 2 * E;
-  for (int idx = threadIdx.x; idx < WG_M * fw; idx += ALB_NT) {
-    const int p = idx / fw, f = idx - p * fw;
-    const long long row = n0 + p;
-    X[wg_tidx(p, 2 * E + f)] =
-        wg_bf(row < n && f < F ? feat[row * F + f] : 0.0f);
-  }
-  __syncthreads();
-}
-
-// Two blocks an SM (64 registers, no spill): one block an SM ran slower in
-// a trial build on the H100.
-static __global__ void __launch_bounds__(ALB_NT, 2)
-albedo_fwd_wg_kernel(const float* __restrict__ pts,
-                     const float* __restrict__ nrm,
-                     const float* __restrict__ feat, long long n, int F,
-                     const rnb_bf16* __restrict__ w, const float* __restrict__ b,
-                     RnbWgNet net, int multires, float* __restrict__ out) {
-  constexpr int RS = WG_RS;
-  extern __shared__ __align__(128) unsigned char wg_smem[];
-  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][320]
-  rnb_bf16* ring = X + WG_M * ALB_KW;
-  WG_FRAG_ROWS;
-  const long long n0 = (long long)blockIdx.x * WG_M;
-  const int L = net.n_layers;
-  albedo_wg_x0(pts, nrm, feat, n, F, multires, net.E,
-               rnb_pad16(net.in_dim[0]), n0, X);
-
-  WgProduct prod;
-  float acc[32];
-  prod.set(w, net, 0, 0, 256);
-  pipe_prologue<RS, ALB_FSTG>(ring, prod.nk, prod);
-  // --- the hidden layers: relu(x W + b) in bf16 back into the A tile ---
-  for (int l = 0; l < L - 1; ++l) {
-    pipe_run<RS, ALB_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                          rnb_desc(st + wg * 8 * 64, 32 * 128, 128), t > 0);
-    });
-    if (l + 1 < L - 1) prod.set(w, net, l + 1, 0, 256);
-    else prod.set(w, net, L - 1, 0, 16);
-    pipe_prologue<RS, ALB_FSTG>(ring, prod.nk, prod);
-    wg_relu_put<8>(acc, b + net.b_off[l], net.out_dim[l], X, wg * 64);
-  }
-  // --- the sigmoid head (N = 8, warpgroup 0), from its accumulators ---
-  float acc8[4];
-  pipe_run<RS, ALB_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    if (wg == 0)
-      rnb_wgmma_n8<0, 1>(acc8, rnb_desc(X + t * 1024, 1024, 128),
-                         rnb_desc(st, 2 * 128, 128), t > 0);
-  });
-  if (wg == 0) {
-    const int o = net.out_dim[L - 1];
-    const float* bl = b + net.b_off[L - 1];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const long long row = n0 + r0 + 8 * h;
-        const int c = cq + u;
-        if (c < o && row < n) out[row * o + c] = rnb_sigmoid(acc8[2 * h + u] + bl[c]);
-      }
-  }
-}
 
 // albedo_bwd_wg_kernel, the backward sweep on the tensor cores, designed
-// for Hopper as nerf_bwd_wg_kernel is (nerf.cu; wg_bwd.cuh): one
+// for Hopper as nerf_bwd_wg_kernel is (nerf.cu; wg_sweep.cuh): one
 // block of 384 threads a pair of 64-point tiles, a producer warpgroup
 // whose one thread loads every weight stage by TMA into a ring of AB_RS
 // slots in the order of the phase table (ops/albedo.py bwd_steps), two
@@ -438,8 +355,8 @@ albedo_fwd_wg_kernel(const float* __restrict__ pts,
 // (PERF.md §6).
 //
 // ptxas (chip_smoke.py holds it to this note): albedo_bwd_wg_kernel<16, 0>
-// 168 registers at launch (the consumers take 232 by setmaxnreg), 40 B
-// stack frame, 8 B spill stores and loads (the batched feature loads);
+// 168 registers at launch (the consumers take 232 by setmaxnreg), 56 B
+// stack frame, 20 B spill stores and loads (the batched feature loads);
 // 231,696 B dynamic shared memory.
 
 // x0 = [PE(p), PE(n), feat] of the tile in bf16 into the swizzled A tile X
@@ -504,48 +421,118 @@ __device__ __forceinline__ void albedo_wb_x0(const float* __restrict__ pts,
 #define AB_X (WG_M * ALB_KW * 2)                 // the A tile: 5 blocks of 64
 #define AB_MB (2 * 128 * 16)                     // two hidden layers' masks
 #define AB_TILE (AB_X + AB_MB + 4 * 256 * 4 + 256 * 4)   // + red + bias
+#define AF_RS 18        // the forward's production ring depth (the deepest
+                        // that fits: 231,728 B of shared memory)
+#define AF_TILE (AB_X + 256 * 4)                 // the forward's: + bias
 
-// RS: the ring's stages (AB_RS in production; the tune library's instances
-// take 4, 8 and 12 too); SPLIT: a WgBwdSplit.
+// The forward: out [n, d_out] (out0) = sigmoid of the head. RS: the ring's
+// stages (AF_RS in production; the tune library's instances take 4 and 8
+// too); SPLIT: a WgSplit (K_LOOPS_ONLY no wgmma and no epilogue,
+// PRODUCTS_ONLY no epilogue: neither the tile nor the output written,
+// NO_EPILOGUE the accumulators rounded into the tile and the head written
+// raw).
+//
+// ptxas (chip_smoke.py holds it to this note): albedo_fwd_wg_kernel<18, 0>
+// 168 registers at launch (the consumers take 232 by setmaxnreg), 32 B
+// stack frame, no spill; 231,728 B dynamic shared memory.
 template <int RS, int SPLIT = WB_FULL>
 static __global__ void __launch_bounds__(WB_NT, 1)
-albedo_bwd_wg_kernel(const __grid_constant__ WgBwdParams p) {
-  static_assert(RS >= 2 && wb_smem_bytes(RS, AB_TILE) <= 232448, "ring depth");
+albedo_fwd_wg_kernel(const __grid_constant__ WbParams p) {
+  static_assert(RS >= 2 && wb_smem_bytes(RS, WB_STAGE, AF_TILE) <= 232448,
+                "ring depth");
+  constexpr bool k_mma = SPLIT != WB_K_LOOPS_ONLY;
+  constexpr bool k_put = SPLIT == WB_FULL || SPLIT == WB_NO_EPILOGUE;
+  constexpr bool k_epi = SPLIT == WB_FULL;
+  extern __shared__ __align__(1024) unsigned char wb_smem[];
+  RnbTurns<RS> turns = wb_begin<RS>(p, wb_smem, WB_STAGE, AF_TILE);
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    wb_produce<RS>(p, turns.ring);
+    return;
+  }
+  rnb_setmaxnreg_inc<232>();
+  const int ci = turns.ci;
+  if (ci >= turns.pair) return;
+  const RnbWgNet& net = p.net;
+  const long long n = p.n;
+  const int lt = threadIdx.x & 127, bar_id = 1 + ci;
+  const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2), cq = 2 * (lt & 3);
+  const long long n0 = (2 * (long long)blockIdx.x + ci) * WG_M;
+  unsigned char* ta = wb_smem + ci * AF_TILE;
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(ta);   // A tile [64][320]
+  float* sb = reinterpret_cast<float*>(ta + AB_X);  // the layer's bias
+  const int L = net.n_layers;
+
+  auto tail = [&] { wb_tail(lt); };
+  auto product = [&](int nk, auto mma) {
+    turns.template product<k_mma>(nk, mma, tail);
+  };
+
+  albedo_wb_x0(p.in0, p.in1, p.in2, n, p.F, p.multires, net.E,
+               rnb_pad16(net.in_dim[0]), n0, X, lt);
+  wb_written(bar_id);
+
+  float acc[128];
+  uint32_t bits[4];
+  // --- the hidden layers: relu(x W + b) in bf16 back into the A tile ---
+  for (int l = 0; l < L - 1; ++l) {
+    if constexpr (k_epi) wb_stage_bias(sb, p.b + net.b_off[l], net.out_dim[l], lt);
+    product(rnb_pad16(net.in_dim[l]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 1>(acc, wb_desc_a(X, t),
+                           rnb_desc(st, 32 * 128, 128), t > 0);
+    });
+    if constexpr (!k_put) continue;
+    wb_fwd_put<32, true, k_epi>(acc, sb, X, bits);
+    wb_written(bar_id);
+  }
+
+  // --- the sigmoid head (N = 8), from the accumulators ---
+  float acc8[4];
+  product(rnb_pad16(net.in_dim[L - 1]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n8<0, 1>(acc8, wb_desc_a(X, t), rnb_desc(st, 2 * 128, 128),
+                       t > 0);
+  });
+  if constexpr (k_put) {
+    const int o = net.out_dim[L - 1];
+    const float* bl = p.b + net.b_off[L - 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const long long row = n0 + r0 + 8 * h;
+        const int c = cq + u;
+        if (c < o && row < n)
+          p.out0[row * o + c] =
+              k_epi ? rnb_sigmoid(acc8[2 * h + u] + bl[c]) : acc8[2 * h + u];
+      }
+  }
+}
+
+// RS: the ring's stages (AB_RS in production; the tune library's instances
+// take 4, 8 and 12 too); SPLIT: a WgSplit.
+template <int RS, int SPLIT = WB_FULL>
+static __global__ void __launch_bounds__(WB_NT, 1)
+albedo_bwd_wg_kernel(const __grid_constant__ WbParams p) {
+  static_assert(RS >= 2 && wb_smem_bytes(RS, WB_STAGE, AB_TILE) <= 232448,
+                "ring depth");
   constexpr bool k_mma = SPLIT != WB_K_LOOPS_ONLY;
   constexpr bool k_epi = SPLIT == WB_FULL || SPLIT == WB_NO_ROWS;
   constexpr bool k_rows = SPLIT == WB_FULL || SPLIT == WB_NO_EPILOGUE;
   extern __shared__ __align__(1024) unsigned char wb_smem[];
-  const RnbWgNet& net = p.net;
-  const long long n = p.n, tiles = (n + WG_M - 1) / WG_M;
-  const int pair = tiles > 2 * (long long)blockIdx.x + 1 ? 2 : 1;
-  RnbRing<RS> ring;
-  ring.base = wb_smem;
-  ring.bytes = WB_STAGE;
-  ring.full = reinterpret_cast<uint64_t*>(wb_smem + RS * WB_STAGE + 2 * AB_TILE);
-  ring.empty = ring.full + RS;
-  const int ci = (threadIdx.x >> 7) - 1;   // a consumer's tile of the pair
-  RnbTurns<RS> turns{ring, ring.empty + RS, ci, pair, 1 + ci};
-  if (threadIdx.x == 0) {
-    ring.init(4 * pair);
-    turns.init();
-    rnb_fence_mbar_init();
-  }
-  __syncthreads();
+  RnbTurns<RS> turns = wb_begin<RS>(p, wb_smem, WB_STAGE, AB_TILE);
   if (threadIdx.x < 128) {   // the producer warpgroup
-    rnb_setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      WbCursor cur{&p, 0, 0};
-      rnb_ring_produce<RS>(ring, cur);
-    }
+    wb_produce<RS>(p, turns.ring);
     return;
   }
   rnb_setmaxnreg_inc<232>();
-  if (ci >= pair) return;
+  const int ci = turns.ci;
+  if (ci >= turns.pair) return;
+  const RnbWgNet& net = p.net;
+  const long long n = p.n;
   const int lt = threadIdx.x & 127, bar_id = 1 + ci;
   const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2), cq = 2 * (lt & 3);
   const long long tile = 2 * (long long)blockIdx.x + ci, n0 = tile * WG_M;
   const bool live0 = n0 + r0 < n, live1 = n0 + r0 + 8 < n;
-  unsigned char* ta = wb_smem + RS * WB_STAGE + ci * AB_TILE;
+  unsigned char* ta = wb_smem + ci * AB_TILE;
   rnb_bf16* X = reinterpret_cast<rnb_bf16*>(ta);      // A tile [64][320]
   uint4* mb = reinterpret_cast<uint4*>(ta + AB_X);    // [2][128]
   float* red = reinterpret_cast<float*>(ta + AB_X + AB_MB);   // [4][256]
@@ -554,22 +541,14 @@ albedo_bwd_wg_kernel(const __grid_constant__ WgBwdParams p) {
   const int L = net.n_layers, E = net.E, F = p.F, kp0 = rnb_pad16(net.in_dim[0]);
 
   auto stage_bias = [&](int l) {
-    const float* bl = p.b + net.b_off[l];
-    const int out = net.out_dim[l];
-    for (int c = lt; c < 256; c += 128)
-      rnb_cp_async4(sb + c, c < out ? bl + c : bl, c < out);
-    rnb_cp_async_commit();
+    wb_stage_bias(sb, p.b + net.b_off[l], net.out_dim[l], lt);
   };
-  auto tail = [&] {
-    rnb_cp_async_wait<0>();
-    if (lt == 0) rnb_bulk_wait_read<0>();
-  };
+  auto tail = [&] { wb_tail(lt); };
   auto product = [&](int nk, auto mma) {
     turns.template product<k_mma>(nk, mma, tail);
   };
   auto rows_out = [&](const CUtensorMap* map, int kw) {
-    rnb_fence_proxy_async();
-    rnb_wg_sync(bar_id);
+    wb_written(bar_id);
     if (k_rows && lt == 0) wb_rows_out(map, X, kw, n0);
   };
   auto db_out = [&](int l, int cols) {
@@ -744,27 +723,64 @@ static int albedo_wg_net(RnbWgNet* net, const int* in_dims,
   return db_len;
 }
 
-// The bf16 forward: out [n, d_out] = sigmoid of the head. w is the bf16
-// weight image (ops/wg.py pack_weights) at w_off.
-extern "C" int rnb_albedo_fwd_wg(const float* pts, const float* nrm,
-                                 const float* feat, long long n, int F,
-                                 const void* w, const float* b,
-                                 const int* in_dims, const int* out_dims,
-                                 const long long* w_off, int n_layers,
-                                 int multires, float* out, void* stream) {
-  RnbWgNet net;
-  if (albedo_wg_net(&net, in_dims, out_dims, w_off, nullptr, nullptr,
-                    n_layers, multires, F) < 0)
+#define RNB_ALB_FWD_PARAMS                                                   \
+  const float *pts, const float *nrm, const float *feat, long long n, int F, \
+      const void *w, const float *b, const int *in_dims,                     \
+      const int *out_dims, const long long *w_off, int n_layers,             \
+      int multires, float *out, void *stream
+
+// The forward's arguments: the net, the buffers and the phase table of its
+// ring, in the products' order (ops/albedo.py fwd_steps): the hidden layers
+// forward (box {64, 32, 2}), the head forward ({64, 2, 2}: N = 8). 0 on
+// success.
+static int albedo_fwd_params(WbParams* p, RNB_ALB_FWD_PARAMS) {
+  // the feature rows as float4
+  if (albedo_wg_net(&p->net, in_dims, out_dims, w_off, nullptr, nullptr,
+                    n_layers, multires, F) < 0 ||
+      F % 4 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(feat) % 16)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)(sizeof(rnb_bf16) * (WG_M * ALB_KW + WG_RS * ALB_FSTG));
+  wb_init(p, n, b, WB_STAGE);
+  p->in0 = pts;
+  p->in1 = nrm;
+  p->in2 = feat;
+  p->out0 = out;
+  p->F = F;
+  p->multires = multires;
+  int rc = 0;
+  for (int l = 0; l < n_layers - 1 && !rc; ++l) rc = wb_phase(p, w, l, 0, 32, 0);
+  if (!rc) rc = wb_phase(p, w, n_layers - 1, 0, 2, 0);
+  return rc;
+}
+
+// The forward at ring depth RS.
+template <int RS, int SPLIT = WB_FULL>
+static int albedo_fwd_launch(const WbParams& p, cudaStream_t st) {
+  constexpr int smem = wb_smem_bytes(RS, WB_STAGE, AF_TILE);
   cudaError_t err = cudaFuncSetAttribute(
-      albedo_fwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      albedo_fwd_wg_kernel<RS, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n + WG_M - 1) / WG_M;
-  albedo_fwd_wg_kernel<<<(unsigned)tiles, ALB_NT, smem, (cudaStream_t)stream>>>(
-      pts, nrm, feat, n, F, static_cast<const rnb_bf16*>(w), b, net, multires,
-      out);
+  const long long tiles = (p.n + WG_M - 1) / WG_M;
+  albedo_fwd_wg_kernel<RS, SPLIT>
+      <<<(unsigned)((tiles + 1) / 2), WB_NT, smem, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+#define RNB_ALB_FWD_SETUP                                                    \
+  WbParams prm;                                                              \
+  const int rc = albedo_fwd_params(&prm, pts, nrm, feat, n, F, w, b,         \
+                                   in_dims, out_dims, w_off, n_layers,       \
+                                   multires, out, stream);                   \
+  if (rc) return rc;                                                         \
+  cudaStream_t st = (cudaStream_t)stream
+
+// The bf16 forward: out [n, d_out] = sigmoid of the head. w is the bf16
+// weight image (ops/wg.py pack_weights) at w_off; feat's rows 16-byte
+// aligned, F a multiple of 4.
+extern "C" int rnb_albedo_fwd_wg(RNB_ALB_FWD_PARAMS) {
+  RNB_ALB_FWD_SETUP;
+  return albedo_fwd_launch<AF_RS>(prm, st);
 }
 
 // The backward sweep's arguments: the net, the buffers, the phase table of
@@ -773,7 +789,7 @@ extern "C" int rnb_albedo_fwd_wg(const float* pts, const float* nrm,
 // the head forward ({64, 2, 2}: N = 8); the head and the hidden layers but
 // layer 0 reverse ({64, 2, 32}), layer 0's reverse as two passes, input
 // cores 34..39 ({64, 2, 6}) then 2..33 ({64, 2, 32}). 0 on success.
-static int albedo_bwd_params(WgBwdParams* p, const float* pts,
+static int albedo_bwd_params(WbParams* p, const float* pts,
                              const float* nrm, const float* feat, long long n,
                              int F, const void* w, const float* b,
                              const int* in_dims, const int* out_dims,
@@ -790,23 +806,18 @@ static int albedo_bwd_params(WgBwdParams* p, const float* pts,
       reinterpret_cast<uintptr_t>(w) % 16 ||
       reinterpret_cast<uintptr_t>(feat) % 16)
     return (int)cudaErrorInvalidValue;
+  wb_init(p, n, b, WB_STAGE);
   p->in0 = pts;
   p->in1 = nrm;
   p->in2 = feat;
-  p->b = b;
   p->cot0 = cout;
-  p->cot1 = nullptr;
   p->dbp = dbp;
   p->out0 = cnrm;
   p->out1 = cfeat;
-  p->n = n;
   p->db_len = db_len;
   p->C = 3;
   p->F = F;
   p->multires = multires;
-  p->multires_view = 0;
-  p->of = 0;
-  p->n_ph = 0;
   const int L = n_layers;
   int rc = 0;
   for (int l = 0; l < L - 1 && !rc; ++l) rc = wb_phase(p, w, l, 0, 32, 0);
@@ -821,9 +832,9 @@ static int albedo_bwd_params(WgBwdParams* p, const float* pts,
 // The sweep at ring depth RS, then the fixed-order sum of the per-tile db
 // partials (dbp) into db.
 template <int RS, int SPLIT = WB_FULL>
-static int albedo_bwd_launch(const WgBwdParams& p, float* db,
+static int albedo_bwd_launch(const WbParams& p, float* db,
                              cudaStream_t st) {
-  constexpr int smem = wb_smem_bytes(RS, AB_TILE);
+  constexpr int smem = wb_smem_bytes(RS, WB_STAGE, AB_TILE);
   cudaError_t err = cudaFuncSetAttribute(
       albedo_bwd_wg_kernel<RS, SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -846,7 +857,7 @@ static int albedo_bwd_launch(const WgBwdParams& p, float* db,
       const float *cout, void *abuf, void *bbuf, float *dbp, float *db,      \
       float *cnrm, float *cfeat, void *stream
 #define RNB_ALB_BWD_SETUP                                                    \
-  WgBwdParams prm;                                                           \
+  WbParams prm;                                                              \
   const int rc = albedo_bwd_params(&prm, pts, nrm, feat, n, F, w, b,         \
                                    in_dims, out_dims, w_off, a_off, bb_off,  \
                                    n_layers, multires, cout, abuf, bbuf,     \
@@ -864,10 +875,19 @@ extern "C" int rnb_albedo_bwd_wg(RNB_ALB_BWD_PARAMS) {
   return albedo_bwd_launch<AB_RS>(prm, db, st);
 }
 
+// The dynamic shared memory of the production forward (bwd 0) or backward
+// sweep (bwd 1), as they launch.
+extern "C" int rnb_albedo_wg_smem(int bwd) {
+  return bwd ? wb_smem_bytes(AB_RS, WB_STAGE, AB_TILE)
+             : wb_smem_bytes(AF_RS, WB_STAGE, AF_TILE);
+}
+
 // The tune library's instances (ops/_build.py library("tune"), nvcc
-// -DRNB_TUNE; tools/tune_kernel.py, tools/ablate_kernel.py --wg_bwd): the
-// production sweep at ring depths 4, 8, 12 and 16 (AB_RS, the deepest that
-// fits: 231,696 B of shared memory) and its timing split.
+// -DRNB_TUNE; tools/tune_kernel.py, tools/ablate_kernel.py --wg_bwd and
+// --wg_fwd): the production sweep at ring depths 4, 8, 12 and 16 (AB_RS,
+// the deepest that fits: 231,696 B of shared memory) and its timing split;
+// the production forward at ring depths 4, 8 and 18 (AF_RS) and its timing
+// split.
 #ifdef RNB_TUNE
 extern "C" int rnb_albedo_bwd_wg_tune(int rs, RNB_ALB_BWD_PARAMS) {
   RNB_ALB_BWD_SETUP;
@@ -880,7 +900,7 @@ extern "C" int rnb_albedo_bwd_wg_tune(int rs, RNB_ALB_BWD_PARAMS) {
   }
 }
 
-// The production sweep's timing split: split a WgBwdSplit; only WB_FULL
+// The production sweep's timing split: split a WgSplit; only WB_FULL
 // computes the function.
 extern "C" int rnb_albedo_bwd_wg_split(int split, RNB_ALB_BWD_PARAMS) {
   RNB_ALB_BWD_SETUP;
@@ -893,6 +913,32 @@ extern "C" int rnb_albedo_bwd_wg_split(int split, RNB_ALB_BWD_PARAMS) {
     case WB_NO_ROWS: return albedo_bwd_launch<AB_RS, WB_NO_ROWS>(prm, db, st);
     case WB_NO_EPILOGUE:
       return albedo_bwd_launch<AB_RS, WB_NO_EPILOGUE>(prm, db, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+extern "C" int rnb_albedo_fwd_wg_tune(int rs, RNB_ALB_FWD_PARAMS) {
+  RNB_ALB_FWD_SETUP;
+  switch (rs) {
+    case 4: return albedo_fwd_launch<4>(prm, st);
+    case 8: return albedo_fwd_launch<8>(prm, st);
+    case AF_RS: return albedo_fwd_launch<AF_RS>(prm, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The production forward's timing split: split one of WB_FULL,
+// WB_K_LOOPS_ONLY, WB_PRODUCTS_ONLY, WB_NO_EPILOGUE; only WB_FULL computes
+// the function.
+extern "C" int rnb_albedo_fwd_wg_split(int split, RNB_ALB_FWD_PARAMS) {
+  RNB_ALB_FWD_SETUP;
+  switch (split) {
+    case WB_FULL: return albedo_fwd_launch<AF_RS, WB_FULL>(prm, st);
+    case WB_K_LOOPS_ONLY:
+      return albedo_fwd_launch<AF_RS, WB_K_LOOPS_ONLY>(prm, st);
+    case WB_PRODUCTS_ONLY:
+      return albedo_fwd_launch<AF_RS, WB_PRODUCTS_ONLY>(prm, st);
+    case WB_NO_EPILOGUE:
+      return albedo_fwd_launch<AF_RS, WB_NO_EPILOGUE>(prm, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

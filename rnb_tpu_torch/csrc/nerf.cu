@@ -424,15 +424,32 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 // _fwd_kernel :105) at bf16 operands; nerf_fwd_kernel above stays as the
 // f32 route. What bounds it on the H100: arithmetic, 603,520 multiply-adds
 // a point at the womask conf (trunk, alpha and feature heads, views and rgb
-// layers), 0.083 ms at the bf16 peak for 67,584 points. What the design
-// does about it: the recompute half of nerf_bwd_wg_kernel below over the
-// same image layers (trunk N = 256 as 4 x 64 with the skip input held as
-// [h, e], views N = 128 as 4 x 32), with the two outputs the backward never
-// computes: the alpha column (column 256 of the fused [W_f | W_a] tile) as
-// one N = 8 product by warpgroup 0 in the same K loop as the N = 256
-// feature block, and the rgb head (128 -> 3) as one N = 8 product by
-// warpgroup 0; both written raw from their accumulators. No mask bits, no
-// operand rows; two blocks an SM.
+// layers), 0.083 ms at the bf16 peak for 67,584 points.
+//
+// What the design does about it (nerf_fwd_wg_kernel below): the recompute
+// half of nerf_bwd_wg_kernel on the same block, ring, phase walk and
+// epilogues (wg_sweep.cuh): one block of 384 threads a pair of 64-point
+// tiles, a producer warpgroup loading every weight stage by TMA into a ring
+// of NF_RS slots in the order of the forward phase table (ops/nerf.py
+// fwd_steps: 166 stages a pair), two consumer warpgroups each a whole tile
+// at m64n256k16 (the views layer m64n128k16) taking turns at the ring, so
+// one tile's epilogue runs under the other's products; the bias staged by
+// cp.async, ReLU and rounding into the swizzled A tile with no branch an
+// element; the skip input held as [h, e] (PE(pts) written once into
+// columns 256..), PE(views) written after the feature head. Plus the two
+// outputs the backward never computes, written raw from the accumulators of
+// the warpgroup that owns the tile, rows < n only: the alpha column
+// (column 256 of the fused [W_f | W_a] tile) as one m64n8k16 in the same
+// K-steps as the feature block's m64n256k16, both from one box of the
+// tile's 34 output cores a stage (NF_STAGE: a slot 512 B larger than the
+// backward's costs one ring slot, 15 against 16, where a phase of its own
+// would add 16 stages a pair), and the rgb head (128 -> 3) as one
+// m64n8k16. No mask bits, no operand rows. What held the cp.async forward
+// it replaced (four warpgroups of N = 64 on one tile, a 4-stage ring): a
+// block barrier and a share of every stage's copy at each of a tile's 166
+// K-steps, every warpgroup reading the whole A tile (its split: PERF.md §6).
+// Each output is summed from the same bf16 operands in the same K order
+// through the same epilogue as that forward's: the same bits.
 //
 // nerf_bwd_wg_kernel replaces the same TPU kernel (pallas_nerf.py
 // _bwd_kernel :122, the heads at :159-183, the trunk at :185-196) at bf16
@@ -468,170 +485,200 @@ extern "C" int rnb_nerf_bwd(const float* pts, const float* views, long long n,
 // dW is one grouped launch over the 11 image layers (dw_gemm.cu). No f32
 // record leaves the block.
 
-#include "wg_bwd.cuh"
+#include "wg_sweep.cuh"
 
-#define NRF_NT 512    // four warpgroups of 64 columns
 #define NRF_KW 352    // widest A tile: the skip input [h, e] (256 + 84 -> 352)
-#define NRF_STG 4096  // ring stage: 2 x 32 cores
-#define NRF_FSTG 4352 // forward ring stage: the fused head's 272 columns, 2 x 34 cores
-#define NRF_EW 96     // PE(pts) channels held per point (E <= 96)
-#define NRF_VW 32     // PE(views) channels held per point (V <= 32)
+#define NRF_EW 96     // PE(pts) channels a point at most (E <= 96)
+#define NRF_VW 32     // PE(views) channels a point at most (V <= 32)
 
-// PE(pts) into e16 [64][NRF_EW] and PE(views) into v16 [64][NRF_VW] in bf16
-// (rows past n from 0, pads zero; e16 and v16 adjacent), and PE(pts) as the
-// first A tile X, its pad columns up to pad16(E) zero. NRF_NT threads.
-__device__ __forceinline__ void nerf_wg_pe(const float* __restrict__ pts,
-                                           const float* __restrict__ views,
-                                           long long n, int C, int multires,
-                                           int multires_view, int E,
-                                           long long n0, rnb_bf16* e16,
-                                           rnb_bf16* v16, rnb_bf16* X) {
-  for (int idx = threadIdx.x; idx < WG_M * (NRF_EW + NRF_VW); idx += NRF_NT)
-    e16[idx] = wg_bf(0.0f);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < WG_M * (C + 3); idx += NRF_NT) {
-    const int p = idx / (C + 3), d = idx % (C + 3);
-    const long long row = n0 + p;
-    const bool isv = d >= C;
-    const int ch = isv ? 3 : C, dd = isv ? d - C : d;
-    const int mr = isv ? multires_view : multires;
-    rnb_bf16* e = isv ? v16 + p * NRF_VW : e16 + p * NRF_EW;
-    const float x =
-        row < n ? (isv ? views[row * 3 + dd] : pts[row * C + dd]) : 0.0f;
-    e[dd] = wg_bf(x);
+// PE(pts) of the tile (C channels, rows past n from 0) in bf16 into
+// columns 0..E-1 of the swizzled A tile X (layer 0's input) and
+// 256..256+E-1 (the skip input [h, e]: the trunk's epilogues write columns
+// 0..255 only), their pads up to pad16(E) zero; one warpgroup (thread lt).
+__device__ __forceinline__ void nerf_wb_pe_pts(const float* __restrict__ pts,
+                                               long long n, int C,
+                                               int multires, int E,
+                                               long long n0, rnb_bf16* X,
+                                               int lt) {
+  for (int idx = lt; idx < WG_M * C; idx += 128) {
+    const int pp = idx / C, d = idx - pp * C;
+    const long long row = n0 + pp;
+    const float x = row < n ? pts[row * C + d] : 0.0f;
+    auto put = [&](int c, float v) {
+      const rnb_bf16 h = wg_bf(v);
+      X[wb_sidx(pp, c)] = h;
+      X[wb_sidx(pp, 256 + c)] = h;
+    };
+    put(d, x);
     float s = sinf(x), c = cosf(x);
-    for (int k = 0; k < mr; ++k) {
-      e[ch * (1 + 2 * k) + dd] = wg_bf(s);
-      e[ch * (2 + 2 * k) + dd] = wg_bf(c);
-      if (k + 1 < mr) {
+    for (int k = 0; k < multires; ++k) {
+      put(C * (1 + 2 * k) + d, s);
+      put(C * (2 + 2 * k) + d, c);
+      if (k + 1 < multires) {
         const float s2 = 2.0f * s * c;
         c = 1.0f - 2.0f * s * s;
         s = s2;
       }
     }
   }
-  __syncthreads();
   const int kp0 = rnb_pad16(E);
-  for (int idx = threadIdx.x; idx < WG_M * kp0; idx += NRF_NT) {
-    const int p = idx / kp0, c = idx - p * kp0;
-    X[wg_tidx(p, c)] = e16[p * NRF_EW + c];
-  }
-  __syncthreads();
-}
-
-// Columns 256..kn-1 of the A tile X: the slice appended after a 256-wide
-// epilogue (ex [64][exld], exw wide; none where ex is null), pads zero.
-// NRF_NT threads.
-__device__ __forceinline__ void nerf_wg_append(rnb_bf16* X, int kn,
-                                               const rnb_bf16* ex, int exld,
-                                               int exw) {
-  for (int idx = threadIdx.x; idx < WG_M * (kn - 256); idx += NRF_NT) {
-    const int p = idx / (kn - 256), cc = idx % (kn - 256);
-    X[wg_tidx(p, 256 + cc)] =
-        ex != nullptr && cc < exw ? ex[p * exld + cc] : wg_bf(0.0f);
+  for (int idx = lt; idx < WG_M * (kp0 - E); idx += 128) {
+    const int pp = idx / (kp0 - E), c = E + idx % (kp0 - E);
+    X[wb_sidx(pp, c)] = wg_bf(0.0f);
+    X[wb_sidx(pp, 256 + c)] = wg_bf(0.0f);
   }
 }
 
-// Image layers (net) as for nerf_bwd_wg_kernel below. Outputs: alpha [n, oa]
-// and rgb [n, orr], raw, f32.
-// Two blocks an SM (64 registers, no spill): one block an SM ran slower in
-// a trial build on the H100.
-static __global__ void __launch_bounds__(NRF_NT, 2)
-nerf_fwd_wg_kernel(const float* __restrict__ pts,
-                   const float* __restrict__ views, long long n, int C,
-                   const rnb_bf16* __restrict__ w, const float* __restrict__ b,
-                   RnbWgNet net, int of, int multires, int multires_view,
-                   float* __restrict__ alpha, float* __restrict__ rgb) {
-  constexpr int RS = WG_RS;
-  extern __shared__ __align__(128) unsigned char wg_smem[];
-  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(wg_smem);  // A tile [64][352]
-  rnb_bf16* ring = X + WG_M * NRF_KW;
-  rnb_bf16* e16 = ring + RS * NRF_FSTG;  // [64][96] PE(pts)
-  rnb_bf16* v16 = e16 + WG_M * NRF_EW;   // [64][32] PE(views)
-  WG_FRAG_ROWS;
-  const long long n0 = (long long)blockIdx.x * WG_M;
+// PE(views) of the tile (rows past n from 0) in bf16 into columns 256.. of
+// X, once the feature head's epilogue wrote rnd(feat) into 0..255: the
+// views layer's input [rnd(feat), PE(views)], its pads up to 256 + kv zero;
+// one warpgroup (thread lt).
+__device__ __forceinline__ void nerf_wb_pe_views(
+    const float* __restrict__ views, long long n, int multires_view, int kv,
+    long long n0, rnb_bf16* X, int lt) {
+  const int V = 3 * (1 + 2 * multires_view);
+  for (int idx = lt; idx < WG_M * 3; idx += 128) {
+    const int pp = idx / 3, d = idx - 3 * pp;
+    const long long row = n0 + pp;
+    const float x = row < n ? views[row * 3 + d] : 0.0f;
+    X[wb_sidx(pp, 256 + d)] = wg_bf(x);
+    float s = sinf(x), c = cosf(x);
+    for (int k = 0; k < multires_view; ++k) {
+      X[wb_sidx(pp, 256 + 3 * (1 + 2 * k) + d)] = wg_bf(s);
+      X[wb_sidx(pp, 256 + 3 * (2 + 2 * k) + d)] = wg_bf(c);
+      if (k + 1 < multires_view) {
+        const float s2 = 2.0f * s * c;
+        c = 1.0f - 2.0f * s * s;
+        s = s2;
+      }
+    }
+  }
+  for (int idx = lt; idx < WG_M * (kv - V); idx += 128) {
+    const int pp = idx / (kv - V), c = 256 + V + idx % (kv - V);
+    X[wb_sidx(pp, c)] = wg_bf(0.0f);
+  }
+}
+
+#define NF_RS 15        // the forward's production ring depth (the deepest
+                        // that fits: 231,168 B of shared memory)
+#define NF_STAGE 8704   // the forward's ring slot: the fused head's box of
+                        // 34 output cores x 2
+#define NF_TILE (WG_M * 384 * 2 + 256 * 4)   // the A tile (six swizzled
+                                             // blocks of 64 columns) + bias
+
+// The forward over the image layers (as nerf_bwd_wg_kernel's below): alpha
+// [n, oa] (out0) and rgb [n, orr] (out1), raw, f32. RS: the ring's stages
+// (NF_RS in production; the tune library's instances take 4 and 8 too);
+// SPLIT: a WgSplit (K_LOOPS_ONLY no wgmma and no epilogue, PRODUCTS_ONLY no
+// epilogue: neither the tile nor an output written, NO_EPILOGUE the
+// accumulators rounded into the tile and the heads written raw).
+//
+// ptxas (chip_smoke.py holds it to this note): nerf_fwd_wg_kernel<15, 0>
+// 168 registers at launch (the consumers take 232 by setmaxnreg), 32 B
+// stack frame, no spill; 231,168 B dynamic shared memory.
+template <int RS, int SPLIT = WB_FULL>
+static __global__ void __launch_bounds__(WB_NT, 1)
+nerf_fwd_wg_kernel(const __grid_constant__ WbParams p) {
+  static_assert(RS >= 2 && wb_smem_bytes(RS, NF_STAGE, NF_TILE) <= 232448,
+                "ring depth");
+  constexpr bool k_mma = SPLIT != WB_K_LOOPS_ONLY;
+  constexpr bool k_put = SPLIT == WB_FULL || SPLIT == WB_NO_EPILOGUE;
+  constexpr bool k_epi = SPLIT == WB_FULL;
+  extern __shared__ __align__(1024) unsigned char wb_smem[];
+  RnbTurns<RS> turns = wb_begin<RS>(p, wb_smem, NF_STAGE, NF_TILE);
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    wb_produce<RS>(p, turns.ring);
+    return;
+  }
+  rnb_setmaxnreg_inc<232>();
+  const int ci = turns.ci;
+  if (ci >= turns.pair) return;
+  const RnbWgNet& net = p.net;
+  const long long n = p.n;
+  const int lt = threadIdx.x & 127, bar_id = 1 + ci;
+  const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2), cq = 2 * (lt & 3);
+  const long long n0 = (2 * (long long)blockIdx.x + ci) * WG_M;
+  unsigned char* ta = wb_smem + ci * NF_TILE;
+  rnb_bf16* X = reinterpret_cast<rnb_bf16*>(ta);           // A tile [64][384]
+  float* sb = reinterpret_cast<float*>(ta + WG_M * 384 * 2);   // the bias
   const int D = net.n_layers - 3, lh = D, lv = D + 1, lr = D + 2;
-  const int E = net.E, V = 3 * (1 + 2 * multires_view);
-  nerf_wg_pe(pts, views, n, C, multires, multires_view, E, n0, e16, v16, X);
 
-  WgProduct prod;
-  float acc[32];
-  prod.set(w, net, 0, 0, 256);
-  pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
-  // --- the trunk: h = relu(x W + b) in bf16, then e appended before a skip
-  // layer (its input held as [h, e]) ---
+  auto tail = [&] { wb_tail(lt); };
+  auto product = [&](int nk, auto mma) {
+    turns.template product<k_mma>(nk, mma, tail);
+  };
+  // a head's N = 8 accumulators (rows r0, r0 + 8; columns cq, cq + 1) plus
+  // its bias (none in the split) to out [n, o], columns < o, rows < n
+  auto head_out = [&](const float (&a8)[4], const float* bh, int o,
+                      float* out) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const long long row = n0 + r0 + 8 * h;
+        const int c = cq + u;
+        if (c < o && row < n)
+          out[row * o + c] = a8[2 * h + u] + (k_epi ? bh[c] : 0.0f);
+      }
+  };
+
+  nerf_wb_pe_pts(p.in0, n, p.C, p.multires, net.E, n0, X, lt);
+  wb_written(bar_id);
+
+  float acc[128];
+  float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
+  uint32_t bits[4];
+  // --- the trunk: h = relu(x W + b) in bf16 into columns 0..255 ---
   for (int l = 0; l < D; ++l) {
-    pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                          rnb_desc(st + wg * 8 * 64, 32 * 128, 128), t > 0);
+    if constexpr (k_epi) wb_stage_bias(sb, p.b + net.b_off[l], net.out_dim[l], lt);
+    product(rnb_pad16(net.in_dim[l]) >> 4, [&](int t, const rnb_bf16* st) {
+      rnb_wgmma_n256<0, 1>(acc, wb_desc_a(X, t),
+                           rnb_desc(st, 32 * 128, 128), t > 0);
     });
-    if (l + 1 < D) prod.set(w, net, l + 1, 0, 256);
-    else prod.set(w, net, lh, 0, rnb_pad16(net.out_dim[lh]));
-    pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
-    wg_relu_put<8>(acc, b + net.b_off[l], 256, X, wg * 64);
-    nerf_wg_append(X, rnb_pad16(net.in_dim[l + 1]),
-                   net.skip[l + 1] ? e16 : nullptr, NRF_EW, E);
+    if constexpr (!k_put) continue;
+    wb_fwd_put<32, true, k_epi>(acc, sb, X, bits);
+    wb_written(bar_id);
   }
 
-  // --- the fused head: feature block N = 256 (4 x 64) and, by warpgroup 0
-  // in the same K loop, the alpha column at 256 (N = 8) ---
+  // --- the fused head: the feature block (N = 256) and the alpha column
+  // (N = 8 at core of / 8) from one box of the tile's output cores ---
   float acc8[4];
+  if constexpr (k_epi) wb_stage_bias(sb, p.b + net.b_off[lh], net.out_dim[lh], lt);
   {
-    const uint32_t lbo = (uint32_t)prod.n8 * 128;
-    pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-      rnb_wgmma_n64<0, 1>(acc, rnb_desc(X + t * 1024, 1024, 128),
-                          rnb_desc(st + wg * 8 * 64, lbo, 128), t > 0);
-      if (wg == 0)
-        rnb_wgmma_n8<0, 1>(acc8, rnb_desc(X + t * 1024, 1024, 128),
-                           rnb_desc(st + (of >> 3) * 64, lbo, 128), t > 0);
+    const uint32_t lbo = (uint32_t)(rnb_pad16(net.out_dim[lh]) >> 3) * 128;
+    const int ac = (p.of >> 3) * 64;
+    product(rnb_pad16(net.in_dim[lh]) >> 4, [&](int t, const rnb_bf16* st) {
+      const uint64_t da = wb_desc_a(X, t);
+      rnb_wgmma_n256<0, 1>(acc, da, rnb_desc(st, lbo, 128), t > 0);
+      rnb_wgmma_n8<0, 1>(acc8, da, rnb_desc(st + ac, lbo, 128), t > 0);
     });
   }
-  prod.set(w, net, lv, 0, 128);
-  pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
-  // [rnd(feat), PE(views)] is the views layer's input
-  wg_relu_put<8>(acc, b + net.b_off[lh], of, X, wg * 64, false);
-  nerf_wg_append(X, rnb_pad16(net.in_dim[lv]), v16, NRF_VW, V);
-  if (wg == 0) {
-    const int oa = net.out_dim[lh] - of;
-    const float* ba = b + net.b_off[lh] + of;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const long long row = n0 + r0 + 8 * h;
-        const int c = cq + u;
-        if (c < oa && row < n) alpha[row * oa + c] = acc8[2 * h + u] + ba[c];
-      }
+  if constexpr (k_put) {
+    // [rnd(feat), PE(views)] is the views layer's input
+    wb_fwd_put<32, false, k_epi>(acc, sb, X, bits);
+    head_out(acc8, p.b + net.b_off[lh] + p.of, net.out_dim[lh] - p.of, p.out0);
+    nerf_wb_pe_views(p.in1, n, p.multires_view,
+                     rnb_pad16(net.in_dim[lv]) - 256, n0, X, lt);
+    wb_written(bar_id);
   }
 
-  // --- views layer (N = 128 as 4 x 32): relu in bf16 into columns 0..127 ---
-  float acc16[16];
-  pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    rnb_wgmma_n32<0, 1>(acc16, rnb_desc(X + t * 1024, 1024, 128),
-                        rnb_desc(st + wg * 4 * 64, 16 * 128, 128), t > 0);
+  // --- the views layer (N = 128): relu in bf16 into columns 0..127 ---
+  if constexpr (k_epi) wb_stage_bias(sb, p.b + net.b_off[lv], net.out_dim[lv], lt);
+  product(rnb_pad16(net.in_dim[lv]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n128<0, 1>(a64, wb_desc_a(X, t),
+                         rnb_desc(st, 16 * 128, 128), t > 0);
   });
-  prod.set(w, net, lr, 0, 16);
-  pipe_prologue<RS, NRF_FSTG>(ring, prod.nk, prod);
-  wg_relu_put<4>(acc16, b + net.b_off[lv], net.out_dim[lv], X, wg * 32);
-
-  // --- the rgb head (N = 8, warpgroup 0), from its accumulators ---
-  pipe_run<RS, NRF_FSTG>(ring, prod.nk, prod, [&](int t, const rnb_bf16* st) {
-    if (wg == 0)
-      rnb_wgmma_n8<0, 1>(acc8, rnb_desc(X + t * 1024, 1024, 128),
-                         rnb_desc(st, 2 * 128, 128), t > 0);
-  });
-  if (wg == 0) {
-    const int orr = net.out_dim[lr];
-    const float* br = b + net.b_off[lr];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const long long row = n0 + r0 + 8 * h;
-        const int c = cq + u;
-        if (c < orr && row < n) rgb[row * orr + c] = acc8[2 * h + u] + br[c];
-      }
+  if constexpr (k_put) {
+    wb_fwd_put<16, true, k_epi>(a64, sb, X, *reinterpret_cast<uint32_t(*)[2]>(bits));
+    wb_written(bar_id);
   }
+
+  // --- the rgb head (N = 8) ---
+  product(rnb_pad16(net.in_dim[lr]) >> 4, [&](int t, const rnb_bf16* st) {
+    rnb_wgmma_n8<0, 1>(acc8, wb_desc_a(X, t), rnb_desc(st, 2 * 128, 128),
+                       t > 0);
+  });
+  if constexpr (k_put) head_out(acc8, p.b + net.b_off[lr], net.out_dim[lr], p.out1);
 }
 
 // nerf_bwd_wg_kernel, the backward sweep on the tensor cores, designed for
@@ -646,7 +693,7 @@ nerf_fwd_wg_kernel(const float* __restrict__ pts,
 //   * one block of 384 threads a pair of 64-point tiles (2b, 2b + 1), one
 //     block an SM: a producer warpgroup (setmaxnreg 40) whose one thread
 //     loads every weight stage by TMA into a ring of NB_RS slots in the
-//     order of the phase table (WbCursor, wg_bwd.cuh; ops/nerf.py
+//     order of the phase table (WbCursor, wg_sweep.cuh; ops/nerf.py
 //     bwd_steps), and two consumer warpgroups (232 registers), each a whole
 //     tile: m64n256k16 for the trunk, the feature head, the views layer's
 //     reverse (its feature rows), the fused head's reverse and the trunk's;
@@ -688,79 +735,50 @@ nerf_fwd_wg_kernel(const float* __restrict__ pts,
 #define NB_TILE (NB_X + NB_MB + 4 * 256 * 4 + 256 * 4)   // + red + bias
 
 // RS: the ring's stages (NB_RS in production; the tune library's instances
-// take 4 and 8 too); SPLIT: a WgBwdSplit.
+// take 4 and 8 too); SPLIT: a WgSplit.
 template <int RS, int SPLIT = WB_FULL>
 static __global__ void __launch_bounds__(WB_NT, 1)
-nerf_bwd_wg_kernel(const __grid_constant__ WgBwdParams p) {
-  static_assert(RS >= 2 && wb_smem_bytes(RS, NB_TILE) <= 232448, "ring depth");
+nerf_bwd_wg_kernel(const __grid_constant__ WbParams p) {
+  static_assert(RS >= 2 && wb_smem_bytes(RS, WB_STAGE, NB_TILE) <= 232448,
+                "ring depth");
   constexpr bool k_mma = SPLIT != WB_K_LOOPS_ONLY;
   constexpr bool k_epi = SPLIT == WB_FULL || SPLIT == WB_NO_ROWS;
   constexpr bool k_rows = SPLIT == WB_FULL || SPLIT == WB_NO_EPILOGUE;
   extern __shared__ __align__(1024) unsigned char wb_smem[];
-  const RnbWgNet& net = p.net;
-  const long long n = p.n, tiles = (n + WG_M - 1) / WG_M;
-  const int pair = tiles > 2 * (long long)blockIdx.x + 1 ? 2 : 1;
-  RnbRing<RS> ring;
-  ring.base = wb_smem;
-  ring.bytes = WB_STAGE;
-  ring.full = reinterpret_cast<uint64_t*>(wb_smem + RS * WB_STAGE + 2 * NB_TILE);
-  ring.empty = ring.full + RS;
-  const int ci = (threadIdx.x >> 7) - 1;   // a consumer's tile of the pair
-  RnbTurns<RS> turns{ring, ring.empty + RS, ci, pair, 1 + ci};
-  if (threadIdx.x == 0) {
-    ring.init(4 * pair);
-    turns.init();
-    rnb_fence_mbar_init();
-  }
-  __syncthreads();
+  RnbTurns<RS> turns = wb_begin<RS>(p, wb_smem, WB_STAGE, NB_TILE);
   if (threadIdx.x < 128) {   // the producer warpgroup
-    rnb_setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      WbCursor cur{&p, 0, 0};
-      rnb_ring_produce<RS>(ring, cur);
-    }
+    wb_produce<RS>(p, turns.ring);
     return;
   }
   rnb_setmaxnreg_inc<232>();
-  if (ci >= pair) return;
+  const int ci = turns.ci;
+  if (ci >= turns.pair) return;
+  const RnbWgNet& net = p.net;
+  const long long n = p.n;
   const int lt = threadIdx.x & 127, bar_id = 1 + ci;
   const int r0 = ((lt >> 5) << 4) + ((lt & 31) >> 2);
   const long long tile = 2 * (long long)blockIdx.x + ci, n0 = tile * WG_M;
   const bool live0 = n0 + r0 < n, live1 = n0 + r0 + 8 < n;
-  unsigned char* ta = wb_smem + RS * WB_STAGE + ci * NB_TILE;
+  unsigned char* ta = wb_smem + ci * NB_TILE;
   rnb_bf16* X = reinterpret_cast<rnb_bf16*>(ta);      // A tile [64][384]
   uint4* mb = reinterpret_cast<uint4*>(ta + NB_X);    // [NB_MASKS][128]
   float* red = reinterpret_cast<float*>(ta + NB_X + NB_MB);   // [4][256]
   float* sb = red + 4 * 256;                          // the layer's bias
   float* dbt = p.dbp + tile * p.db_len;
   const int D = net.n_layers - 3, lh = D, lv = D + 1, lr = D + 2;
-  const int E = net.E, C = p.C, kp0 = rnb_pad16(E);
-  const int V = 3 * (1 + 2 * p.multires_view);
+  const int E = net.E, kp0 = rnb_pad16(E);
 
-  // layer l's bias into sb by cp.async, under the products before the
-  // epilogue that reads it; zeros past its width (and past 256: the fused
-  // head's alpha column is never added here)
   auto stage_bias = [&](int l) {
-    const float* bl = p.b + net.b_off[l];
-    const int out = net.out_dim[l];
-    for (int c = lt; c < 256; c += 128)
-      rnb_cp_async4(sb + c, c < out ? bl + c : bl, c < out);
-    rnb_cp_async_commit();
+    wb_stage_bias(sb, p.b + net.b_off[l], net.out_dim[l], lt);
   };
-  // once the products retired: the bias has landed and the operand-row
-  // stores issued before the phase have read the tile
-  auto tail = [&] {
-    rnb_cp_async_wait<0>();
-    if (lt == 0) rnb_bulk_wait_read<0>();
-  };
+  auto tail = [&] { wb_tail(lt); };
   auto product = [&](int nk, auto mma) {
     turns.template product<k_mma>(nk, mma, tail);
   };
-  // the tile's writers are done: make it visible to the async proxy, then
-  // one thread stores the first kw columns as the rows of `map`
+  // the tile's writers are done; then one thread stores the first kw
+  // columns as the rows of `map`
   auto rows_out = [&](const CUtensorMap* map, int kw) {
-    rnb_fence_proxy_async();
-    rnb_wg_sync(bar_id);
+    wb_written(bar_id);
     if (k_rows && lt == 0) wb_rows_out(map, X, kw, n0);
   };
   // db of layer l from the column sums in red (a barrier after they were
@@ -770,34 +788,9 @@ nerf_bwd_wg_kernel(const __grid_constant__ WgBwdParams p) {
       dbt[net.b_off[l] + c] = wg_colsum_get(red, c);
   };
 
-  // --- PE(pts) (rows past n from 0) into columns 0..E-1 (layer 0's input)
-  // and 256..256+E-1 (the skip input [h, e]), pads zero ---
-  for (int idx = lt; idx < WG_M * C; idx += 128) {
-    const int pp = idx / C, d = idx - pp * C;
-    const long long row = n0 + pp;
-    const float x = row < n ? p.in0[row * C + d] : 0.0f;
-    auto put = [&](int c, float v) {
-      const rnb_bf16 h = wg_bf(v);
-      X[wb_sidx(pp, c)] = h;
-      X[wb_sidx(pp, 256 + c)] = h;
-    };
-    put(d, x);
-    float s = sinf(x), c = cosf(x);
-    for (int k = 0; k < p.multires; ++k) {
-      put(C * (1 + 2 * k) + d, s);
-      put(C * (2 + 2 * k) + d, c);
-      if (k + 1 < p.multires) {
-        const float s2 = 2.0f * s * c;
-        c = 1.0f - 2.0f * s * s;
-        s = s2;
-      }
-    }
-  }
-  for (int idx = lt; idx < WG_M * (kp0 - E); idx += 128) {
-    const int pp = idx / (kp0 - E), c = E + idx % (kp0 - E);
-    X[wb_sidx(pp, c)] = wg_bf(0.0f);
-    X[wb_sidx(pp, 256 + c)] = wg_bf(0.0f);
-  }
+  // --- PE(pts) into columns 0.. (layer 0's input) and 256.. (the skip
+  // input [h, e], which layers 1-4 never overwrite) ---
+  nerf_wb_pe_pts(p.in0, n, p.C, p.multires, E, n0, X, lt);
   rows_out(&p.amap[0], kp0);
 
   float acc[128];
@@ -820,27 +813,8 @@ nerf_bwd_wg_kernel(const __grid_constant__ WgBwdParams p) {
     } else {
       wb_fwd_put<32, false, k_epi>(acc, sb, X, bits);
       // [rnd(feat), PE(views)] is the views layer's input
-      for (int idx = lt; idx < WG_M * 3; idx += 128) {
-        const int pp = idx / 3, d = idx - 3 * pp;
-        const long long row = n0 + pp;
-        const float x = row < n ? p.in1[row * 3 + d] : 0.0f;
-        X[wb_sidx(pp, 256 + d)] = wg_bf(x);
-        float s = sinf(x), c = cosf(x);
-        for (int k = 0; k < p.multires_view; ++k) {
-          X[wb_sidx(pp, 256 + 3 * (1 + 2 * k) + d)] = wg_bf(s);
-          X[wb_sidx(pp, 256 + 3 * (2 + 2 * k) + d)] = wg_bf(c);
-          if (k + 1 < p.multires_view) {
-            const float s2 = 2.0f * s * c;
-            c = 1.0f - 2.0f * s * s;
-            s = s2;
-          }
-        }
-      }
-      const int kv = rnb_pad16(net.in_dim[lv]) - 256;
-      for (int idx = lt; idx < WG_M * (kv - V); idx += 128) {
-        const int pp = idx / (kv - V), c = 256 + V + idx % (kv - V);
-        X[wb_sidx(pp, c)] = wg_bf(0.0f);
-      }
+      nerf_wb_pe_views(p.in1, n, p.multires_view,
+                       rnb_pad16(net.in_dim[lv]) - 256, n0, X, lt);
     }
     rows_out(&p.amap[l + 1], rnb_pad16(net.in_dim[l + 1]));
   }
@@ -970,29 +944,69 @@ static int nerf_wg_net(RnbWgNet* net, const int* in_dims, const int* out_dims,
   return ok ? db_len : -1;
 }
 
-// The bf16 forward over the image layers (see nerf_fwd_wg_kernel): raw
-// alpha [n, oa] and rgb [n, orr].
-extern "C" int rnb_nerf_fwd_wg(const float* pts, const float* views,
-                               long long n, int C, const void* w,
-                               const float* b, const int* in_dims,
-                               const int* out_dims, const int* skip,
-                               const long long* w_off, int n_layers, int of,
-                               int multires, int multires_view, float* alpha,
-                               float* rgb, void* stream) {
-  RnbWgNet net;
-  if (nerf_wg_net(&net, in_dims, out_dims, skip, w_off, nullptr, nullptr,
-                  n_layers, of, C, multires, multires_view) < 0)
+#define RNB_NERF_FWD_PARAMS                                                  \
+  const float *pts, const float *views, long long n, int C, const void *w,   \
+      const float *b, const int *in_dims, const int *out_dims,               \
+      const int *skip, const long long *w_off, int n_layers, int of,         \
+      int multires, int multires_view, float *alpha, float *rgb, void *stream
+
+// The forward's arguments: the net, the buffers and the phase table of its
+// ring, in the products' order (ops/nerf.py fwd_steps): the trunk forward
+// (box {64, 32, 2}), the fused head ({64, 34, 2}: the feature block and
+// the alpha column from one box), the views layer ({64, 16, 2}: N = 128),
+// the rgb head ({64, 2, 2}: N = 8). 0 on success.
+static int nerf_fwd_params(WbParams* p, RNB_NERF_FWD_PARAMS) {
+  if (nerf_wg_net(&p->net, in_dims, out_dims, skip, w_off, nullptr, nullptr,
+                  n_layers, of, C, multires, multires_view) < 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)(sizeof(rnb_bf16) * (WG_M * (NRF_KW + NRF_EW + NRF_VW) +
-                                             WG_RS * NRF_FSTG));
+  const int D = n_layers - 3;
+  wb_init(p, n, b, NF_STAGE);
+  p->in0 = pts;
+  p->in1 = views;
+  p->out0 = alpha;
+  p->out1 = rgb;
+  p->C = C;
+  p->multires = multires;
+  p->multires_view = multires_view;
+  p->of = of;
+  int rc = 0;
+  for (int l = 0; l < D && !rc; ++l) rc = wb_phase(p, w, l, 0, 32, 0);
+  if (!rc) rc = wb_phase(p, w, D, 0, rnb_pad16(out_dims[D]) >> 3, 0);
+  if (!rc) rc = wb_phase(p, w, D + 1, 0, 16, 0);
+  if (!rc) rc = wb_phase(p, w, D + 2, 0, 2, 0);
+  return rc;
+}
+
+// The forward at ring depth RS.
+template <int RS, int SPLIT = WB_FULL>
+static int nerf_fwd_launch(const WbParams& p, cudaStream_t st) {
+  constexpr int smem = wb_smem_bytes(RS, NF_STAGE, NF_TILE);
   cudaError_t err = cudaFuncSetAttribute(
-      nerf_fwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      nerf_fwd_wg_kernel<RS, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n + WG_M - 1) / WG_M;
-  nerf_fwd_wg_kernel<<<(unsigned)tiles, NRF_NT, smem, (cudaStream_t)stream>>>(
-      pts, views, n, C, static_cast<const rnb_bf16*>(w), b, net, of, multires,
-      multires_view, alpha, rgb);
+  const long long tiles = (p.n + WG_M - 1) / WG_M;
+  nerf_fwd_wg_kernel<RS, SPLIT>
+      <<<(unsigned)((tiles + 1) / 2), WB_NT, smem, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+#define RNB_NERF_FWD_SETUP                                                   \
+  WbParams prm;                                                              \
+  const int rc = nerf_fwd_params(&prm, pts, views, n, C, w, b, in_dims,      \
+                                 out_dims, skip, w_off, n_layers, of,        \
+                                 multires, multires_view, alpha, rgb,        \
+                                 stream);                                    \
+  if (rc) return rc;                                                         \
+  cudaStream_t st = (cudaStream_t)stream
+
+// The bf16 forward over the image layers (see nerf_fwd_wg_kernel): raw
+// alpha [n, oa] and rgb [n, orr]. w is the bf16 weight image (ops/wg.py
+// pack_weights) at w_off.
+extern "C" int rnb_nerf_fwd_wg(RNB_NERF_FWD_PARAMS) {
+  RNB_NERF_FWD_SETUP;
+  return nerf_fwd_launch<NF_RS>(prm, st);
 }
 
 // The backward sweep's arguments: the net, the buffers, the phase table of
@@ -1003,7 +1017,7 @@ extern "C" int rnb_nerf_fwd_wg(const float* pts, const float* views,
 // ({64, 2, 16}: N = 128), the views layer reverse ({64, 2, 32}: its
 // feature rows), the fused head's and the trunk's reverse ({64, 2, 32}:
 // the h rows). 0 on success.
-static int nerf_bwd_params(WgBwdParams* p, const float* pts,
+static int nerf_bwd_params(WbParams* p, const float* pts,
                            const float* views, long long n, int C,
                            const void* w, const float* b, const int* in_dims,
                            const int* out_dims, const int* skip,
@@ -1018,22 +1032,17 @@ static int nerf_bwd_params(WgBwdParams* p, const float* pts,
   const int D = n_layers - 3;
   if (db_len < 0 || D + 1 > NB_MASKS || reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
+  wb_init(p, n, b, WB_STAGE);
   p->in0 = pts;
   p->in1 = views;
-  p->in2 = nullptr;
-  p->b = b;
   p->cot0 = calpha;
   p->cot1 = crgb;
   p->dbp = dbp;
-  p->out0 = p->out1 = nullptr;
-  p->n = n;
   p->db_len = db_len;
   p->C = C;
-  p->F = 0;
   p->multires = multires;
   p->multires_view = multires_view;
   p->of = of;
-  p->n_ph = 0;
   int rc = 0;
   for (int l = 0; l <= D && !rc; ++l) rc = wb_phase(p, w, l, 0, 32, 0);
   if (!rc) rc = wb_phase(p, w, D + 1, 0, 16, 0);
@@ -1046,8 +1055,8 @@ static int nerf_bwd_params(WgBwdParams* p, const float* pts,
 // The sweep at ring depth RS, then the fixed-order sum of the per-tile db
 // partials (dbp) into db.
 template <int RS, int SPLIT = WB_FULL>
-static int nerf_bwd_launch(const WgBwdParams& p, float* db, cudaStream_t st) {
-  constexpr int smem = wb_smem_bytes(RS, NB_TILE);
+static int nerf_bwd_launch(const WbParams& p, float* db, cudaStream_t st) {
+  constexpr int smem = wb_smem_bytes(RS, WB_STAGE, NB_TILE);
   cudaError_t err = cudaFuncSetAttribute(
       nerf_bwd_wg_kernel<RS, SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1070,7 +1079,7 @@ static int nerf_bwd_launch(const WgBwdParams& p, float* db, cudaStream_t st) {
       int multires_view, const float *calpha, const float *crgb, void *abuf, \
       void *bbuf, float *dbp, float *db, void *stream
 #define RNB_NERF_BWD_SETUP                                                   \
-  WgBwdParams prm;                                                           \
+  WbParams prm;                                                              \
   const int rc = nerf_bwd_params(&prm, pts, views, n, C, w, b, in_dims,      \
                                  out_dims, skip, w_off, a_off, bb_off,       \
                                  n_layers, of, multires, multires_view,      \
@@ -1088,11 +1097,19 @@ extern "C" int rnb_nerf_bwd_wg(RNB_NERF_BWD_PARAMS) {
   return nerf_bwd_launch<NB_RS>(prm, db, st);
 }
 
+// The dynamic shared memory of the production forward (bwd 0) or backward
+// sweep (bwd 1), as they launch.
+extern "C" int rnb_nerf_wg_smem(int bwd) {
+  return bwd ? wb_smem_bytes(NB_RS, WB_STAGE, NB_TILE)
+             : wb_smem_bytes(NF_RS, NF_STAGE, NF_TILE);
+}
+
 // The tune library's instances (ops/_build.py library("tune"), nvcc
-// -DRNB_TUNE; tools/tune_kernel.py, tools/ablate_kernel.py --wg_bwd): the
-// production sweep at ring depths 4, 8 and 10 (NB_RS, the deepest that
-// fits: 227,504 B of shared memory; 11 would pass the SM's 232,448) and
-// its timing split.
+// -DRNB_TUNE; tools/tune_kernel.py, tools/ablate_kernel.py --wg_bwd and
+// --wg_fwd): the production sweep at ring depths 4, 8 and 10 (NB_RS, the
+// deepest that fits: 227,504 B of shared memory; 11 would pass the SM's
+// 232,448) and its timing split; the production forward at ring depths 4,
+// 8 and 15 (NF_RS) and its timing split.
 #ifdef RNB_TUNE
 extern "C" int rnb_nerf_bwd_wg_tune(int rs, RNB_NERF_BWD_PARAMS) {
   RNB_NERF_BWD_SETUP;
@@ -1104,7 +1121,7 @@ extern "C" int rnb_nerf_bwd_wg_tune(int rs, RNB_NERF_BWD_PARAMS) {
   }
 }
 
-// The production sweep's timing split: split a WgBwdSplit; only WB_FULL
+// The production sweep's timing split: split a WgSplit; only WB_FULL
 // computes the function.
 extern "C" int rnb_nerf_bwd_wg_split(int split, RNB_NERF_BWD_PARAMS) {
   RNB_NERF_BWD_SETUP;
@@ -1117,6 +1134,33 @@ extern "C" int rnb_nerf_bwd_wg_split(int split, RNB_NERF_BWD_PARAMS) {
     case WB_NO_ROWS: return nerf_bwd_launch<NB_RS, WB_NO_ROWS>(prm, db, st);
     case WB_NO_EPILOGUE:
       return nerf_bwd_launch<NB_RS, WB_NO_EPILOGUE>(prm, db, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int rnb_nerf_fwd_wg_tune(int rs, RNB_NERF_FWD_PARAMS) {
+  RNB_NERF_FWD_SETUP;
+  switch (rs) {
+    case 4: return nerf_fwd_launch<4>(prm, st);
+    case 8: return nerf_fwd_launch<8>(prm, st);
+    case NF_RS: return nerf_fwd_launch<NF_RS>(prm, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The production forward's timing split: split one of WB_FULL,
+// WB_K_LOOPS_ONLY, WB_PRODUCTS_ONLY, WB_NO_EPILOGUE; only WB_FULL computes
+// the function.
+extern "C" int rnb_nerf_fwd_wg_split(int split, RNB_NERF_FWD_PARAMS) {
+  RNB_NERF_FWD_SETUP;
+  switch (split) {
+    case WB_FULL: return nerf_fwd_launch<NF_RS, WB_FULL>(prm, st);
+    case WB_K_LOOPS_ONLY:
+      return nerf_fwd_launch<NF_RS, WB_K_LOOPS_ONLY>(prm, st);
+    case WB_PRODUCTS_ONLY:
+      return nerf_fwd_launch<NF_RS, WB_PRODUCTS_ONLY>(prm, st);
+    case WB_NO_EPILOGUE:
+      return nerf_fwd_launch<NF_RS, WB_NO_EPILOGUE>(prm, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

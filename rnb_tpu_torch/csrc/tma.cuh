@@ -1,8 +1,8 @@
 // Hopper's Tensor Memory Accelerator (TMA) and shared-memory barriers
 // (mbarrier) for the warp-specialised kernels (dw_gemm.cu, the SDF core's
-// forward and backward sweep in sdf_core.cu, the albedo and NeRF backward
-// sweeps through wg_bwd.cuh): 2-D and 3-D tiled tensor maps encoded on the
-// host, the bulk tensor loads and stores that one thread issues for a
+// forward and backward sweep in sdf_core.cu, the albedo and NeRF forwards
+// and backward sweeps through wg_sweep.cuh): 2-D and 3-D tiled tensor
+// maps encoded on the host, the bulk tensor loads and stores that one thread issues for a
 // whole box and its bulk prefetch into L2, the barriers that count its
 // bytes and the consumers' releases, a ring of stages that one producer
 // thread feeds (RnbRing, rnb_ring_produce), the turns two consumer

@@ -1,12 +1,14 @@
-// The pieces shared by the bf16 backward sweeps of the albedo net and the
-// background NeRF (albedo.cu albedo_bwd_wg_kernel, nerf.cu
-// nerf_bwd_wg_kernel): one block a pair of 64-point tiles, a producer
-// warpgroup whose one thread loads the weight image into a TMA ring
-// (RnbRing, tma.cuh) in the order of a table of product phases, two
-// consumer warpgroups that each own a whole tile at N = 256 and take turns
-// at the ring (RnbTurns, tma.cuh), and the operand rows written by TMA
-// stores from the K-major A tile (in wgmma's 128-byte swizzle, so that a
-// store writes whole 128-byte rows).
+// The pieces shared by the bf16 sweeps of the albedo net and the
+// background NeRF, forward and backward (albedo.cu albedo_fwd_wg_kernel,
+// albedo_bwd_wg_kernel; nerf.cu nerf_fwd_wg_kernel, nerf_bwd_wg_kernel): one
+// block a pair of 64-point tiles, a producer warpgroup whose one thread
+// loads the weight image into a TMA ring (RnbRing, tma.cuh) in the order of
+// a table of product phases, two consumer warpgroups that each own a whole
+// tile at N = 256 and take turns at the ring (RnbTurns, tma.cuh), the bias
+// staged by cp.async, branch-free epilogues into the K-major A tile (in
+// wgmma's 128-byte swizzle), and, in the backward sweeps, the operand rows
+// written by TMA stores from that tile (so that a store writes whole
+// 128-byte rows).
 //
 // A phase is one product: nk K-steps of 16, each one 3-D box of the layer's
 // tile of the 8x8-core weight image (dims {64, npc, kpc}, as sdf_core.cu's
@@ -14,29 +16,34 @@
 // (nb output cores, MN-major B: LBO nb·128 B, SBO 128 B); the reverse's
 // (the Wᵀ read) at (0, 2t, c2), box {64, 2, ib} (ib input cores from core
 // c2, K-major B: LBO 128 B, SBO 256 B). Boxes past the tile read zeros.
-// ops/albedo.py and ops/nerf.py bwd_steps describe the same tables and the
-// CPU tests hold them against the products of the plain versions.
+// ops/albedo.py and ops/nerf.py fwd_steps / bwd_steps describe the same
+// tables and the CPU tests hold them against the products of the plain
+// versions.
 #pragma once
 
 #include "tma.cuh"
 #include "wg_pipe.cuh"
 
 #define WB_NT 384          // a producer warpgroup and two consumer warpgroups
-#define WB_STAGE 8192      // bytes of a ring slot: the largest box, 2 x 32 cores
+#define WB_STAGE 8192      // bytes of a ring slot: 2 x 32 cores (the NeRF
+                           // forward's slot is larger, nerf.cu NF_STAGE)
 #define WB_MAXPH 24        // product phases a sweep may have
 
-// The timing split of the backward sweeps (the tune library only; each
-// instance strips one part and keeps the rest; ops/wg.py WG_BWD_SPLIT).
-enum WgBwdSplit {
+// The timing split of the sweeps (the tune library only; each instance
+// strips one part and keeps the rest; ops/wg.py WG_BWD_SPLIT, and
+// WG_FWD_SPLIT of the forwards, which write no rows).
+enum WgSplit {
   WB_FULL = 0,            // the production kernel
   WB_K_LOOPS_ONLY = 1,    // the ring and its barriers: no wgmma, no epilogue
-  WB_PRODUCTS_ONLY = 2,   // no epilogue arithmetic, no operand rows
+  WB_PRODUCTS_ONLY = 2,   // no epilogue arithmetic, no operand rows (the
+                          // forwards: no epilogue, nothing written)
   WB_NO_ROWS = 3,         // no operand-row stores
   WB_NO_EPILOGUE = 4      // no bias, ReLU or mask work: acc rounded into X
+                          // (the forwards: the heads written raw)
 };
 
 struct RnbPhase {
-  int map;    // index of its tensor map (WgBwdParams::wmap)
+  int map;    // index of its tensor map (WbParams::wmap)
   int nk;     // K-steps
   int rev;    // 0: forward box at (0, 0, 2t); 1: reverse box at (0, 2t, c2)
   int c2;     // the reverse box's first input core
@@ -45,35 +52,39 @@ struct RnbPhase {
 
 // The launch's arguments in kernel parameter space (__grid_constant__: the
 // tensor maps must lie in parameter, constant or global memory).
-struct WgBwdParams {
+struct WbParams {
   RnbWgNet net;
   const float* in0;    // pts
   const float* in1;    // views (NeRF) / normals (albedo)
   const float* in2;    // feat (albedo)
   const float* b;      // biases in image order
-  const float* cot0;   // c_alpha (NeRF) / c_out (albedo)
-  const float* cot1;   // c_rgb (NeRF)
-  float* dbp;          // per-tile db, ceil(n/64) x db_len
-  float* out0;         // c_normals (albedo)
-  float* out1;         // c_feat (albedo)
+  const float* cot0;   // c_alpha (NeRF) / c_out (albedo); backward
+  const float* cot1;   // c_rgb (NeRF); backward
+  float* dbp;          // per-tile db, ceil(n/64) x db_len; backward
+  float* out0;         // c_normals (albedo backward), out (albedo forward),
+                       // alpha (NeRF forward)
+  float* out1;         // c_feat (albedo backward), rgb (NeRF forward)
   long long n;
   int db_len, C, F, multires, multires_view, of;
+  int stage;           // bytes of a ring slot
   int n_ph;
   RnbPhase ph[WB_MAXPH];
   CUtensorMap wmap[WB_MAXPH];    // a phase's layer tile with its box
-  CUtensorMap amap[RNB_MAXL];    // layer l's A rows [n, pad16(in)]
-  CUtensorMap bmap[RNB_MAXL];    // layer l's B rows [n, pad16(out)]
+  CUtensorMap amap[RNB_MAXL];    // layer l's A rows [n, pad16(in)]; backward
+  CUtensorMap bmap[RNB_MAXL];    // layer l's B rows [n, pad16(out)]; backward
 };
 
-// shared memory of a block: RS ring slots, two tiles of `tile_bytes`, the
-// ring's full and empty barriers and the two turn barriers
-__host__ __device__ constexpr int wb_smem_bytes(int rs, int tile_bytes) {
-  return rs * WB_STAGE + 2 * tile_bytes + (2 * rs + 2) * 8;
+// shared memory of a block: two tiles of `tile_bytes` (each 1 KB aligned),
+// RS ring slots of `stage` bytes, the ring's full and empty barriers and
+// the two turn barriers
+__host__ __device__ constexpr int wb_smem_bytes(int rs, int stage,
+                                                int tile_bytes) {
+  return 2 * tile_bytes + rs * stage + (2 * rs + 2) * 8;
 }
 
 // The producer thread's walk over the phase table.
 struct WbCursor {
-  const WgBwdParams* p;
+  const WbParams* p;
   int i, t;
   __device__ __forceinline__ bool done() const { return i >= p->n_ph; }
   __device__ __forceinline__ void issue(unsigned char* st, uint64_t* bar) {
@@ -87,6 +98,71 @@ struct WbCursor {
     }
   }
 };
+
+// The start of a sweep block (WB_NT threads, tiles 2b and 2b + 1): the two
+// tiles' areas of `tile` bytes at the front of shared memory, then RS ring
+// slots of `stage` bytes, then the ring's and the turns' barriers, which
+// thread 0 sets up. -> the turns of consumer warpgroup ci = threadIdx.x /
+// 128 - 1 (its tile of the pair; the producer's threads get ci -1). The
+// kernel then sends the producer warpgroup (threadIdx.x < 128) to
+// wb_produce and returns it, and raises a consumer's registers
+// (setmaxnreg) itself: code after a join of the two paths would be held to
+// the lower register budget, and spill.
+template <int RS>
+__device__ __forceinline__ RnbTurns<RS> wb_begin(const WbParams& p,
+                                                 unsigned char* smem,
+                                                 int stage, int tile) {
+  const long long tiles = (p.n + WG_M - 1) / WG_M;
+  const int pair = tiles > 2 * (long long)blockIdx.x + 1 ? 2 : 1;
+  RnbRing<RS> ring;
+  ring.base = smem + 2 * tile;
+  ring.bytes = stage;
+  ring.full = reinterpret_cast<uint64_t*>(smem + 2 * tile + RS * stage);
+  ring.empty = ring.full + RS;
+  const int ci = (threadIdx.x >> 7) - 1;
+  RnbTurns<RS> turns{ring, ring.empty + RS, ci, pair, 1 + ci};
+  if (threadIdx.x == 0) {
+    ring.init(4 * pair);
+    turns.init();
+    rnb_fence_mbar_init();
+  }
+  __syncthreads();
+  return turns;
+}
+
+// The producer warpgroup: gives registers back; its one thread loads every
+// stage of the phase table into the ring, each once its slot is free.
+template <int RS>
+__device__ __forceinline__ void wb_produce(const WbParams& p,
+                                           const RnbRing<RS>& ring) {
+  rnb_setmaxnreg_dec<40>();
+  if (threadIdx.x == 0) {
+    WbCursor cur{&p, 0, 0};
+    rnb_ring_produce<RS>(ring, cur);
+  }
+}
+
+// Layer l's bias (bl, `out` wide) into sb [256] by cp.async, under the
+// products before the epilogue that reads it; zeros past its width (and
+// past 256: the NeRF's fused head's alpha columns are never added there).
+__device__ __forceinline__ void wb_stage_bias(float* sb, const float* bl,
+                                              int out, int lt) {
+  for (int c = lt; c < 256; c += 128)
+    rnb_cp_async4(sb + c, c < out ? bl + c : bl, c < out);
+  rnb_cp_async_commit();
+}
+// A product's tail, once its wgmmas retired: the bias has landed and the
+// operand-row stores issued before the phase have read the tile.
+__device__ __forceinline__ void wb_tail(int lt) {
+  rnb_cp_async_wait<0>();
+  if (lt == 0) rnb_bulk_wait_read<0>();
+}
+// The tile's writers are done: their writes made visible to the async
+// proxy (wgmma, TMA) and the warpgroup met at its named barrier.
+__device__ __forceinline__ void wb_written(int bar_id) {
+  rnb_fence_proxy_async();
+  rnb_wg_sync(bar_id);
+}
 
 // The A tile of these sweeps is K-major in wgmma's 128-byte swizzle:
 // blocks of 64 columns (8 KB, 1 KB aligned), each 64 rows of 128 B, the
@@ -237,15 +313,30 @@ __device__ __forceinline__ void wb_rev_put(const float (&acc)[4 * NJ],
 // host
 // ---------------------------------------------------------------------------
 
+// The arguments every sweep sets (the others null or 0): n points, the
+// biases b in image order, ring slots of `stage` bytes, no phase yet.
+static inline void wb_init(WbParams* p, long long n, const float* b,
+                           int stage) {
+  p->in0 = p->in1 = p->in2 = nullptr;
+  p->b = b;
+  p->cot0 = p->cot1 = nullptr;
+  p->dbp = p->out0 = p->out1 = nullptr;
+  p->n = n;
+  p->db_len = p->C = p->F = p->multires = p->multires_view = p->of = 0;
+  p->stage = stage;
+  p->n_ph = 0;
+}
+
 // Appends layer l's tile of the weight image w as a phase: forward (rev 0)
 // over pad16(in)/16 K-steps, box {64, nb, 2}; reverse over pad16(out)/16,
-// box {64, 2, nb} from input core c2. The map's dims are the tile's cores
+// box {64, 2, nb} from input core c2; the box within p->stage bytes. The map's dims are the tile's cores
 // {64, npc, kpc} (sdf_core.cu sdf_layer_map). 0 on success.
-static inline int wb_phase(WgBwdParams* p, const void* w, int l, int rev,
+static inline int wb_phase(WbParams* p, const void* w, int l, int rev,
                            int nb, int c2) {
   const RnbWgNet& net = p->net;
   const int k = p->n_ph;
-  if (k >= WB_MAXPH || nb < 1 || nb > 32) return (int)cudaErrorInvalidValue;
+  if (k >= WB_MAXPH || nb < 1 || 2 * nb * 128 > p->stage)
+    return (int)cudaErrorInvalidValue;
   const long long npc = rnb_pad16(net.out_dim[l]) >> 3;
   const long long kpc = rnb_pad16(net.in_dim[l]) >> 3;
   const long long dims[3] = {64, npc, kpc}, strides[2] = {128, npc * 128};
@@ -263,7 +354,7 @@ static inline int wb_phase(WgBwdParams* p, const void* w, int l, int rev,
 // Each layer's A rows (abuf at a_off, [n, pad16(in)]) and B rows (bbuf at
 // bb_off, [n, pad16(out)]) as row maps of 64 x 64 boxes in the 128-byte
 // swizzle (rnb_tma_map_bf16). 0 on success.
-static inline int wb_rows(WgBwdParams* p, void* abuf, void* bbuf) {
+static inline int wb_rows(WbParams* p, void* abuf, void* bbuf) {
   const RnbWgNet& net = p->net;
   for (int l = 0; l < net.n_layers; ++l) {
     int rc = rnb_tma_map_bf16(&p->amap[l],

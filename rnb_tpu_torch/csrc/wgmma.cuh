@@ -47,14 +47,6 @@ __device__ __forceinline__ void rnb_fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// 16 bytes global -> shared; zero-filled when !valid (src is not read).
-__device__ __forceinline__ void rnb_cp_async16(void* dst, const void* src,
-                                               bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   rnb_smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
 // 4 bytes global -> shared; zero-filled when !valid (src is not read).
 __device__ __forceinline__ void rnb_cp_async4(void* dst, const void* src,
                                               bool valid) {
@@ -103,23 +95,6 @@ __device__ __forceinline__ void rnb_wgmma_n24(float (&d)[12], uint64_t da,
       "%12, %13, p, 1, 1, %15, %16;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// d[16] (+)= A[64x16] * B[16x32], bf16 operands from shared memory, f32 sum.
-template <int TA, int TB>
-__device__ __forceinline__ void rnb_wgmma_n32(float (&d)[16], uint64_t da,
-    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

@@ -10,16 +10,16 @@ and flags; a process that finds the library already built loads it.
 ``library("tune")`` is a second library, for the tile sweep
 (``rnb_tpu_torch.tools.tune_kernel``) and the timing splits
 (``rnb_tpu_torch.tools.ablate_kernel --fwd_split``, ``--bwd``,
-``--wg_bwd``) only: ``csrc/sdf_core.cu``, ``csrc/albedo.cu`` and
-``csrc/nerf.cu`` under ``-DRNB_TUNE``, which adds the SDF core's
+``--wg_bwd``, ``--wg_fwd``) only: ``csrc/sdf_core.cu``, ``csrc/albedo.cu``
+and ``csrc/nerf.cu`` under ``-DRNB_TUNE``, which adds the SDF core's
 tensor-core sweeps at other ring depths (``rnb_sdf_fwd_wg_tune``,
 ``rnb_sdf_bwd_wg_tune``) and the split instances of its forward and
 backward sweep (``rnb_sdf_fwd_wg_split``, ``rnb_sdf_bwd_wg_split``), the
-albedo and NeRF backward sweeps at other ring depths
-(``rnb_albedo_bwd_wg_tune``, ``rnb_nerf_bwd_wg_tune``) and in their timing
-split (``rnb_albedo_bwd_wg_split``, ``rnb_nerf_bwd_wg_split``), beside the
-production entries, into ``librnb_kernels_tune_<hash>.so``. The production
-library never holds those instances.
+albedo and NeRF forwards and backward sweeps at other ring depths
+(``rnb_{albedo,nerf}_{fwd,bwd}_wg_tune``) and in their timing splits
+(``rnb_{albedo,nerf}_{fwd,bwd}_wg_split``), beside the production entries,
+into ``librnb_kernels_tune_<hash>.so``. The production library never holds
+those instances.
 
 Every C entry returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on anything but 0. ``launches`` counts, per wrapper, the
@@ -55,6 +55,9 @@ FWD_TUNE_DEPTHS = (4, 8, 12, 16)
 # the albedo and NeRF backward sweeps' (production AB_RS = 16 and NB_RS =
 # 10: the deepest that fit, csrc/albedo.cu and csrc/nerf.cu)
 BWD_TUNE_DEPTHS = {"albedo": (4, 8, 12, 16), "nerf": (4, 8, 10)}
+# the albedo and NeRF forwards' (production AF_RS = 18 and NF_RS = 15, the
+# deepest that fit)
+WG_FWD_TUNE_DEPTHS = {"albedo": (4, 8, 18), "nerf": (4, 8, 15)}
 
 # sdf_core_fwd / sdf_core_bwd, albedo_fwd / albedo_bwd and nerf_fwd /
 # nerf_bwd count the bf16 route (tensor-core kernels), the *_f32 keys the
@@ -69,14 +72,17 @@ launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
             "nerf_bwd": 0, "nerf_fwd_f32": 0, "nerf_bwd_f32": 0,
             "nerf_dw_gemm": 0, "sdf_fwd_ablate": 0,
             # the tune library's timing splits of the SDF-core forward and
-            # backward sweep, and of the albedo and NeRF backward sweeps
+            # backward sweep, and of the albedo and NeRF forwards and
+            # backward sweeps
             "sdf_fwd_split": 0, "sdf_bwd_split": 0, "albedo_bwd_split": 0,
-            "nerf_bwd_split": 0,
+            "nerf_bwd_split": 0, "albedo_fwd_split": 0, "nerf_fwd_split": 0,
             # the tune library's sweeps, by ring depth
             **{f"sdf_core_fwd_rs{rs}": 0 for rs in FWD_TUNE_DEPTHS},
             **{f"sdf_core_bwd_rs{rs}": 0 for rs in TUNE_DEPTHS},
             **{f"{op}_bwd_rs{rs}": 0
-               for op, depths in BWD_TUNE_DEPTHS.items() for rs in depths}}
+               for op, depths in BWD_TUNE_DEPTHS.items() for rs in depths},
+            **{f"{op}_fwd_rs{rs}": 0
+               for op, depths in WG_FWD_TUNE_DEPTHS.items() for rs in depths}}
 
 # filled by the first library(kind) call of the process, per kind
 build_info = {kind: {"seconds": None, "path": None, "log": ""}
@@ -155,6 +161,10 @@ _SIGNATURES = {
     # abuf, bbuf, dbp, db, stream
     "rnb_nerf_bwd_wg": (_P, _P, _LL, _I, _P, _P, _IP, _IP, _IP, _LLP, _LLP,
                         _LLP, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # the production forward's (0) or backward sweep's (1) dynamic shared
+    # memory
+    "rnb_albedo_wg_smem": (_I,),
+    "rnb_nerf_wg_smem": (_I,),
 }
 
 # the tune library's entries: the depth or the split, then rnb_sdf_fwd_wg's
@@ -164,8 +174,8 @@ _TUNE_SIGNATURES = {
     "rnb_sdf_fwd_wg_split": (_I, *_SIGNATURES["rnb_sdf_fwd_wg"][1:]),
     "rnb_sdf_bwd_wg_tune": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
     "rnb_sdf_bwd_wg_split": (_I, *_SIGNATURES["rnb_sdf_bwd_wg"]),
-    **{f"rnb_{op}_bwd_{kind}": (_I, *_SIGNATURES[f"rnb_{op}_bwd_wg"])
-       for op in ("albedo", "nerf")
+    **{f"rnb_{op}_{pas}_{kind}": (_I, *_SIGNATURES[f"rnb_{op}_{pas}_wg"])
+       for op in ("albedo", "nerf") for pas in ("fwd", "bwd")
        for kind in ("wg_tune", "wg_split")},
 }
 # the production entries the tune library also exports

@@ -150,7 +150,7 @@ def albedo_fwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs,
     if not pts.is_cuda:
         return albedo_fwd_plain(cfg, pts, nrm, feat, ws, bs, dtype)
     if _build.bf16_flag(dtype):
-        out = _fwd_wg(cfg, pts, nrm, feat, ws, bs, packed)
+        out = fwd_wg(cfg, pts, nrm, feat, ws, bs, packed)
         _build.launches["albedo_fwd"] += 1
     else:
         out = _fwd_f32(cfg, pts, nrm, feat, ws, bs)
@@ -215,6 +215,13 @@ def wg_pack(ws, bs):
     return image, torch.cat([b.detach().reshape(-1) for b in bs]).contiguous()
 
 
+def _check_feat(feat):
+    if feat.shape[1] % 4:
+        raise ValueError("the bf16 albedo kernels read the features as "
+                         f"float4: a width that is a multiple of 4, got "
+                         f"{feat.shape[1]}")
+
+
 def _check_wg(lay: dict):
     ins, outs = lay["in_dims"], lay["out_dims"]
     if (len(ins) < 2 or lay["kp"][0] > 320 or max(outs[:-1]) > 256
@@ -225,27 +232,63 @@ def _check_wg(lay: dict):
             f"got in {ins}, out {outs}")
 
 
-def _fwd_wg(cfg, pts, nrm, feat, ws, bs, packed):
+# The forward's ring (csrc/albedo.cu albedo_fwd_params; csrc/wg_sweep.cuh
+# WbCursor walks it), as (kind, layer, box, c2): the hidden layers forward
+# at N = 256 (32 output cores), the head forward at N = 8 (2 cores, its
+# N = 8 product reads the first): the backward's recompute phases. One
+# block a pair of 64-point tiles (wg.pair_blocks); each tile's area: the A
+# tile [64][320] bf16 and the bias, f32.
+FWD_TILE_BYTES = 64 * 320 * 2 + 256 * 4
+
+
+def fwd_phases(lay: dict) -> list:
+    """The forward's phase table, in the products' order."""
+    L = len(lay["in_dims"])
+    return ([("fwd", l, (64, 32, 2), 0) for l in range(L - 1)]
+            + [("fwd", L - 1, (64, 2, 2), 0)])
+
+
+def fwd_steps(lay: dict) -> list:
+    """The forward's ring stages in the order its products take them:
+    (kind, layer, box, coordinates); both tiles of a block read each."""
+    return wg.phase_steps(lay, fwd_phases(lay))
+
+
+def fwd_smem_bytes(depth: int = wg.ALBEDO_FWD_RING_DEPTH) -> int:
+    """The forward's shared memory at ring ``depth``."""
+    return wg.ring_smem_bytes(depth, FWD_TILE_BYTES)
+
+
+def fwd_wg(cfg, pts, nrm, feat, ws, bs, packed=None, tune=None):
+    """The bf16 forward kernel alone (CUDA tensors): ``rnb_albedo_fwd_wg``,
+    or the tune library's instance ``tune`` = (entry, leading arguments)
+    that ``wg.fwd_tune`` names; on ``packed`` (``wg_pack``; packed here
+    when None). Counts nothing. -> [N, d_out]."""
     _check_args(cfg, pts, nrm, feat, ws, bs)
     pts, nrm, feat = (t.detach().contiguous() for t in (pts, nrm, feat))
     n, L = pts.shape[0], len(ws)
     lay = wg_layout(ws)
     _check_wg(lay)
+    _check_feat(feat)
+    if feat.data_ptr() % 16:   # the kernel reads the feature rows as float4
+        feat = feat.clone()
+    entry, lead = tune or ("rnb_albedo_fwd_wg", ())
+    kind = "tune" if tune else "main"
     image, bflat = packed or wg_pack(ws, bs)
     out = torch.empty(n, lay["out_dims"][-1], device=pts.device)
     with torch.cuda.device(pts.device):
-        rc = _build.library().rnb_albedo_fwd_wg(
-            pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n, feat.shape[1],
-            image.data_ptr(), bflat.data_ptr(), _build.int_array(lay["in_dims"]),
-            _build.int_array(lay["out_dims"]), _build.ll_array(lay["w_off"]), L,
-            cfg.multires_view, out.data_ptr(),
+        rc = getattr(_build.library(kind), entry)(
+            *lead, pts.data_ptr(), nrm.data_ptr(), feat.data_ptr(), n,
+            feat.shape[1], image.data_ptr(), bflat.data_ptr(),
+            _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
+            _build.ll_array(lay["w_off"]), L, cfg.multires_view, out.data_ptr(),
             torch.cuda.current_stream(pts.device).cuda_stream)
-    _build.check(rc, "rnb_albedo_fwd_wg")
+    _build.check(rc, entry, kind)
     return out
 
 
 # The backward sweep's ring (csrc/albedo.cu albedo_bwd_params;
-# csrc/wg_bwd.cuh WbCursor walks it), as (kind, layer, box, c2): the hidden
+# csrc/wg_sweep.cuh WbCursor walks it), as (kind, layer, box, c2): the hidden
 # layers forward at N = 256 (32 output cores), the head forward at N = 8 (2
 # cores, its N = 8 product reads the first); the head and the hidden
 # layers but layer 0 reverse at N = 256 (32 input cores); layer 0's
@@ -291,12 +334,12 @@ def bwd_sweep(cfg, pts, nrm, feat, ws, bs, c_out, packed=None, tune=None):
     n, L, F = pts.shape[0], len(ws), feat.shape[1]
     lay = wg_layout(ws, n)
     _check_wg(lay)
-    if L > 3 or (lay["in_dims"][0] - F) // 2 < 16 or F % 4:
+    _check_feat(feat)
+    if L > 3 or (lay["in_dims"][0] - F) // 2 < 16:
         raise ValueError(
-            "the bf16 albedo backward takes at most two hidden layers, a PE "
-            "of the normals at least 16 wide and a feature width that is a "
-            f"multiple of 4; got in {lay['in_dims']}, out {lay['out_dims']}, "
-            f"F {F}")
+            "the bf16 albedo backward takes at most two hidden layers and a "
+            "PE of the normals at least 16 wide; got in "
+            f"{lay['in_dims']}, out {lay['out_dims']}")
     c_out = _cotangent(c_out, n, lay["out_dims"][-1])
     if feat.data_ptr() % 16:   # the sweep reads the feature rows as float4
         feat = feat.clone()

@@ -211,7 +211,7 @@ def nerf_fwd(cfg: NeRFConfig, pts, views, ws, bs, dtype=torch.bfloat16,
     if not pts.is_cuda:
         return nerf_fwd_plain(cfg, pts, views, ws, bs, dtype)
     if _build.bf16_flag(dtype):
-        out = _fwd_wg(cfg, pts, views, ws, bs, packed)
+        out = fwd_wg(cfg, pts, views, ws, bs, packed)
         _build.launches["nerf_fwd"] += 1
     else:
         out = _fwd_f32(cfg, pts, views, ws, bs)
@@ -335,17 +335,16 @@ def wg_pack(cfg: NeRFConfig, ws, bs):
     return image, torch.cat([b.reshape(-1) for b in ib]).contiguous()
 
 
-# The backward sweep's ring (csrc/nerf.cu nerf_bwd_params; csrc/wg_bwd.cuh
+# The backward sweep's ring (csrc/nerf.cu nerf_bwd_params; csrc/wg_sweep.cuh
 # WbCursor walks it): each phase one product of a layer's tile of the weight
 # image, a 3-D TMA box a K-step, as (kind, image layer, box, c2): the trunk
-# and the feature head forward at N = 256 (32 output cores), the views
-# layer forward at N = 128 (16); the rgb head reverse at N = 128 (16 input
-# cores), the views layer reverse over its feature rows (32), the fused
-# head's and the trunk's reverse over their h rows (32). One block a pair
-# of 64-point tiles (wg.pair_blocks); each tile's area: the A tile [64][384]
-# bf16 (six swizzled blocks of 64 columns: the 352-wide skip input), the
-# nine ReLU masks (a uint4 a thread), the column sums [4][256] and the
-# bias, f32.
+# and the feature head forward at N = 256 (32 output cores), the views layer
+# forward at N = 128 (16); the rgb head reverse at N = 128 (16 input cores),
+# the views layer reverse over its feature rows (32), the fused head's and
+# the trunk's reverse over their h rows (32). One block a pair of 64-point
+# tiles (wg.pair_blocks); each tile's area: the A tile [64][384] bf16 (six
+# swizzled blocks of 64 columns: the 352-wide skip input), the nine ReLU
+# masks (a uint4 a thread), the column sums [4][256] and the bias, f32.
 BWD_TILE_BYTES = 64 * 384 * 2 + 9 * 128 * 16 + 4 * 256 * 4 + 256 * 4
 
 
@@ -370,25 +369,64 @@ def bwd_smem_bytes(depth: int = wg.NERF_BWD_RING_DEPTH) -> int:
     return wg.ring_smem_bytes(depth, BWD_TILE_BYTES)
 
 
-def _fwd_wg(cfg, pts, views, ws, bs, packed):
+# The forward's ring (csrc/nerf.cu nerf_fwd_params; csrc/wg_sweep.cuh
+# WbCursor walks it), as (kind, image layer, box, c2): the trunk forward at
+# N = 256 (32 output cores); the fused head's every output core, 34 at the
+# shipped conf (its feature block's N = 256 product reads the first 32,
+# its alpha column's N = 8 product core of / 8), in slots of
+# FWD_STAGE_BYTES; the views layer at N = 128 (16); the rgb head at N = 8
+# (2 cores, its product reads the first). One block a pair of 64-point
+# tiles (wg.pair_blocks); each tile's area: the A tile [64][384] bf16 and
+# the bias, f32.
+FWD_STAGE_BYTES = 2 * 34 * 128
+FWD_TILE_BYTES = 64 * 384 * 2 + 256 * 4
+
+
+def fwd_phases(lay: dict) -> list:
+    """The forward's phase table, in the products' order."""
+    D = len(lay["in_dims"]) - 3
+    return ([("fwd", l, (64, 32, 2), 0) for l in range(D)]
+            + [("fwd", D, (64, lay["np"][D] // 8, 2), 0),
+               ("fwd", D + 1, (64, 16, 2), 0), ("fwd", D + 2, (64, 2, 2), 0)])
+
+
+def fwd_steps(lay: dict) -> list:
+    """The forward's ring stages in the order its products take them:
+    (kind, image layer, box, coordinates); both tiles of a block read
+    each."""
+    return wg.phase_steps(lay, fwd_phases(lay))
+
+
+def fwd_smem_bytes(depth: int = wg.NERF_FWD_RING_DEPTH) -> int:
+    """The forward's shared memory at ring ``depth``."""
+    return wg.ring_smem_bytes(depth, FWD_TILE_BYTES, FWD_STAGE_BYTES)
+
+
+def fwd_wg(cfg, pts, views, ws, bs, packed=None, tune=None):
+    """The bf16 forward kernel alone (CUDA tensors): ``rnb_nerf_fwd_wg``, or
+    the tune library's instance ``tune`` = (entry, leading arguments) that
+    ``wg.fwd_tune`` names; on ``packed`` (``wg_pack``; packed here when
+    None). Counts nothing. -> (alpha_raw, rgb_raw)."""
     _check_args(cfg, pts, views, ws, bs)
     pts, views = (t.detach().contiguous() for t in (pts, views))
     n, D, dev = pts.shape[0], cfg.D, pts.device
     lay = wg_layout(cfg, ws)
     _check_wg(cfg, lay)
+    entry, lead = tune or ("rnb_nerf_fwd_wg", ())
+    kind = "tune" if tune else "main"
     image, bflat = packed or wg_pack(cfg, ws, bs)
     alpha = torch.empty(n, ws[D].shape[1], device=dev)
     rgb = torch.empty(n, ws[-1].shape[1], device=dev)
     with torch.cuda.device(dev):
-        rc = _build.library().rnb_nerf_fwd_wg(
-            pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
+        rc = getattr(_build.library(kind), entry)(
+            *lead, pts.data_ptr(), views.data_ptr(), n, pts.shape[1],
             image.data_ptr(), bflat.data_ptr(),
             _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
             _build.int_array(lay["skip"]), _build.ll_array(lay["w_off"]),
             len(lay["in_dims"]), lay["of"], cfg.multires, cfg.multires_view,
             alpha.data_ptr(), rgb.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rnb_nerf_fwd_wg")
+    _build.check(rc, entry, kind)
     return alpha, rgb
 
 

@@ -1,8 +1,8 @@
 """Host side of the tensor-core (bf16) routes of ``sdf_core``, ``albedo``
 and ``nerf``: the padded bf16 weight image that their wgmma sweep kernels
-stream (``csrc/wg_pipe.cuh``), the offsets of the bf16 dW operand rows the
-sweeps write, and the grouped dW product (``rnb_dw_products`` in
-``csrc/dw_gemm.cu``) that sums those rows into dW.
+stream by TMA (``csrc/tma.cuh``, ``csrc/wg_sweep.cuh``), the offsets of the
+bf16 dW operand rows the sweeps write, and the grouped dW product
+(``rnb_dw_products`` in ``csrc/dw_gemm.cu``) that sums those rows into dW.
 
 Each sweep writes, per layer l of [in_l, out_l], the layer's A rows (its
 input, [rows, pad16(in_l)]) and B rows (its rounded pre-activation
@@ -20,9 +20,10 @@ import torch
 from rnb_tpu_torch.ops import _build
 
 TILE = 64            # points per tile of the tensor-core sweep kernels
-RING_DEPTH = 4       # the albedo and NeRF forwards' cp.async ring, WG_RS of
-                     # csrc/wg_pipe.cuh
-ALBEDO_BWD_RING_DEPTH = 16   # the albedo backward sweep's TMA ring, AB_RS
+ALBEDO_FWD_RING_DEPTH = 18   # the albedo forward's TMA ring, AF_RS of
+                             # csrc/albedo.cu
+ALBEDO_BWD_RING_DEPTH = 16   # the albedo backward sweep's, AB_RS
+NERF_FWD_RING_DEPTH = 15     # the NeRF forward's, NF_RS of csrc/nerf.cu
 NERF_BWD_RING_DEPTH = 10     # the NeRF backward sweep's, NB_RS
 SWEEP_RING_DEPTH = 16   # the SDF core's backward sweep's TMA ring, SW_RS of
                         # csrc/sdf_core.cu
@@ -33,17 +34,45 @@ DW_TILE_M = 128      # rows of dW a unit sums (two consumer warpgroups)
 DW_SMS = 132         # the H100 SXM's SMs: about one dW unit each
 
 
-# The albedo and NeRF backward sweeps (csrc/wg_bwd.cuh): one block a pair
-# of 64-point tiles, a ring of BWD_STAGE_BYTES slots, each stage one 3-D
-# TMA box of a layer's tile of the weight image; their timing split (the
-# tune library; index = the C WgBwdSplit): the production sweep, then the
+# The albedo and NeRF forwards and backward sweeps (csrc/wg_sweep.cuh): one
+# block a pair of 64-point tiles, a ring of STAGE_BYTES slots (the NeRF
+# forward's are larger, nerf.FWD_STAGE_BYTES), each stage one 3-D TMA box
+# of a layer's tile of the weight image; the backward sweeps' timing split
+# (the tune library; index = the C WgSplit): the production sweep, then the
 # ring and its barriers alone, the products without epilogue arithmetic or
 # operand rows, without the operand-row stores, and without the bias, ReLU
 # and mask work.
-BWD_STAGE_BYTES = 8192
+STAGE_BYTES = 8192
 SMEM_LIMIT = 232448   # the H100's shared memory a block can have
 WG_BWD_SPLIT = ("full", "k_loops_only", "products_only", "no_rows",
                 "no_epilogue")
+
+
+# The forwards' timing split (the tune library; the C WgSplit of each
+# name): the production kernel, then the ring and its barriers alone, the
+# products alone (neither the A tile nor an output written), and the
+# products with the accumulators rounded straight into the A tile and the
+# heads written raw (no bias, ReLU or sigmoid).
+WG_FWD_SPLIT = ("full", "k_loops_only", "products_only", "no_epilogue")
+
+
+def _tune(fn, args, pas: str, splits, depths, split, depth):
+    op = fn.__module__.rsplit(".", 1)[-1]
+    if (split is None) == (depth is None):
+        raise ValueError("give one of split and depth")
+    if split is not None:
+        if split not in splits:
+            raise ValueError(f"split must be one of {splits}, got {split!r}")
+        tune = (f"rnb_{op}_{pas}_wg_split", (WG_BWD_SPLIT.index(split),))
+        key = f"{op}_{pas}_split"
+    else:
+        if depth not in depths[op]:
+            raise ValueError(f"depth must be one of {depths[op]}, got {depth}")
+        tune = (f"rnb_{op}_{pas}_wg_tune", (depth,))
+        key = f"{op}_{pas}_rs{depth}"
+    out = fn(*args, tune=tune)
+    _build.launches[key] += 1
+    return out
 
 
 def bwd_tune(sweep, *args, split: str | None = None,
@@ -55,23 +84,19 @@ def bwd_tune(sweep, *args, split: str | None = None,
     computes the function), counted under ``{op}_bwd_split``, or at ring
     ``depth`` (one of ``_build.BWD_TUNE_DEPTHS[op]``), counted under
     ``{op}_bwd_rs{depth}``. -> as ``sweep``."""
-    op = sweep.__module__.rsplit(".", 1)[-1]
-    if (split is None) == (depth is None):
-        raise ValueError("give one of split and depth")
-    if split is not None:
-        if split not in WG_BWD_SPLIT:
-            raise ValueError(f"split must be one of {WG_BWD_SPLIT}, "
-                             f"got {split!r}")
-        tune = (f"rnb_{op}_bwd_wg_split", (WG_BWD_SPLIT.index(split),))
-        key = f"{op}_bwd_split"
-    else:
-        if depth not in _build.BWD_TUNE_DEPTHS[op]:
-            raise ValueError(f"depth must be one of "
-                             f"{_build.BWD_TUNE_DEPTHS[op]}, got {depth}")
-        tune, key = (f"rnb_{op}_bwd_wg_tune", (depth,)), f"{op}_bwd_rs{depth}"
-    out = sweep(*args, tune=tune)
-    _build.launches[key] += 1
-    return out
+    return _tune(sweep, args, "bwd", WG_BWD_SPLIT, _build.BWD_TUNE_DEPTHS,
+                 split, depth)
+
+
+def fwd_tune(fwd, *args, split: str | None = None,
+             depth: int | None = None):
+    """As ``bwd_tune``, for the albedo or NeRF bf16 forward: ``fwd`` is
+    ``ops.albedo.fwd_wg`` or ``ops.nerf.fwd_wg``; ``split`` a
+    ``WG_FWD_SPLIT`` name, counted under ``{op}_fwd_split``, or ``depth``
+    one of ``_build.WG_FWD_TUNE_DEPTHS[op]``, counted under
+    ``{op}_fwd_rs{depth}``. -> as ``fwd``."""
+    return _tune(fwd, args, "fwd", WG_FWD_SPLIT, _build.WG_FWD_TUNE_DEPTHS,
+                 split, depth)
 
 
 def pair_blocks(n: int) -> list:
@@ -90,16 +115,17 @@ def handoff(nk: int, depth: int) -> int:
     return min(nk, depth) - 1
 
 
-def ring_smem_bytes(depth: int, tile_bytes: int) -> int:
-    """wb_smem_bytes of csrc/wg_bwd.cuh: ``depth`` ring slots, two tiles'
-    areas of ``tile_bytes``, the ring's full and empty barriers and the two
-    turn barriers."""
-    return depth * BWD_STAGE_BYTES + 2 * tile_bytes + (2 * depth + 2) * 8
+def ring_smem_bytes(depth: int, tile_bytes: int,
+                    stage: int = STAGE_BYTES) -> int:
+    """wb_smem_bytes of csrc/wg_sweep.cuh: two tiles' areas of
+    ``tile_bytes``, ``depth`` ring slots of ``stage`` bytes, the ring's
+    full and empty barriers and the two turn barriers."""
+    return 2 * tile_bytes + depth * stage + (2 * depth + 2) * 8
 
 
 def sidx(p: int, k: int) -> int:
-    """Element (p, k) of the backward sweeps' A tile (wb_sidx of
-    csrc/wg_bwd.cuh): K-major in wgmma's 128-byte swizzle, blocks of 64
+    """Element (p, k) of the albedo and NeRF sweeps' A tile (wb_sidx of
+    csrc/wg_sweep.cuh): K-major in wgmma's 128-byte swizzle, blocks of 64
     columns (4096 elements), each 64 rows of 64, the 8-element chunk c of
     row p at chunk c ^ (p % 8)."""
     chunk = ((k >> 3) & 7) ^ (p & 7)
@@ -108,7 +134,7 @@ def sidx(p: int, k: int) -> int:
 
 def store_boxes(kw: int, n0: int) -> list:
     """The TMA stores that write a tile's first ``kw`` columns as operand
-    rows (wb_rows_out of csrc/wg_bwd.cuh): per block kc of 64 columns, the
+    rows (wb_rows_out of csrc/wg_sweep.cuh): per block kc of 64 columns, the
     tile's 8 KB at element 4096·kc as the box {64, 64} in the 128-byte
     swizzle at (column 64kc, row n0) of the [n, ld] rows; columns past ld
     and rows past n are not written."""

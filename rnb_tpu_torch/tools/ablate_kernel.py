@@ -2,14 +2,15 @@
 variants (``rnb_tpu_torch.ops.sdf_ablate``: full, no_pe, no_act,
 primal_only) and their plain PyTorch versions, on one CUDA card; with
 ``--fwd_split``, split the bf16 forward by what it does instead; with
-``--bwd``, split the bf16 backward sweep; with ``--wg_bwd``, the albedo
-or NeRF backward sweep.
+``--bwd``, split the bf16 backward sweep; with ``--wg_bwd`` or
+``--wg_fwd``, the albedo or NeRF backward sweep or bf16 forward.
 
     python -m rnb_tpu_torch.tools.ablate_kernel [--n 65536] [--iters 50]
     python -m rnb_tpu_torch.tools.ablate_kernel --fwd_split [--n 65536] [--iters 20]
     python -m rnb_tpu_torch.tools.ablate_kernel --bwd [--n 65536] [--iters 20]
     python -m rnb_tpu_torch.tools.ablate_kernel --wg_bwd nerf [--n 67584] [--iters 20]
     python -m rnb_tpu_torch.tools.ablate_kernel --wg_bwd albedo [--n 65536]
+    python -m rnb_tpu_torch.tools.ablate_kernel --wg_fwd {albedo,nerf} [--n N] [--iters 20]
 
 Shipped SDF net (8x256, geometric init from seed 3), N points uniform in
 [-0.8, 0.8]^3 (numpy seed 0), bf16 operands; each variant timed with CUDA
@@ -47,6 +48,15 @@ sweep alone (no dW products) on the weight image packed once, on
 NeRF): the median of three turns of ``--iters`` launches, with min and
 max. The ``full`` instance and every depth are held bit for bit against
 the production sweep first.
+
+``--wg_fwd {albedo,nerf}`` does the same for the albedo or NeRF bf16
+forward (``wg.fwd_tune`` on ``fwd_wg``, the tune library's
+``rnb_{albedo,nerf}_fwd_wg_split`` and ``_tune``): its timing split
+(``wg.WG_FWD_SPLIT``: the production kernel, then the ring and its
+barriers alone, the products alone with neither the A tile nor an output
+written, and the products with the accumulators rounded straight into the
+A tile and the heads written raw) and its ring depths
+(``_build.WG_FWD_TUNE_DEPTHS``), on the weight image packed once.
 
 Without a CUDA device it exits non-zero and prints no timing.
 """
@@ -138,9 +148,10 @@ def fwd_split(n: int, iters: int) -> dict:
     return res
 
 
-def wg_bwd_split(op: str, n: int | None, iters: int) -> dict:
-    """The albedo or NeRF backward sweep's split (``--wg_bwd``), on
-    bench_wg_bwd's inputs."""
+def wg_split(op: str, pas: str, n: int | None, iters: int) -> dict:
+    """The albedo or NeRF backward sweep's split (``--wg_bwd``, ``pas``
+    "bwd") or bf16 forward's (``--wg_fwd``, "fwd"), on bench_wg_bwd's
+    inputs."""
     from rnb_tpu_torch.ops import _build, albedo, nerf, wg
     from rnb_tpu_torch.tools.bench_sdf_bwd import turns
     from rnb_tpu_torch.tools.bench_wg_bwd import N_DEFAULT, setup
@@ -151,23 +162,31 @@ def wg_bwd_split(op: str, n: int | None, iters: int) -> dict:
     cfg, ws, bs, ins, cots = setup(op, n, torch.device("cuda"))
     packed = (albedo.wg_pack(ws, bs) if op == "albedo"
               else nerf.wg_pack(cfg, ws, bs))
-    args = (cfg, *ins, ws, bs, *cots, packed)
-    depths = _build.BWD_TUNE_DEPTHS[op]
-    split = lambda s: wg.bwd_tune(mod.bwd_sweep, *args, split=s)
-    depth = lambda rs: wg.bwd_tune(mod.bwd_sweep, *args, depth=rs)
+    if pas == "bwd":
+        fn, tune, args = mod.bwd_sweep, wg.bwd_tune, (cfg, *ins, ws, bs, *cots,
+                                                     packed)
+        splits, depths = wg.WG_BWD_SPLIT, _build.BWD_TUNE_DEPTHS[op]
+    else:
+        fn, tune, args = mod.fwd_wg, wg.fwd_tune, (cfg, *ins, ws, bs, packed)
+        splits, depths = wg.WG_FWD_SPLIT, _build.WG_FWD_TUNE_DEPTHS[op]
+    split = lambda s: tune(fn, *args, split=s)
+    depth = lambda rs: tune(fn, *args, depth=rs)
 
-    def parts(out):   # the operand rows, db (and the per-point cotangents)
+    def parts(out):   # the outputs (a backward's operand rows, db, ...)
+        out = out if isinstance(out, (tuple, list)) else (out,)
         return [t for t in out if isinstance(t, torch.Tensor)]
 
-    prod = parts(mod.bwd_sweep(*args))
+    prod = parts(fn(*args))
     same = lambda out: all(torch.equal(a, b) for a, b in zip(parts(out), prod))
-    res = {"card": card(), "op": op, "n": n, "iters": iters, "dtype": "bf16",
+    res = {"card": card(), "op": op, "pass": pas, "n": n, "iters": iters,
+           "dtype": "bf16",
            "split_full_bitwise_production": same(split("full")),
            "depth_bitwise_production": {rs: same(depth(rs)) for rs in depths},
-           "production_sweep": turns(lambda: mod.bwd_sweep(*args), iters),
+           ("production_sweep" if pas == "bwd" else "production"):
+               turns(lambda: fn(*args), iters),
            "split": {}, "depths": {}}
     torch.cuda.synchronize()
-    for s in wg.WG_BWD_SPLIT:
+    for s in splits:
         res["split"][s] = turns(lambda s=s: split(s), iters)
     for rs in depths:
         res["depths"][rs] = turns(lambda rs=rs: depth(rs), iters)
@@ -177,10 +196,11 @@ def wg_bwd_split(op: str, n: int | None, iters: int) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=None,
-                    help="points (default 65,536; 67,584 with --wg_bwd nerf)")
+                    help="points (default 65,536; 67,584 with --wg_bwd or "
+                         "--wg_fwd nerf)")
     ap.add_argument("--iters", type=int, default=None,
                     help="launches a timing (default 50; 20 with --bwd, "
-                         "--fwd_split or --wg_bwd)")
+                         "--fwd_split, --wg_bwd or --wg_fwd)")
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--fwd_split", action="store_true",
                        help="split the bf16 forward by what it does")
@@ -188,12 +208,16 @@ def main(argv=None) -> dict:
                        help="split the bf16 backward sweep instead")
     which.add_argument("--wg_bwd", choices=("albedo", "nerf"),
                        help="split the albedo or NeRF backward sweep")
+    which.add_argument("--wg_fwd", choices=("albedo", "nerf"),
+                       help="split the albedo or NeRF bf16 forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernel: no CUDA device; the kernels run only "
                          "on a GPU")
-    if args.wg_bwd:
-        res = wg_bwd_split(args.wg_bwd, args.n, args.iters or 20)
+    if args.wg_bwd or args.wg_fwd:
+        pas = "bwd" if args.wg_bwd else "fwd"
+        res = wg_split(args.wg_bwd or args.wg_fwd, pas, args.n,
+                       args.iters or 20)
         print(json.dumps(res), flush=True)
         return res
     args.n = args.n or 65536

@@ -1,9 +1,11 @@
 """The albedo net's or the background NeRF's backward on one CUDA card: the
 whole backward (``albedo.albedo_bwd`` / ``nerf.nerf_bwd``: the sweep, its
 db sum and the grouped dW products) and, where the tree exposes it
-(``bwd_sweep``), the sweep alone.
+(``bwd_sweep``), the sweep alone; with ``--pass fwd``, the forward
+(``albedo.albedo_fwd`` / ``nerf.nerf_fwd``) instead.
 
     python -m rnb_tpu_torch.tools.bench_wg_bwd --op nerf [--n 67584] [--iters 20]
+    python -m rnb_tpu_torch.tools.bench_wg_bwd --op albedo --pass fwd [--n 65536]
     python -m rnb_tpu_torch.tools.bench_wg_bwd --op albedo [--n 65536]
     python -m rnb_tpu_torch.tools.bench_wg_bwd --op nerf --n 1037 --dtype f32 --repeat 200
     python -m rnb_tpu_torch.tools.bench_wg_bwd --op albedo --device cpu --n 100
@@ -29,10 +31,17 @@ times, each held bit for bit against the first and within the tolerance
 of a plain version computed anew (1e-4 at f32, 1e-2 at bf16), and checks
 that nothing turned TF32 on between calls: ``repeat`` counts the calls,
 the calls that differed, those past the tolerance, and the largest error.
+``host_us`` is the host's µs a call: the host clock around 100 calls
+with no synchronisation, the median of five turns with min and max.
+``--pass fwd`` does the same for the forward on the weight image packed
+once (as the op packs it once a step): ``rel_err``, ``bitwise_repeat``,
+``digest`` (of alpha and rgb, or of the albedo), ``fwd`` (CUDA events) and
+``host_us``.
 It uses only what every tree of the port offers (the sweep alone only
-where present, else null), so two trees are compared by running it with
-each on PYTHONPATH in one call, in turns. Prints one JSON line with the
-card (nvidia-smi's name and power limit). Without a CUDA device it exits
+where present, else null; the forward only through ``albedo_fwd`` /
+``nerf_fwd``), so two trees are compared by running it with each on
+PYTHONPATH in one call, in turns. Prints one JSON line with the card
+(nvidia-smi's name and power limit). Without a CUDA device it exits
 non-zero; ``--device cpu`` runs the plain path's control flow and times
 nothing.
 """
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
@@ -122,6 +132,37 @@ def calls(op: str, cfg, ws, bs, ins, cots, dtype):
     return bwd, plain, sweep
 
 
+def fwd_calls(op: str, cfg, ws, bs, ins, dtype):
+    """(forward, plain) of ``op``: each -> a flat list of tensors; the
+    forward on the weight image packed once, as the op packs it once a
+    step (bf16 on a card; the f32 route and the CPU take none)."""
+    packed = None
+    if dtype == torch.bfloat16 and ins[0].is_cuda:
+        packed = (albedo.wg_pack(ws, bs) if op == "albedo"
+                  else nerf.wg_pack(cfg, ws, bs))
+    if op == "albedo":
+        return (lambda: [albedo.albedo_fwd(cfg, *ins, ws, bs, dtype, packed)],
+                lambda: [albedo.albedo_fwd_plain(cfg, *ins, ws, bs, dtype)])
+    return (lambda: list(nerf.nerf_fwd(cfg, *ins, ws, bs, dtype, packed)),
+            lambda: list(nerf.nerf_fwd_plain(cfg, *ins, ws, bs, dtype)))
+
+
+def host_us(fn, calls: int = 100, turns: int = 5) -> dict:
+    """The host's µs a call of ``fn``: the host clock around ``calls``
+    calls with no synchronisation (the card drained before), the median of
+    ``turns`` turns with min and max."""
+    t = []
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    t.sort()
+    return {"us": t[turns // 2], "us_min": t[0], "us_max": t[-1]}
+
+
 def sweep_parts(op: str, cfg, out, n: int):
     """The sweep's result as the backward's tensors: dW of every layer by
     the plain product of its rows, then db (and for the albedo the
@@ -143,6 +184,8 @@ def sweep_parts(op: str, cfg, out, n: int):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--op", required=True, choices=("albedo", "nerf"))
+    ap.add_argument("--pass", dest="pas", default="bwd", choices=("bwd", "fwd"),
+                    help="time the backward (default) or the forward")
     ap.add_argument("--n", type=int, default=None,
                     help="points (default 65,536 albedo, 67,584 NeRF)")
     ap.add_argument("--iters", type=int, default=20)
@@ -161,29 +204,33 @@ def main(argv=None) -> dict:
     n = args.n or N_DEFAULT[args.op]
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     cfg, ws, bs, ins, cots = setup(args.op, n, dev)
-    bwd, plain, sweep = calls(args.op, cfg, ws, bs, ins, cots, dtype)
+    if args.pas == "bwd":
+        call, plain, sweep = calls(args.op, cfg, ws, bs, ins, cots, dtype)
+    else:
+        (call, plain), sweep = fwd_calls(args.op, cfg, ws, bs, ins, dtype), None
 
     before = dict(_build.launches)
-    got = bwd()
+    got = call()
     if on_card:
         torch.cuda.synchronize()
     launches = {k: v - before.get(k, 0) for k, v in _build.launches.items()
                 if v != before.get(k, 0)}
     want = plain()
     out = {"card": card() if on_card else None, "device": dev.type,
-           "op": args.op, "n": n, "iters": args.iters, "dtype": args.dtype,
+           "op": args.op, "pass": args.pas, "n": n, "iters": args.iters,
+           "dtype": args.dtype,
            "launches": launches, "rel_err": rel_err(got, want),
            "bitwise_repeat": all(torch.equal(a, b)
-                                 for a, b in zip(got, bwd())),
+                                 for a, b in zip(got, call())),
            "digest": digest(got), "sweep_rel_err": None,
-           "bwd": None, "sweep": None, "repeat": None}
+           args.pas: None, "sweep": None, "host_us": None, "repeat": None}
     if sweep is not None and on_card:
         out["sweep_rel_err"] = rel_err(
             sweep_parts(args.op, cfg, sweep(), n), want)
     if args.repeat:
         differ, past, worst, tf32 = 0, 0, 0.0, []
         for _ in range(args.repeat):
-            again = bwd()
+            again = call()
             differ += not all(torch.equal(a, b) for a, b in zip(got, again))
             err = rel_err(again, plain())
             past += err > TOL[dtype]
@@ -194,7 +241,8 @@ def main(argv=None) -> dict:
                          "past_tol": past, "max_rel_err": worst,
                          "tol": TOL[dtype], "tf32_seen": any(tf32)}
     if on_card:
-        out["bwd"] = turns(bwd, args.iters)
+        out[args.pas] = turns(call, args.iters)
+        out["host_us"] = host_us(call)
         if sweep is not None:
             out["sweep"] = turns(sweep, args.iters)
     print(json.dumps(out), flush=True)

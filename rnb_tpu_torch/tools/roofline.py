@@ -29,7 +29,10 @@ step_main − (core_fwd_bwd + (upsample_render_fwd − core_fwd) + 3·color_fwd
 ``bench.analytic_step_flops`` and their share of the card's bf16 peak
 (``bench.PEAK_BF16_FLOPS``) in place of XLA's cost analysis; no byte
 count exists (``"bytes": "not counted"``). ``env`` names the sweep
-kernels' tile (64 points) and ring depth (``WG_RS``, 4).
+kernels' tile (64 points) and the TMA ring depths of the albedo and NeRF
+forwards and backward sweeps (``wg.ALBEDO_FWD_RING_DEPTH`` 18,
+``NERF_FWD_RING_DEPTH`` 15, ``ALBEDO_BWD_RING_DEPTH`` 16,
+``NERF_BWD_RING_DEPTH`` 10).
 
 Prints one JSON line of every region, with the card (nvidia-smi's name and
 power limit). Without a CUDA device it exits non-zero unless given
@@ -50,6 +53,12 @@ from rnb_tpu_torch.ops import sdf_core, wg
 from rnb_tpu_torch.tools import bench
 from rnb_tpu_torch.train import schedules
 from rnb_tpu_torch.train import step as steplib
+
+# the TMA ring depths of the albedo and NeRF sweep kernels
+RING_DEPTHS = {"albedo_fwd": wg.ALBEDO_FWD_RING_DEPTH,
+               "nerf_fwd": wg.NERF_FWD_RING_DEPTH,
+               "albedo_bwd": wg.ALBEDO_BWD_RING_DEPTH,
+               "nerf_bwd": wg.NERF_BWD_RING_DEPTH}
 from rnb_tpu_torch.utils.bridge import tree_leaves
 
 
@@ -190,7 +199,7 @@ def main(argv=None) -> dict:
                     "approximate")}
     results["env"] = {
         "flags": steplib.runtime_flags_dict(tcfg), "batch": B,
-        "tile": wg.TILE, "ring_depth": wg.RING_DEPTH, "n_devices": 1,
+        "tile": wg.TILE, "ring_depth": RING_DEPTHS, "n_devices": 1,
         "rays_per_s": B / step_ms * 1000.0, "iters": args.iters,
         "card": bench.card_line(dev), "device": dev.type}
     print(json.dumps(results), flush=True)

@@ -18,10 +18,10 @@ activation, one bf16 ulp = 2^-8 relative). The grouped dW product
 product (bf16 operands: only the order of f32 sums differs), its TMA
 boxes one piece at a time and each shipped backward's layers in one
 launch, bit for bit from call to call. The albedo and NeRF backward
-sweeps (one block a pair of tiles on a TMA ring) are held against their
-plain versions at the main path's and ragged counts, bit for bit from call
-to call, and their tune instances (depths, timing split, the cp.async
-sweeps they replaced) against them bit for bit. The tile sweep's library
+sweeps and bf16 forwards (one block a pair of tiles on a TMA ring) are
+held against their plain versions at the main path's and ragged counts,
+bit for bit from call to call, and their tune instances (depths, timing
+split) against them bit for bit. The tile sweep's library
 (``_build.library("tune")``: the SDF core's forward at ring depths 4-16 and
 backward sweep at 3-6) is held bit for bit against the production kernels
 at every depth (the depth changes no sum's order), and against the plain
@@ -257,11 +257,13 @@ def test_albedo_forward_ragged_parts(cuda, dtype):
     """The forward over N points is the rows of the forwards over two
     ragged parts (517 and 520 points)."""
     cfg, ws, bs, pts, nrm, feat, _ = _albedo_setup(cuda)
-    k = 517
     full = albedo.albedo_fwd(cfg, pts, nrm, feat, ws, bs, dtype)
-    a = albedo.albedo_fwd(cfg, pts[:k], nrm[:k], feat[:k], ws, bs, dtype)
-    b = albedo.albedo_fwd(cfg, pts[k:], nrm[k:], feat[k:], ws, bs, dtype)
-    _close([full], [torch.cat([a, b])], 1e-6)
+    # and the first 37 (one tile) and 129 points (an odd tile count, the
+    # last block one tile): a launch adds nothing past its n
+    for k in (517, 37, 129):
+        a = albedo.albedo_fwd(cfg, pts[:k], nrm[:k], feat[:k], ws, bs, dtype)
+        b = albedo.albedo_fwd(cfg, pts[k:], nrm[k:], feat[k:], ws, bs, dtype)
+        _close([full], [torch.cat([a, b])], 1e-6)
 
 
 def _nerf_setup(dev, n=N):
@@ -326,14 +328,14 @@ def test_nerf_forward_ragged_parts(cuda, dtype):
     """alpha and rgb over N points are the rows of those over two ragged
     parts."""
     cfg, ws, bs, pts, views, _ = _nerf_setup(cuda)
-    k = 517
     full = nerf.nerf_fwd(cfg, pts, views, ws, bs, dtype)
-    a = nerf.nerf_fwd(cfg, pts[:k], views[:k], ws, bs, dtype)
-    b = nerf.nerf_fwd(cfg, pts[k:], views[k:], ws, bs, dtype)
-    _close(full, [torch.cat([x, y]) for x, y in zip(a, b)], 1e-6)
+    for k in (517, 37, 129):   # and one tile, an odd tile count
+        a = nerf.nerf_fwd(cfg, pts[:k], views[:k], ws, bs, dtype)
+        b = nerf.nerf_fwd(cfg, pts[k:], views[k:], ws, bs, dtype)
+        _close(full, [torch.cat([x, y]) for x, y in zip(a, b)], 1e-6)
 
 
-# the redesigned albedo and NeRF backward sweeps (csrc/wg_bwd.cuh): the
+# the redesigned albedo and NeRF backward sweeps (csrc/wg_sweep.cuh): the
 # main path's counts, ragged counts (an odd tile count leaves a block one
 # tile), one padded tile
 WG_BWD_N = {"albedo": (65536, 65573, 129, 37), "nerf": (67584, 67617, 129, 37)}
@@ -402,6 +404,73 @@ def test_wg_bwd_tune_instances_are_production(cuda, op):
         got = parts(wg.bwd_tune(mod.bwd_sweep, *args, split=split))
         torch.cuda.synchronize()
         assert _moved(n0) == {f"{op}_bwd_split": 1}
+        assert [t.shape for t in got] == [t.shape for t in want]
+        if split == "full":
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the redesigned albedo and NeRF bf16 forwards (csrc/wg_sweep.cuh), at the
+# backward sweeps' counts
+def _wg_fwd(op, dev, n, dtype=torch.bfloat16):
+    """(forward, plain, module, the arguments of its fwd_wg) of ``op`` on
+    bench_wg_bwd's inputs: forward and plain -> a flat list of tensors."""
+    from rnb_tpu_torch.tools import bench_wg_bwd
+
+    cfg, ws, bs, ins, _ = bench_wg_bwd.setup(op, n, dev)
+    fwd, plain = bench_wg_bwd.fwd_calls(op, cfg, ws, bs, ins, dtype)
+    mod = albedo if op == "albedo" else nerf
+    packed = (albedo.wg_pack(ws, bs) if op == "albedo"
+              else nerf.wg_pack(cfg, ws, bs))
+    return fwd, plain, mod, (cfg, *ins, ws, bs, packed)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3])
+@pytest.mark.parametrize("op", ["albedo", "nerf"])
+def test_wg_fwd_matches_plain(cuda, op, n):
+    """The bf16 forward (the TMA-ring kernel) against its plain version at
+    the main path's count, ragged counts and one padded tile, counted
+    once."""
+    n = WG_BWD_N[op][n]
+    fwd, plain, _, _ = _wg_fwd(op, cuda, n)
+    n0 = dict(_build.launches)
+    got = fwd()
+    torch.cuda.synchronize()
+    assert _moved(n0) == {f"{op}_fwd": 1}
+    _close(got, plain(), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["albedo", "nerf"])
+def test_wg_fwd_repeats_bit_for_bit(cuda, op, dtype):
+    """Each route's forward gives the same bits call after call (five
+    calls), at a ragged count."""
+    fwd, _, _, _ = _wg_fwd(op, cuda, N, dtype)
+    first = fwd()
+    for _ in range(4):
+        assert all(torch.equal(a, b) for a, b in zip(first, fwd()))
+
+
+@pytest.mark.parametrize("op", ["albedo", "nerf"])
+def test_wg_fwd_tune_instances_are_production(cuda, op):
+    """From the tune library (``wg.fwd_tune``): the forward at every tune
+    depth (4, 8 and the production depth) and the timing split's ``full``
+    instance give the production forward's bits (the same bf16 operands in
+    the same K order); every other split instance launches, counted once,
+    and fills outputs of the production shapes."""
+    _, _, mod, args = _wg_fwd(op, cuda, N)
+    parts = lambda out: list(out) if isinstance(out, tuple) else [out]
+    want = parts(mod.fwd_wg(*args))
+    for rs in _build.WG_FWD_TUNE_DEPTHS[op]:
+        n0 = dict(_build.launches)
+        got = parts(wg.fwd_tune(mod.fwd_wg, *args, depth=rs))
+        torch.cuda.synchronize()
+        assert _moved(n0) == {f"{op}_fwd_rs{rs}": 1}
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), rs
+    for split in wg.WG_FWD_SPLIT:
+        n0 = dict(_build.launches)
+        got = parts(wg.fwd_tune(mod.fwd_wg, *args, split=split))
+        torch.cuda.synchronize()
+        assert _moved(n0) == {f"{op}_fwd_split": 1}
         assert [t.shape for t in got] == [t.shape for t in want]
         if split == "full":
             assert all(torch.equal(a, b) for a, b in zip(got, want))

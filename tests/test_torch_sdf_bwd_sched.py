@@ -1,8 +1,9 @@
 """The host-side pieces of the SDF core's bf16 backward sweep, on the CPU:
-the TMA boxes of its weight ring against the cores the cp.async copies of
-``csrc/wg_pipe.cuh`` (``wg_copy_fwd`` / ``wg_copy_rev``) put in a stage,
-the order of the ring's stages against the products the sweep runs, and
-its tiles.
+the TMA boxes of its weight ring against the stages its products read,
+written out from the 8x8-core layout of the weight image (``_copy_fwd`` /
+``_copy_rev``: a K-step as MN-major B for W, as K-major B for Wᵀ), the
+order of the ring's stages against the products the sweep runs, and its
+tiles.
 
 The boxes are emulated in numpy as TMA loads them: a box of (b0, b1, b2)
 elements at coordinates (c0, c1, c2) of a map of dims (d0, d1, d2), dim 0
@@ -59,7 +60,8 @@ def _tma_box(tile, dims, box, coords):
 
 
 def _copy_fwd(w, npc, t, nb=32):
-    """wg_copy_fwd: cores (kb, ob) of K-step t at (kb·nb + ob)·64, zero
+    """Forward K-step t (rows 16t..16t+15 of W) of a layer's tile of 8x8
+    cores as an MN-major B stage: core (kb, ob) at (kb·nb + ob)·64, zero
     past npc."""
     st = np.zeros(2 * nb * 64)
     for kb in range(2):
@@ -70,8 +72,9 @@ def _copy_fwd(w, npc, t, nb=32):
 
 
 def _copy_rev(w, npc, kpc, t, ibn=32):
-    """wg_copy_rev: cores (ib, kb) of output K-step t at (ib·2 + kb)·64,
-    zero past kpc."""
+    """Reverse K-step t (output columns 16t..16t+15 of W, rows of Wᵀ) of a
+    layer's tile of 8x8 cores as a K-major B stage over ibn input cores:
+    core (ib, kb) at (ib·2 + kb)·64, zero past kpc."""
     st = np.zeros(ibn * 2 * 64)
     for ib in range(min(ibn, kpc)):
         for kb in range(2):
@@ -83,9 +86,9 @@ def _copy_rev(w, npc, kpc, t, ibn=32):
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_stage_boxes_are_the_copies(name):
     """Every stage the sweep's ring loads by TMA holds exactly the cores
-    the cp.async copies put there (the forward at nb = 32, the reverse
-    over 32 input cores), zero-filled past the layer's npc and kpc; a
-    stage is 8 KB."""
+    of its K-step in the layout its product reads (_copy_fwd at nb = 32,
+    _copy_rev over 32 input cores), zero-filled past the layer's npc and
+    kpc; a stage is 8 KB."""
     ws, lay = _layout(CFGS[name])
     image = _image(ws, lay)
     for kind, l, coords in sdf_core.sweep_steps(lay):

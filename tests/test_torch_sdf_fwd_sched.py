@@ -1,9 +1,10 @@
 """The host-side pieces of the SDF core's bf16 forward, on the CPU: the TMA
-boxes of its weight ring against the cores the cp.async copies of
-``csrc/wg_pipe.cuh`` (``wg_copy_fwd`` / ``wg_copy_rev``) put in a stage,
-the order of the ring's stages against the products, the turns its two
-tiles take at the ring (simulated stage by stage), the tiles its blocks
-cover, its shared memory, and the names of its timing split.
+boxes of its weight ring against the stages its products read, written out
+from the 8x8-core layout of the weight image (``_copy_fwd`` / ``_copy_rev``
+of ``test_torch_sdf_bwd_sched``), the order of the ring's stages against
+the products, the turns its two tiles take at the ring (simulated stage
+by stage), the tiles its blocks cover, its shared memory, and the names
+of its timing split.
 
 The boxes are emulated in numpy as TMA loads them (the helpers of
 ``test_torch_sdf_bwd_sched``).
@@ -24,10 +25,10 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_fwd_stage_boxes_are_the_copies(name):
     """Every stage the forward's ring loads by TMA holds exactly the cores
-    the cp.async copies put there: the forward at 32 output cores, 33 at
-    the head (its N = 8 product reads core 32), the reverse over 32 input
-    cores, 6 at layer 0 (its 48 PE channels); zero past the layer's npc
-    and kpc; no box over a stage slot's 8,448 B."""
+    of its K-step in the layout its product reads: the forward at 32
+    output cores, 33 at the head (its N = 8 product reads core 32), the
+    reverse over 32 input cores, 6 at layer 0 (its 48 PE channels); zero
+    past the layer's npc and kpc; no box over a stage slot's 8,448 B."""
     ws, lay = _layout(CFGS[name])
     L = len(ws)
     image = _image(ws, lay)
