@@ -41,12 +41,24 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      of the path launched, every op with two routes on its bf16
      (tensor-core) kernels only, one dW launch a bf16 backward (counts set
      to 0 before each path, read after; phases 6, 8, 9 and 10 hold their
-     runs' counts to the same);
+     runs' counts to the same); then, for each conf, 3 main steps on each
+     route (core_impl = pallas, pallas with remat = true, vjp, fwdmode)
+     from the same weights: every loss finite, the median ms a step and
+     the peak memory of each beside the pallas route's, with the card;
+     vjp and fwdmode launch none of the core's kernels (SDF core, albedo,
+     NeRF, their dW products, either op dtype), remat launches the SDF and
+     albedo forwards twice a step and everything else as pallas does;
   3. runs one main step of 64 rays on the CPU (plain versions) and on the
      card (kernels, f32 operands: the f32 routes) from the same params and
      draws, for each of the two confs, and compares loss, gradients and
-     updated params;
-  4. trains 200 warm-up steps of each conf on a sphere of radius 0.35: the
+     updated params; then the oracle, one main step of 512 rays on the
+     card from the same params and draws on each route: against
+     core_impl = vjp (autograd's double backward through the plain f32
+     field) the f32 kernel route within 1e-5 of the loss and 1e-4 of each
+     parameter group's gradient norm (sdf, color, variance, nerf), the
+     bf16 route within 1e-2, fwdmode within 1e-5; the bf16 route with
+     remat bit for bit without; every error printed;
+  4. trains 100 warm-up steps of each conf on a sphere of radius 0.35: the
      mean loss of the last 20 steps must be below that of the first 20;
   5. runs the kernel-ablation entry point
      (python -m rnb_tpu_torch.tools.ablate_kernel) and checks that it went
@@ -61,8 +73,11 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      finite loss, the training kernels' launches in that run, the port's
      acceptance gate (Chamfer-L1 <= 0.02), and a resume from the step-200
      checkpoint whose step-201 loss equals the first run's within 1e-6
-     relative; then times the grid query and marching cubes at 128^3 and
-     512^3 on the trained weights;
+     relative; loads the case through Dataset.from_conf on the card (the
+     maps uploaded as uint16 / uint8 and decoded there) and holds the
+     decoded maps bit for bit against the CPU's decode of the same files;
+     then times the grid query and marching cubes at 128^3 and 512^3 on
+     the trained weights;
   7. drives the inference path on that experiment, in subprocesses of the
      CLI: --mode validate_mesh_texture at 128^3 (vertex colours in [0, 1],
      radius 0.35 +- 0.02, mean colour R > G > B as the case's albedo),
@@ -134,7 +149,7 @@ Builds the CUDA kernels from rnb_tpu_torch/csrc with nvcc (sm_90a), then:
      a cut depth: rnb_tpu_torch.tools.bench (RNB_BENCH_ITERS=10, the
      view-sharded row on a one-rank NCCL group, the batch curve at 2048
      and 8192 with its peak memory; MFU in (0, 100]), bench_step at
-     batches 512 and 2048, roofline at --iters 10 (every region, the
+     batches 512 and 2048 without and with remat, roofline at --iters 10 (every region, the
      residual, the share of the bf16 peak), tune_kernel at ring depths 4
      and 8 of the forward, 3 and 4 of the backward sweep, and split counts
      64 and 32 (the tune library, built beside
@@ -767,6 +782,170 @@ def slice_parity(dev, conf_spec, f32_kernels, no_albedo=False):
 
 
 # ---------------------------------------------------------------------------
+# phases 2-3 on the routes: core_impl = vjp | fwdmode and remat
+# ---------------------------------------------------------------------------
+
+# (core_impl, remat) of each route; phase 2 runs each, phase 3 holds them
+# against the 'vjp' route (autograd's double backward through the plain
+# field, which shares nothing with the kernels' hand-derived backwards)
+ROUTES = {"pallas": ("pallas", False), "pallas_remat": ("pallas", True),
+          "vjp": ("vjp", False), "fwdmode": ("fwdmode", False)}
+# the kernels of the differentiable core (#1-#6), none of which the 'vjp'
+# and 'fwdmode' routes launch
+CORE_KERNELS = WOMASK_KERNELS + WOMASK_F32
+# under remat the backward runs the SDF and albedo forwards again
+REMAT_FWD = ("sdf_core_fwd", "albedo_fwd")
+
+
+def _route_cfgs(conf_spec, route, prec="bf16"):
+    """``load(conf_spec)`` on a route of ``ROUTES`` at the op dtype
+    ``prec``."""
+    from rnb_tpu_torch.train import step as steplib
+
+    statics, rcfg, tcfg = load(conf_spec)
+    core_impl, remat = ROUTES[route]
+    tcfg = dataclasses.replace(tcfg, core_impl=core_impl, remat=remat)
+    rcfg = dataclasses.replace(steplib.apply_runtime_flags(rcfg, tcfg),
+                               kernel_prec=prec)
+    return statics, rcfg, tcfg
+
+
+def route_runs(dev, card, conf_spec, steps=3):
+    """Phase 2 on each route: ``steps`` main steps at full width from seed
+    0's weights, every loss finite; the median ms a step and the peak
+    device memory beside the 'pallas' route's; the launches of each route
+    (none of the core's kernels on 'vjp' and 'fwdmode'; on 'pallas_remat'
+    the SDF and albedo forwards twice a step, every backward and its dW
+    product once, the NeRF as on 'pallas')."""
+    from rnb_tpu_torch.data import dataset as ds
+    from rnb_tpu_torch.models import fields
+    from rnb_tpu_torch.ops import _build
+    from rnb_tpu_torch.train import step as steplib
+
+    arrays = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4,
+                                  device=dev).arrays
+    out = {}
+    for route in ROUTES:
+        statics, rcfg, tcfg = _route_cfgs(conf_spec, route)
+        assert (rcfg.total_samples, tcfg.batch_size) == (128, 512)
+        n_out = rcfg.n_outside
+        state = steplib.init_train_state(fields.init_model_bundle(
+            torch.Generator().manual_seed(0), statics, dev))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=False,
+                                     no_albedo=False)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in _build.launches:
+            _build.launches[k] = 0
+        ms, losses = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, arrays, i % 6, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+        counts = {k: v for k, v in _build.launches.items() if v}
+        assert np.isfinite(losses).all(), f"{route}: non-finite loss {losses}"
+        out[route] = {"ms_per_step": float(np.median(ms)), "ms": ms,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                      "losses": losses, "launches": counts}
+        del state, fn
+    base = out["pallas"]["launches"]
+    for route in ("vjp", "fwdmode"):
+        assert not any(out[route]["launches"].get(k, 0) for k in CORE_KERNELS), \
+            (route, out[route]["launches"])
+    remat = out["pallas_remat"]["launches"]
+    for k in CORE_KERNELS:
+        want = base.get(k, 0) * (2 if k in REMAT_FWD else 1)
+        assert remat.get(k, 0) == want, (k, remat, base)
+    assert base.get("sdf_core_fwd") == steps, base
+    check_dw_launches(remat, f"remat on {conf_spec[0]}")
+    for route, r in out.items():
+        log(f"[routes {conf_spec[0]} n_outside={n_out}] "
+            f"{card}: {route}: {r['ms_per_step']:.3f} ms a step (median of "
+            f"{steps}; pallas {out['pallas']['ms_per_step']:.3f}), peak "
+            f"{r['peak_mem_gb']:.3f} GB (pallas "
+            f"{out['pallas']['peak_mem_gb']:.3f}); TF32 off; launches "
+            f"{r['launches']}")
+    return out
+
+
+def _group_errs(got, want):
+    """{group: |got - want| / |want|} over each parameter group's
+    gradients (sdf, color, variance, nerf), groups with a zero gradient
+    left out."""
+    errs = {}
+    for g in want:
+        num = sum((a - b).double().pow(2).sum().item()
+                  for a, b in zip(got[g], want[g]))
+        den = sum(b.double().pow(2).sum().item() for b in want[g])
+        if den > 0:
+            errs[g] = (num / den) ** 0.5
+    return errs
+
+
+def route_oracle(dev, conf_spec, batch=512):
+    """Phase 3's oracle: one main step at ``batch`` rays on the card, from
+    the same params and draws, on each route; the kernels' gradients held
+    against autograd's ('vjp', f32): the f32 kernel route within 1e-5 of
+    the loss and 1e-4 of each parameter group's gradient norm, the bf16
+    route within 1e-2, 'fwdmode' within 1e-5; 'pallas' with remat bit for
+    bit 'pallas' (bf16)."""
+    from rnb_tpu_torch.data import dataset as ds
+    from rnb_tpu_torch.models import fields
+    from rnb_tpu_torch.train import step as steplib
+    from rnb_tpu_torch.utils import bridge
+
+    arrays = ds.make_sphere_scene(n_views=6, H=256, W=256, radius=0.4,
+                                  device=dev).arrays
+    params = bridge.params_to_numpy(fields.init_model_bundle(
+        torch.Generator().manual_seed(3), load(conf_spec)[0], "cpu"))
+    rng = np.random.default_rng(4)
+    n_out = load(conf_spec)[1].n_outside
+    draws = dict(px=torch.tensor(rng.integers(0, 256, batch), device=dev),
+                 py=torch.tensor(rng.integers(0, 256, batch), device=dev),
+                 t_rand=torch.tensor(rng.uniform(size=(batch, 1)) - 0.5,
+                                     dtype=torch.float32, device=dev),
+                 t_out=torch.tensor(rng.uniform(size=(batch, n_out)),
+                                    dtype=torch.float32, device=dev))
+    res = {}
+    for name, route, prec in (("vjp", "vjp", "f32"), ("f32", "pallas", "f32"),
+                              ("bf16", "pallas", "bf16"),
+                              ("fwdmode", "fwdmode", "f32"),
+                              ("bf16_remat", "pallas_remat", "bf16")):
+        statics, rcfg, tcfg = _route_cfgs(conf_spec, route, prec)
+        state = steplib.init_train_state(bridge.params_from_numpy(params, dev))
+        fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=False,
+                                     no_albedo=False, batch_size=batch)
+        state, m = fn(state, arrays, 2, **draws)
+        res[name] = (m["loss"].item(), {
+            g: [p.grad.detach().clone() for p in bridge.tree_leaves(state.params[g])]
+            for g in state.params})
+        del state, fn
+    loss_ref, grad_ref = res["vjp"]
+    out = {}
+    for name, tol in (("f32", (1e-5, 1e-4)), ("bf16", (1e-2, 1e-2)),
+                      ("fwdmode", (1e-5, 1e-5))):
+        loss, grads = res[name]
+        out[name] = {"loss_rel_err": abs(loss - loss_ref) / abs(loss_ref),
+                     "grad_rel_err": _group_errs(grads, grad_ref)}
+        log(f"[oracle {conf_spec[0]} n_outside={n_out}] {name} against vjp "
+            f"(f32) at {batch} rays: {out[name]} (bounds {tol})")
+        assert out[name]["loss_rel_err"] <= tol[0], (name, out[name])
+        assert max(out[name]["grad_rel_err"].values()) <= tol[1], (name, out[name])
+    (l0, g0), (l1, g1) = res["bf16"], res["bf16_remat"]
+    same = l0 == l1 and all(torch.equal(a, b) for g in g0
+                            for a, b in zip(g0[g], g1[g]))
+    log(f"[oracle {conf_spec[0]} n_outside={n_out}] bf16 with remat bit for "
+        f"bit without: {same}")
+    assert same, "remat changed the bf16 route's gradients"
+    out["remat_bitwise"] = same
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training moves
 # ---------------------------------------------------------------------------
 
@@ -784,13 +963,13 @@ def training_moves(dev, conf_spec):
     fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=True, no_albedo=False)
     losses = []
     t0 = time.perf_counter()
-    for i in range(200):
+    for i in range(100):
         state, m = fn(state, scene.arrays, i % scene.n_images, gen)
         losses.append(m["loss"])
     losses = torch.stack(losses).cpu().numpy()
     secs = time.perf_counter() - t0
     first, last = float(losses[:20].mean()), float(losses[-20:].mean())
-    log(f"[train {conf_spec[0]} n_outside={rcfg.n_outside}] 200 warm-up steps in "
+    log(f"[train {conf_spec[0]} n_outside={rcfg.n_outside}] 100 warm-up steps in "
         f"{secs:.1f} s: mean loss first 20 {first:.5f}, last 20 {last:.5f}")
     assert np.isfinite(losses).all() and last < first, "training did not move"
     return {"loss_first20": first, "loss_last20": last, "seconds": secs}
@@ -846,6 +1025,7 @@ def _losses(exp):
 
 def runner_path(dev, card, tmp):
     """Phase 6 in ``tmp``; -> (result, launches, the CLI's --set list)."""
+    from rnb_tpu_torch.data.dataset import Dataset
     from rnb_tpu_torch.models import renderer as rnd
     from rnb_tpu_torch.ops import marching_cubes as mc
     from rnb_tpu_torch.train.runner import Runner
@@ -925,6 +1105,13 @@ def runner_path(dev, card, tmp):
                     overrides=sets, device=dev)
     assert runner.iter_step == 400
     ds_ = runner.dataset
+    # the maps went to the card quantized and were decoded there: bit for
+    # bit the CPU's decode of the same files
+    cpu = Dataset.from_conf(runner.conf["dataset"], device="cpu")
+    for k in ("normals", "albedos", "masks"):
+        a, b = getattr(ds_.arrays, k), getattr(cpu.arrays, k)
+        assert a.is_cuda and torch.equal(a.cpu(), b), f"decoded {k} differ"
+    log("[runner] the maps decoded on the card equal the CPU's bit for bit")
     # least work of the query: the f32 multiply-adds of the SDF chain
     # with its head cut to the sdf column, at the f32 peak
     sdf_ws = [l["v"] for l in runner.state.params["sdf"]]
@@ -1765,15 +1952,17 @@ def measuring_tools(card, tune_build, work):
 
     t0 = time.perf_counter()
     with mock.patch.dict(os.environ, RNB_SWEEP_BATCHES="512,2048",
-                         RNB_SWEEP_ITERS="10"):
+                         RNB_SWEEP_ITERS="10", RNB_SWEEP_REMAT="0,1"):
         r = bench_step.main([])
-    assert [row["batch"] for row in r["rows"]] == [512, 2048]
+    assert [(row["remat"], row["batch"]) for row in r["rows"]] == [
+        (False, 512), (False, 2048), (True, 512), (True, 2048)]
     for row in r["rows"]:
-        assert row["card"] == card
+        assert row["card"] == card and row["core_impl"] == "pallas", row
         for k in ("ms_per_step", "rays_per_s", "compile_s", "loss3"):
             _positive(row[k], f"bench_step {row['batch']} {k}")
     result["bench_step"] = {"s": time.perf_counter() - t0, "ms_per_step": {
-        row["batch"]: row["ms_per_step"] for row in r["rows"]}}
+        f"{row['batch']}{' remat' * row['remat']}": row["ms_per_step"]
+        for row in r["rows"]}}
 
     t0 = time.perf_counter()
     r = roofline.main(["--iters", "10"])
@@ -1945,6 +2134,8 @@ def main():
         parity, f32_counts = slice_parity(dev, spec, f32_kernels)
         counts.update({k: v for k, v in f32_counts.items() if k not in counts})
         summary[label] = {"slice": phases, "parity": parity,
+                          "routes": route_runs(dev, card, spec),
+                          "oracle": route_oracle(dev, spec),
                           "train": training_moves(dev, spec),
                           "launches": run_counts}
     # phase 9's no-albedo steps: phases 2-3 of the two no-albedo confs; the

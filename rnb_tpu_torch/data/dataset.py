@@ -12,9 +12,10 @@ feed the JAX package's draws.
 
 ``Dataset.from_conf`` loads the IDR layout from disk: ``cameras.npz`` with
 ``world_mat_i`` / ``scale_mat_i``, ``mask/*.png``, ``normal/*.png`` and
-optionally ``albedo/*.png`` (``albedo_dir = ''`` means no albedo). The maps
-go to the device as float32 (the JAX package re-quantizes them to uint16
-and decodes on the device, so the two differ by about one ulp).
+optionally ``albedo/*.png`` (``albedo_dir = ''`` means no albedo). As in
+the JAX package, the maps go to the device quantized (normals and albedo
+as uint16, masks as uint8) and are decoded there, to the JAX package's
+float32 values bit for bit (``upload_quantized``, ``decode_maps``).
 """
 
 from __future__ import annotations
@@ -140,11 +141,45 @@ def synth_images(arrays: DataArrays, view_idx):
     return img_warm, img_main
 
 
+# The JAX package's decode of the quantized maps as XLA compiles it on the
+# CPU: each division folded into a product by an f32 constant, the normals'
+# product and shift fused into one multiply-add. In float64 a 16-bit code
+# times a 24-bit constant, and that product less 1, are exact, so one
+# rounding to float32 gives the same bits on any device.
+_INV16 = float(np.float32(1.0) / np.float32(65535.0))
+
+
+def encode_maps(normals_np, albedos_np, masks_np):
+    """Host side of the quantized upload, as the JAX package does it:
+    ``rint(clip((n + 1) / 2, 0, 1) * 65535)`` and ``rint(clip(a, 0, 1) *
+    65535)`` as uint16, ``mask > 0.5`` as uint8."""
+    n16 = np.rint(np.clip((np.asarray(normals_np) + 1.0) * 0.5, 0, 1)
+                  * 65535.0).astype(np.uint16)
+    a16 = np.rint(np.clip(np.asarray(albedos_np), 0, 1)
+                  * 65535.0).astype(np.uint16)
+    m8 = (np.asarray(masks_np) > 0.5).astype(np.uint8)
+    return n16, a16, m8
+
+
+def decode_maps(n16: torch.Tensor, a16: torch.Tensor, m8: torch.Tensor):
+    """Device side: ``n / 65535 * 2 - 1``, ``a / 65535`` and the mask as
+    float32, on the tensors' device."""
+    n = (n16.to(torch.float64) * (2.0 * _INV16) - 1.0).to(torch.float32)
+    a = (a16.to(torch.float64) * _INV16).to(torch.float32)
+    return n, a, m8.to(torch.float32)
+
+
 class Dataset:
-    """Owns the device tensors, the host camera matrices and the mesh bbox."""
+    """Owns the device tensors, the host camera matrices and the mesh bbox.
+
+    ``upload_quantized`` ships the maps to the device as uint16 (normals,
+    albedo) and uint8 (masks) and decodes them there (``decode_maps``), as
+    the JAX package's loader does; ``from_conf`` turns it on. Off, the
+    float32 maps go as they are."""
 
     def __init__(self, normals_np, albedos_np, masks_np, world_mats, scale_mats,
-                 object_scale_mat=None, no_albedo: bool = False, device="cuda"):
+                 object_scale_mat=None, no_albedo: bool = False, device="cuda",
+                 upload_quantized: bool = False):
         self.no_albedo = bool(no_albedo or albedos_np is None)
         self.n_images, self.H, self.W = masks_np.shape[:3]
         self.n_lights = lights.N_LIGHTS
@@ -170,10 +205,16 @@ class Dataset:
         def put(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
+        if upload_quantized:
+            normals, albedos, masks = decode_maps(*(
+                torch.as_tensor(a, device=self.device)
+                for a in encode_maps(normals_np, albedos_np, masks_np)))
+        else:
+            normals, albedos, masks = map(put, (normals_np, albedos_np, masks_np))
         self.arrays = DataArrays(
-            normals=put(normals_np),
-            albedos=put(albedos_np),
-            masks=put(masks_np),
+            normals=normals,
+            albedos=albedos,
+            masks=masks,
             intrinsics_inv=put(np.linalg.inv(intrinsics_all)),
             pose_all=put(pose_all),
             lights_warmup_world=put(lights_warmup_world),
@@ -194,7 +235,8 @@ class Dataset:
     @classmethod
     def from_conf(cls, conf, no_albedo: bool = False, device="cuda",
                   view_subset: list[int] | None = None) -> "Dataset":
-        """Load the IDR layout named by a ``dataset`` conf section.
+        """Load the IDR layout named by a ``dataset`` conf section; the
+        maps go to the device quantized (``upload_quantized``).
 
         ``view_subset`` loads only these global view indices, in order,
         repeats allowed (the view-sharded path: ``parallel/data.py`` gives
@@ -233,7 +275,7 @@ class Dataset:
             os.path.join(data_dir, object_cameras_name))["scale_mat_0"]
         ds = cls(normals_np, albedos_np, masks_np, world_mats, scale_mats,
                  object_scale_mat=object_scale_mat, no_albedo=no_albedo,
-                 device=device)
+                 device=device, upload_quantized=True)
         ds.normal_files = [normal_files[i] for i in sel]
         ds.global_view_indices = sel
         ds.n_images_global = len(mask_files)

@@ -19,11 +19,13 @@ same weights to both packages (``rnb_tpu_torch.utils.bridge``).
     outputs (softplus and sigmoid stay in the renderer).
   * Single-variance network: ``inv_s = exp(10 v)``.
 
-The training path takes ∇SDF from the fused kernel op
-(``rnb_tpu_torch.ops.sdf_core``) and the background NeRF from
-``rnb_tpu_torch.ops.nerf``; ``sdf_value_feat_grad`` and ``nerf_apply`` here
-are the plain autograd forms (the first differentiable again through
-``create_graph=True``).
+The training path's default route (``core_impl = 'pallas'``) takes ∇SDF
+from the fused kernel op (``rnb_tpu_torch.ops.sdf_core``) and the
+background NeRF from ``rnb_tpu_torch.ops.nerf``; ``sdf_value_feat_grad``
+(reverse mode, differentiable again through ``create_graph=True``),
+``sdf_value_feat_grad_fwd`` (forward-mode tangents) and ``nerf_apply`` here
+are the plain autograd forms that the ``'vjp'`` and ``'fwdmode'`` routes
+run.
 """
 
 from __future__ import annotations
@@ -224,14 +226,56 @@ def sdf_only_lowp(cfg: SDFConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def sdf_value_feat_grad(cfg: SDFConfig, params, pts: torch.Tensor):
-    """sdf [N], feature [N,F], d sdf/d pts [N,3] by autograd; the gradient
-    keeps its graph (``create_graph=True``) so a loss on it differentiates
-    again into the parameters (the second-order eikonal term)."""
+    """sdf [N], feature [N,F], d sdf/d pts [N,3] by autograd (the
+    ``core_impl = 'vjp'`` route). Where grad mode is on, the gradient keeps
+    its graph (``create_graph=True``) so a loss on it differentiates again
+    into the parameters (the second-order eikonal term); under ``no_grad``
+    the outputs carry no graph."""
+    keep = torch.is_grad_enabled()
     with torch.enable_grad():
         x = pts.detach().requires_grad_(True)
         out = sdf_apply(cfg, params, x)
-        (grad,) = torch.autograd.grad(out[..., 0].sum(), x, create_graph=True)
+        (grad,) = torch.autograd.grad(out[..., 0].sum(), x, create_graph=keep)
+    if not keep:
+        out = out.detach()
     return out[..., 0], out[..., 1:], grad
+
+
+def sdf_value_feat_grad_fwd(cfg: SDFConfig, params, pts: torch.Tensor):
+    """The outputs of ``sdf_value_feat_grad`` with ∇SDF from forward-mode
+    tangents (the ``core_impl = 'fwdmode'`` route): beside each layer's
+    activations h [N,C] their derivatives by the three input coordinates,
+    Th [N,3,C], go through the same weights, so ∇SDF is a plain output of
+    the chain and a loss on it is first-order in the parameters (autograd
+    differentiates the chain once)."""
+    n = pts.shape[0]
+    u = pts * cfg.scale
+    eye = torch.eye(3, dtype=pts.dtype, device=pts.device)
+    # e = PE(u) [N, in] and T = de/du [N, 3, in]: d sin(f u_j)/d u_d =
+    # f cos(f u_j) δ_jd, so each block is diagonal in (direction, channel)
+    e_parts, t_parts = [u], [eye.expand(n, 3, 3)]
+    for k in range(cfg.multires):
+        f = 2.0 ** k
+        s, c = torch.sin(u * f), torch.cos(u * f)
+        e_parts += [s, c]
+        t_parts += [f * c[:, None, :] * eye, -f * s[:, None, :] * eye]
+    e = torch.cat(e_parts, dim=-1)
+    t = torch.cat(t_parts, dim=-1)
+
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+    h, th = e, t
+    for l, layer in enumerate(params):
+        if l in cfg.skip_in:
+            h = torch.cat([h, e], dim=-1) * inv_sqrt2
+            th = torch.cat([th, t], dim=-1) * inv_sqrt2
+        w = fold_weight_norm(layer)
+        z = h @ w + layer["b"]
+        tz = torch.einsum("ndi,io->ndo", th, w)
+        if l < len(params) - 1:
+            h = softplus100(z)
+            th = tz * torch.sigmoid(z * 100.0)[:, None, :]
+    # d sdf/d x: the 1/scale and the encoding's input scale cancel
+    return z[:, 0] / cfg.scale, z[:, 1:], tz[:, :, 0]
 
 
 # ---------------------------------------------------------------------------

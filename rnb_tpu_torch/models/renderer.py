@@ -12,12 +12,18 @@ Counterpart of ``rnb_tpu/models/renderer.py``:
   * ``render_core_outside``: the NeRF++ inverted-sphere background
     (``n_outside > 0``, the womask confs): the background NeRF on
     ``[x/r, 1/r]`` with r = |x| clipped to [1, 1e10], from the fused NeRF op
-    (``ops.nerf``), softplus density and sigmoid colour.
+    (``ops.nerf``; the plain ``fields.nerf_apply`` off the 'pallas' route),
+    softplus density and sigmoid colour.
   * ``render_core_mvps``: sigmoid-SDF alpha, cos annealing, transmittance,
     the eikonal error over the relaxed sphere; outside the unit sphere the
     background alpha takes the place of the SDF alpha. SDF value, feature
-    and ∇SDF come from the fused kernel op (``ops.sdf_core``), the albedo
-    from the fused albedo op (``ops.albedo``).
+    and ∇SDF and the albedo come from the route ``core_impl`` names:
+    'pallas' the fused kernel ops (``ops.sdf_core``, ``ops.albedo``;
+    ``ops.nerf`` for the background), 'vjp' the plain fields with ∇SDF by
+    autograd, differentiated again for the eikonal term, 'fwdmode' the
+    plain fields with ∇SDF from forward-mode tangents. ``remat`` runs the
+    SDF and albedo nets under ``torch.utils.checkpoint``, so the backward
+    recomputes them, as ``jax.checkpoint`` does in the JAX package.
   * ``render_rnb``: per-light Lambertian compositing of the first
     ``n_samples`` weights; ReLU on the shading in warm-up only.
   * ``render``: the vanilla NeuS render of novel views, the albedo
@@ -43,6 +49,7 @@ import dataclasses
 from typing import Dict
 
 import torch
+import torch.utils.checkpoint
 
 from rnb_tpu_torch.models import fields
 from rnb_tpu_torch.models.fields import ModelStatics
@@ -53,26 +60,15 @@ from rnb_tpu_torch.ops import sdf_core
 _KERNEL_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-# The JAX package's runtime knobs that the port parses but runs one way
-# only: the value it honours, and where another value would come from.
-# Any other value is refused by name, never ignored.
-_ONE_WAY = {
-    "core_impl": ("pallas", "the port runs the fused kernels only; 'vjp' and "
-                  "'fwdmode' are left out on purpose (ROADMAP.md, queue 1)"),
-    "remat": (False, "the port stores activations; remat is left out on "
-              "purpose (ROADMAP.md, queue 1)"),
-}
+CORE_IMPLS = ("pallas", "vjp", "fwdmode")
 
 
-def refuse_unsupported(section: str, **knobs) -> None:
-    """Raise ValueError, naming the key and its value, for a runtime knob of
-    the JAX package (``core_impl``, ``remat``) set to a value the port
-    cannot honour."""
-    for key, value in knobs.items():
-        want, why = _ONE_WAY[key]
-        if value != want:
-            raise ValueError(f"{section}.{key} = {value!r} is not supported "
-                             f"by rnb_tpu_torch (only {want!r}): {why}")
+def check_core_impl(section: str, core_impl: str) -> None:
+    """Raise ValueError, naming the key and its value, for a ``core_impl``
+    that is not a route (the JAX package runs any other value as 'vjp')."""
+    if core_impl not in CORE_IMPLS:
+        raise ValueError(f"{section}.core_impl = {core_impl!r} is not a route "
+                         f"of rnb_tpu_torch (one of {CORE_IMPLS})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +83,17 @@ class RendererConfig:
                       albedo and background-NeRF kernels (bf16 operands with f32 accumulation
                       on the main path; f32 to compare against a reference);
                       the port's own knob
-      remat, core_impl
-                      the JAX package's knobs, parsed; only False and
-                      'pallas' run (``refuse_unsupported``)
+      core_impl       'pallas' | 'vjp' | 'fwdmode': the differentiable
+                      core's route. 'pallas' (default) the fused SDF-core,
+                      albedo and NeRF kernel ops (their plain versions on
+                      the CPU; never another route); 'vjp' the plain fields
+                      with ∇SDF by reverse-mode autograd, differentiated
+                      again for the eikonal term; 'fwdmode' the plain
+                      fields with ∇SDF from forward-mode tangents. Another
+                      value is refused by name (``check_core_impl``)
+      remat           run the SDF and albedo closures under
+                      ``torch.utils.checkpoint`` (the backward recomputes
+                      them), on every route
     """
     n_samples: int = 64
     n_importance: int = 64
@@ -102,8 +106,7 @@ class RendererConfig:
     core_impl: str = "pallas"
 
     def __post_init__(self):
-        refuse_unsupported("neus_renderer", remat=self.remat,
-                           core_impl=self.core_impl)
+        check_core_impl("neus_renderer", self.core_impl)
 
     @property
     def total_samples(self) -> int:
@@ -259,7 +262,7 @@ def render_core_outside(statics: ModelStatics, rcfg: RendererConfig, params,
 
     d_in = 3 + int(rcfg.n_outside > 0)
     pts_in, dirs_in = pts4.reshape(-1, 4)[:, :d_in], dirs.reshape(-1, 3)
-    if nerf_op.supported(statics.nerf):
+    if rcfg.core_impl == "pallas" and nerf_op.supported(statics.nerf):
         density, color_raw = nerf_op.nerf_apply_fused(
             statics.nerf, params["nerf"], pts_in, dirs_in,
             _KERNEL_DTYPES[rcfg.kernel_prec])
@@ -275,21 +278,27 @@ def render_core_outside(statics: ModelStatics, rcfg: RendererConfig, params,
             "weights": weights}
 
 
-def sdf_feat_grad(statics: ModelStatics, params, pts, kernel_prec: str = "bf16"):
-    """(sdf [N], feature [N,F], ∇SDF [N,3]) at pts [N,3]: the fused SDF-core
-    op at the op dtype ``kernel_prec``, or the plain field for a net the
-    kernels do not take."""
-    if sdf_core.supported(statics.sdf):
+def sdf_feat_grad(statics: ModelStatics, params, pts, kernel_prec: str = "bf16",
+                  core_impl: str = "pallas"):
+    """(sdf [N], feature [N,F], ∇SDF [N,3]) at pts [N,3] by the route
+    ``core_impl`` (``RendererConfig``): the fused SDF-core op at the op
+    dtype ``kernel_prec`` ('pallas', for a net the kernels take),
+    forward-mode tangents ('fwdmode'), else the plain field by autograd."""
+    if core_impl == "pallas" and sdf_core.supported(statics.sdf):
         return sdf_core.sdf_value_feat_grad_fused(
             statics.sdf, params["sdf"], pts, _KERNEL_DTYPES[kernel_prec])
+    if core_impl == "fwdmode":
+        return fields.sdf_value_feat_grad_fwd(statics.sdf, params["sdf"], pts)
     return fields.sdf_value_feat_grad(statics.sdf, params["sdf"], pts)
 
 
 def albedo_at(statics: ModelStatics, params, pts, normals, dirs, feature,
-              kernel_prec: str = "bf16"):
-    """Albedo [N, d_out]: the fused albedo op (mode ``no_view_dir``, which
-    drops ``dirs``) at the op dtype ``kernel_prec``, or the plain field."""
-    if albedo_op.supported(statics.color):
+              kernel_prec: str = "bf16", core_impl: str = "pallas"):
+    """Albedo [N, d_out] by the route ``core_impl``: the fused albedo op
+    (mode ``no_view_dir``, which drops ``dirs``) at the op dtype
+    ``kernel_prec`` ('pallas', for a net the kernel takes), else the plain
+    field."""
+    if core_impl == "pallas" and albedo_op.supported(statics.color):
         return albedo_op.albedo_apply_fused(
             statics.color, params["color"], pts, normals, feature,
             _KERNEL_DTYPES[kernel_prec])
@@ -297,14 +306,24 @@ def albedo_at(statics: ModelStatics, params, pts, normals, dirs, feature,
                                   dirs, feature)
 
 
+def _checkpointed(fn):
+    """``fn`` under ``torch.utils.checkpoint``: the activations of its ops
+    (the parameters it reads included) are not kept for the backward, which
+    runs it again (``jax.checkpoint``'s remat)."""
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
 def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
                      sample_dist, cos_anneal_ratio, background_alpha=None,
                      need_albedo: bool = True,
-                     kernel_prec: str = "bf16") -> Dict[str, torch.Tensor]:
+                     kernel_prec: str = "bf16", core_impl: str = "pallas",
+                     remat: bool = False) -> Dict[str, torch.Tensor]:
     """The training integrator. Returns per-sample albedo and normals for
     the light compositing. ``background_alpha`` [B,S+n_outside] (from
     ``render_core_outside``) replaces the alpha outside the unit sphere and
-    appends the outside samples; ``alpha_raw`` is the SDF alpha before."""
+    appends the outside samples; ``alpha_raw`` is the SDF alpha before.
+    ``core_impl`` and ``remat`` as in ``RendererConfig``."""
     batch_size, n_samples = z_vals.shape
     dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
                        torch.full_like(z_vals[:, :1], sample_dist)], dim=-1)
@@ -314,14 +333,21 @@ def render_core_mvps(statics: ModelStatics, params, rays_o, rays_d, z_vals,
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = dirs.reshape(-1, 3)
 
-    sdf, feature, gradients = sdf_feat_grad(statics, params, pts_flat,
-                                            kernel_prec)
+    def svfg(x):
+        return sdf_feat_grad(statics, params, x, kernel_prec, core_impl)
+
+    def color(x, g, d, f):
+        return albedo_at(statics, params, x, g, d, f, kernel_prec, core_impl)
+
+    if remat:
+        svfg, color = _checkpointed(svfg), _checkpointed(color)
+
+    sdf, feature, gradients = svfg(pts_flat)
     sdf = sdf[:, None]
 
     if need_albedo:
-        sampled_albedo = albedo_at(
-            statics, params, pts_flat, gradients, dirs_flat, feature,
-            kernel_prec).reshape(batch_size, n_samples, statics.color.d_out)
+        sampled_albedo = color(pts_flat, gradients, dirs_flat, feature).reshape(
+            batch_size, n_samples, statics.color.d_out)
     else:
         sampled_albedo = torch.ones(batch_size, n_samples, statics.color.d_out,
                                     device=z_vals.device)
@@ -435,7 +461,8 @@ def render_rnb(statics: ModelStatics, rcfg: RendererConfig, params,
                            sample_dist, cos_anneal_ratio,
                            background_alpha=background_alpha,
                            need_albedo=not no_albedo,
-                           kernel_prec=rcfg.kernel_prec)
+                           kernel_prec=rcfg.kernel_prec,
+                           core_impl=rcfg.core_impl, remat=rcfg.remat)
     albedo = ret["sampled_albedo"]
     normal = ret["sampled_normal"]
     weights = ret["weights"]
@@ -478,7 +505,8 @@ def render(statics: ModelStatics, rcfg: RendererConfig, params,
 
     core = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
                             sample_dist, cos_anneal_ratio, need_albedo=True,
-                            kernel_prec=rcfg.kernel_prec)
+                            kernel_prec=rcfg.kernel_prec,
+                            core_impl=rcfg.core_impl, remat=rcfg.remat)
     sampled_color = core["sampled_albedo"][..., :3]
     inside = core["inside_sphere"]
     if rcfg.n_outside > 0:

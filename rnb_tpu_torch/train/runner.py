@@ -583,8 +583,9 @@ class Runner:
                        chunk: int = 100000) -> np.ndarray:
         """Albedo [V, 3] in [0, 1] at each vertex, in chunks of ``chunk``
         (a ragged last one): the SDF core's (feature, ∇SDF), then the albedo
-        net with the gradient standing in for the view direction, through
-        the fused ops at the conf's ``kernel_prec``."""
+        net with the gradient standing in for the view direction, by the
+        conf's route (``core_impl``: the fused ops at its ``kernel_prec``
+        on 'pallas')."""
         out = np.empty((len(vertices), 3), np.float32)
         with torch.no_grad():
             params = fields.fold_params(self.state.params)
@@ -593,9 +594,10 @@ class Runner:
                     np.asarray(vertices[start:start + chunk], np.float32),
                     device=self.device)
                 _, feat, grad = rnd.sdf_feat_grad(self.statics, params, pts,
-                                                  self.rcfg.kernel_prec)
+                                                  self.rcfg.kernel_prec,
+                                                  self.rcfg.core_impl)
                 alb = rnd.albedo_at(self.statics, params, pts, grad, grad, feat,
-                                    self.rcfg.kernel_prec)
+                                    self.rcfg.kernel_prec, self.rcfg.core_impl)
                 out[start:start + len(pts)] = np.clip(alb.cpu().numpy(), 0, 1)
         return out
 

@@ -6,12 +6,14 @@ two, as the JAX package does):
   pixel sampling + supervision synthesis (rnb_tpu_torch.data.dataset)
   -> z init + hierarchical up-sampling (no grad)
   -> with n_outside > 0 (womask), the background NeRF (fused NeRF kernel)
-  -> render_core_mvps (fused SDF-core kernel with ∇SDF, fused albedo kernel)
+  -> render_core_mvps (fused SDF-core kernel with ∇SDF, fused albedo kernel;
+     the plain fields by autograd on the 'vjp' and 'fwdmode' routes)
   -> per-light shading and compositing
   -> 3-term loss: L1 colour / (mask_sum * n_lights) + igr_weight * eikonal
      + mask_weight * BCE(clip(weight_sum))
   -> one backward pass (the eikonal term's second-order part enters the SDF
-     core's backward as the cotangent of ∇SDF) -> Adam.
+     core's backward as the cotangent of ∇SDF; autograd's double backward
+     on 'vjp') -> Adam.
 
 ``torch.optim.Adam`` over the leaves of the whole bundle equals
 ``optax.adam``: betas (0.9, 0.999), eps 1e-8 outside the sqrt, the same bias
@@ -67,13 +69,12 @@ class TrainConfig:
     # runtime knobs
     matmul_precision: str = "high"      # carried and recorded, not applied
     upsample_precision: str = "bf16"    # 'bf16' | 'f32' no-grad sweeps
-    remat: bool = False                 # only False runs
-    core_impl: str = "pallas"           # only 'pallas' runs
+    remat: bool = False                 # checkpoint the SDF and albedo nets
+    core_impl: str = "pallas"           # 'pallas' | 'vjp' | 'fwdmode'
     view_shard: bool = False            # the view-sharded step at world > 1
 
     def __post_init__(self):
-        rnd.refuse_unsupported("train", remat=self.remat,
-                               core_impl=self.core_impl)
+        rnd.check_core_impl("train", self.core_impl)
 
 
 def train_conf(conf) -> TrainConfig:
@@ -113,8 +114,9 @@ def resolve_runtime_flags(tcfg: TrainConfig) -> TrainConfig:
 
 def apply_runtime_flags(rcfg: RendererConfig, tcfg: TrainConfig) -> RendererConfig:
     """Copy the resolved runtime knobs into the RendererConfig, which is
-    what the render functions read: ``upsample_precision`` overwrites its
-    ``upsample_prec``, as in the JAX package. ``matmul_precision`` is
+    what the render functions read: ``upsample_precision``, ``remat`` and
+    ``core_impl`` overwrite the renderer's, as in the JAX package.
+    ``matmul_precision`` is
     carried and recorded (``runtime_flags_dict``), not applied: no global
     torch state changes, and the port's plain matmuls stay in full f32."""
     return dataclasses.replace(rcfg, upsample_prec=tcfg.upsample_precision,

@@ -3,10 +3,12 @@
 One conf text goes through both packages' parser, ``train_conf`` (the conf's
 runtime knobs, then the RNB_* environment overrides) and
 ``apply_runtime_flags(renderer_conf(...), ...)``; the resolved runtime
-fields and the renderer's ``upsample_prec`` must be equal. A knob the port
-cannot honour (``core_impl`` other than 'pallas', ``remat`` true) is
-refused by a ValueError that names it; ``view_shard`` parses as in the JAX
-package and selects the view-sharded step of a process group.
+fields and the renderer's ``upsample_prec`` must be equal, and so must the
+route knobs ``core_impl`` and ``remat`` of the renderer before and after
+the flags are applied. A ``core_impl`` that is not a route is refused by a
+ValueError that names it (the JAX package runs it as 'vjp');
+``view_shard`` parses as in the JAX package and selects the view-sharded
+step of a process group.
 """
 
 import re
@@ -89,32 +91,69 @@ def test_shipped_confs_unchanged(conf):
     assert port == (tstep.runtime_flags_dict(tstep.TrainConfig()), "bf16")
 
 
-REFUSED = {   # case: (conf text, the key the message must name)
+def _routes(renderer, step, conf):
+    """(train flags, the renderer's (core_impl, remat) as the conf gives
+    them, and after ``apply_runtime_flags``)."""
+    tcfg = step.train_conf(conf)
+    raw = renderer.renderer_conf(conf["model"])
+    rcfg = step.apply_runtime_flags(raw, tcfg)
+    return (step.runtime_flags_dict(tcfg), (raw.core_impl, raw.remat),
+            (rcfg.core_impl, rcfg.remat))
+
+
+def _both_routes(text):
+    return (_routes(jrenderer, jstep, jconfig.parse_string(text)),
+            _routes(trenderer, tstep, tconfig.parse_string(text)))
+
+
+ROUTES = {   # case: (conf text, the renderer's knobs after the flags)
     "renderer_core_impl_vjp": (
         "model { neus_renderer { core_impl = vjp, remat = false } }",
-        "neus_renderer.core_impl = 'vjp'"),
+        ("pallas", False)),
     "renderer_remat": ("model { neus_renderer { remat = true } }",
-                       "neus_renderer.remat = True"),
-    "train_core_impl_fwdmode": ("train { core_impl = fwdmode }\nmodel { }",
-                                "train.core_impl = 'fwdmode'"),
+                       ("pallas", False)),
+    "train_core_impl_fwdmode": ("train { core_impl = fwdmode, remat = true }"
+                                "\nmodel { }", ("fwdmode", True)),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_unsupported_knob_is_refused_by_name(case):
-    """The JAX package parses these; the port refuses each with a
-    ValueError that names the key and the value (not a TypeError, and never
-    silently)."""
-    text, named = REFUSED[case]
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_route_knobs_resolve_alike(case):
+    """The renderer section's knobs are the renderer's own until the train
+    section's (default 'pallas', False) overwrite them, in both packages."""
+    text, want = ROUTES[case]
+    jax_side, port = _both_routes(text)
+    assert port == jax_side
+    assert port[2] == want
+
+
+@pytest.mark.parametrize("var,value,want", [
+    ("RNB_CORE_IMPL", "vjp", ("vjp", False)),
+    ("RNB_REMAT", "1", ("pallas", True))])
+def test_env_route_knobs_resolve_alike(monkeypatch, var, value, want):
+    monkeypatch.setenv(var, value)
+    jax_side, port = _both_routes("train { core_impl = pallas }\nmodel { }")
+    assert port == jax_side
+    assert port[2] == want
+
+
+@pytest.mark.parametrize("where", ["conf", "env"])
+def test_unknown_core_impl_is_refused_by_name(monkeypatch, where):
+    """The JAX package runs an unknown value as 'vjp'; the port refuses it
+    with a ValueError that names the key and the value, from the conf and
+    from the environment."""
+    text = "train { core_impl = pallas }\nmodel { }"
+    if where == "conf":
+        text = "train { core_impl = reverse }\nmodel { }"
+    else:
+        monkeypatch.setenv("RNB_CORE_IMPL", "reverse")
     _resolve(jconfig, jrenderer, jstep, jconfig.parse_string(text))
-    with pytest.raises(ValueError, match=re.escape(named)):
+    with pytest.raises(ValueError,
+                       match=re.escape("train.core_impl = 'reverse'")):
         _resolve(tconfig, trenderer, tstep, tconfig.parse_string(text))
-
-
-def test_env_knob_the_port_cannot_honour_is_refused(monkeypatch):
-    monkeypatch.setenv("RNB_CORE_IMPL", "vjp")
-    with pytest.raises(ValueError, match=re.escape("train.core_impl = 'vjp'")):
-        tstep.train_conf(tconfig.parse_string("train { }"))
+    with pytest.raises(ValueError,
+                       match=re.escape("neus_renderer.core_impl = 'reverse'")):
+        trenderer.RendererConfig(core_impl="reverse")
 
 
 def test_env_view_shard_resolves_alike(monkeypatch):
