@@ -29,7 +29,7 @@ import torch
 
 from rnb_tpu_torch.data import cameras as cam
 from rnb_tpu_torch.data import lights
-from rnb_tpu_torch.utils import io
+from rnb_tpu_torch.utils import io, trace
 
 
 class DataArrays(NamedTuple):
@@ -331,7 +331,9 @@ class Dataset:
         rays_o = np.broadcast_to(pose[:3, 3], rays_d.shape)
 
         def put(a):
-            return torch.tensor(np.asarray(a, np.float32), device=self.device)
+            a = np.asarray(a, np.float32)
+            trace.count("bytes_to_card", a.nbytes)
+            return torch.tensor(a, device=self.device)
 
         return put(rays_o), put(rays_d)
 

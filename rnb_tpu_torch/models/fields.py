@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from rnb_tpu_torch.models.embedder import make_embedder
+from rnb_tpu_torch.utils import trace
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +55,7 @@ def fold_weight_norm(layer: Dict[str, torch.Tensor]) -> torch.Tensor:
     return v * (layer["g"][None, :] / torch.clamp_min(norm, 1e-12))
 
 
+@trace.spanned("fields.fold")
 def fold_params(params):
     """``params`` detached, each weight-norm layer {v, g, b} replaced by
     {w, b} with w its folded weight: for a no-grad pass over many chunks,

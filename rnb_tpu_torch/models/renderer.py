@@ -41,6 +41,12 @@ grid in 64³-point chunks (a ragged last one), with the points made on the
 device from the bounds (``grid_chunk_points``), the f32 ``fields.sdf_only``
 with TF32 off, and the values cast to float16 on the device before the one
 fetch, as the JAX package does.
+
+Spans (``utils/trace.py``): ``renderer.upsample``, ``renderer.outside`` and
+``renderer.core`` around the stages of ``render_rnb`` and ``render``;
+``renderer.grid_query`` around the grid's chunk loop and
+``renderer.grid_fetch`` around its copy to the host and float32 conversion,
+with ``renderer.grid_fetch.wait`` the wait for the grid query.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from rnb_tpu_torch.models.fields import ModelStatics
 from rnb_tpu_torch.ops import albedo as albedo_op
 from rnb_tpu_torch.ops import nerf as nerf_op
 from rnb_tpu_torch.ops import sdf_core
+from rnb_tpu_torch.utils import trace
 
 _KERNEL_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -447,22 +454,25 @@ def render_rnb(statics: ModelStatics, rcfg: RendererConfig, params,
     first ``n_samples`` weights are composited."""
     sample_dist = 2.0 / rcfg.n_samples
     z_vals = init_z_vals(rcfg, near, far, t_rand)
-    z_vals = upsampled_z_vals(statics, rcfg, params, rays_o, rays_d, z_vals)
+    with trace.span("renderer.upsample"):
+        z_vals = upsampled_z_vals(statics, rcfg, params, rays_o, rays_d, z_vals)
     n_samples = rcfg.total_samples if rcfg.n_importance > 0 else rcfg.n_samples
 
     background_alpha = None
     if rcfg.n_outside > 0:
-        z_out = _outside_z_vals(rcfg, far, t_out)
-        z_feed, _ = torch.sort(torch.cat([z_vals, z_out], dim=-1), dim=-1)
-        background_alpha = render_core_outside(
-            statics, rcfg, params, rays_o, rays_d, z_feed, sample_dist)["alpha"]
+        with trace.span("renderer.outside"):
+            z_out = _outside_z_vals(rcfg, far, t_out)
+            z_feed, _ = torch.sort(torch.cat([z_vals, z_out], dim=-1), dim=-1)
+            background_alpha = render_core_outside(
+                statics, rcfg, params, rays_o, rays_d, z_feed, sample_dist)["alpha"]
 
-    ret = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
-                           sample_dist, cos_anneal_ratio,
-                           background_alpha=background_alpha,
-                           need_albedo=not no_albedo,
-                           kernel_prec=rcfg.kernel_prec,
-                           core_impl=rcfg.core_impl, remat=rcfg.remat)
+    with trace.span("renderer.core"):
+        ret = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
+                               sample_dist, cos_anneal_ratio,
+                               background_alpha=background_alpha,
+                               need_albedo=not no_albedo,
+                               kernel_prec=rcfg.kernel_prec,
+                               core_impl=rcfg.core_impl, remat=rcfg.remat)
     albedo = ret["sampled_albedo"]
     normal = ret["sampled_normal"]
     weights = ret["weights"]
@@ -501,19 +511,22 @@ def render(statics: ModelStatics, rcfg: RendererConfig, params,
         rcfg = dataclasses.replace(rcfg, perturb=0.0)
     sample_dist = 2.0 / rcfg.n_samples
     z_vals = init_z_vals(rcfg, near, far, t_rand)
-    z_vals = upsampled_z_vals(statics, rcfg, params, rays_o, rays_d, z_vals)
+    with trace.span("renderer.upsample"):
+        z_vals = upsampled_z_vals(statics, rcfg, params, rays_o, rays_d, z_vals)
 
-    core = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
-                            sample_dist, cos_anneal_ratio, need_albedo=True,
-                            kernel_prec=rcfg.kernel_prec,
-                            core_impl=rcfg.core_impl, remat=rcfg.remat)
+    with trace.span("renderer.core"):
+        core = render_core_mvps(statics, params, rays_o, rays_d, z_vals,
+                                sample_dist, cos_anneal_ratio, need_albedo=True,
+                                kernel_prec=rcfg.kernel_prec,
+                                core_impl=rcfg.core_impl, remat=rcfg.remat)
     sampled_color = core["sampled_albedo"][..., :3]
     inside = core["inside_sphere"]
     if rcfg.n_outside > 0:
-        z_out = _outside_z_vals(rcfg, far, t_out)
-        z_feed, _ = torch.sort(torch.cat([z_vals, z_out], dim=-1), dim=-1)
-        bg = render_core_outside(statics, rcfg, params, rays_o, rays_d, z_feed,
-                                 sample_dist)
+        with trace.span("renderer.outside"):
+            z_out = _outside_z_vals(rcfg, far, t_out)
+            z_feed, _ = torch.sort(torch.cat([z_vals, z_out], dim=-1), dim=-1)
+            bg = render_core_outside(statics, rcfg, params, rays_o, rays_d,
+                                     z_feed, sample_dist)
         n = core["alpha_raw"].shape[1]
         alpha = core["alpha_raw"] * inside + bg["alpha"][:, :n] * (1.0 - inside)
         alpha = torch.cat([alpha, bg["alpha"][:, n:]], dim=-1)
@@ -591,7 +604,7 @@ def extract_fields(statics: ModelStatics, params, bound_min, bound_max,
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("renderer.grid_query"):
             for start in range(0, total, chunk):
                 n = min(chunk, total - start)
                 pts = grid_chunk_points(start, n, bmin, bmax, resolution, dev)
@@ -599,5 +612,9 @@ def extract_fields(statics: ModelStatics, params, bound_min, bound_max,
                     statics.sdf, sdf_params, pts, negate).to(torch.float16)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    return out.cpu().numpy().astype(np.float32).reshape(
-        resolution, resolution, resolution)
+    with trace.span("renderer.grid_fetch"):
+        trace.wait("renderer.grid_fetch.wait", dev)
+        host = out.cpu()
+        trace.count("bytes_to_host", host.numel() * host.element_size())
+        return host.numpy().astype(np.float32).reshape(
+            resolution, resolution, resolution)

@@ -36,7 +36,6 @@ import re
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
@@ -85,7 +84,7 @@ launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
                for op, depths in WG_FWD_TUNE_DEPTHS.items() for rs in depths}}
 
 # filled by the first library(kind) call of the process, per kind
-build_info = {kind: {"seconds": None, "path": None, "log": ""}
+build_info = {kind: {"path": None, "log": ""}
               for kind in ("main", "tune")}
 
 _libs = {}
@@ -228,7 +227,6 @@ def _load(kind: str) -> ctypes.CDLL:
     stem = "librnb_kernels_tune" if kind == "tune" else "librnb_kernels"
     out = BUILD_DIR / f"{stem}_{_digest(kind)}.so"
     info = build_info[kind]
-    t0 = time.perf_counter()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -272,7 +270,6 @@ def _load(kind: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.rnb_error_string.argtypes = [ctypes.c_int]
     lib.rnb_error_string.restype = ctypes.c_char_p
-    info["seconds"] = time.perf_counter() - t0
     info["path"] = str(out)
     return lib
 

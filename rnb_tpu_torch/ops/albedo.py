@@ -6,7 +6,9 @@ Replaces ``rnb_tpu/ops/pallas_albedo.py`` (``_fwd_kernel`` :85,
 backward have two routes by op dtype: bf16 (the training step's) on the
 tensor cores (``albedo_fwd_wg_kernel``; ``albedo_bwd_wg_kernel`` +
 ``wg.dw_products``), both reading one bf16 weight image that the op packs
-once a forward-plus-backward (``wg_pack``); f32 on the CUDA cores.
+once a forward-plus-backward (``wg_pack``); f32 on the CUDA cores. Spans
+(``utils/trace.py``): ``albedo.pack``, ``albedo.fwd``, ``albedo.bwd`` and
+its ``albedo.dw``, and ``fields.fold`` around the weight-norm fold.
 
     forward:   x0 = [PE(p), PE(n), feat];  z_l = x_l @ W_l + b_l;
                x_{l+1} = relu(z_l);  out = sigmoid(z_last)
@@ -34,6 +36,7 @@ from torch.autograd.function import once_differentiable
 from rnb_tpu_torch.models.fields import (RenderingConfig, fold_weight_norm,
                                          round_to)
 from rnb_tpu_torch.ops import _build, wg
+from rnb_tpu_torch.utils import trace
 
 
 def supported(cfg: RenderingConfig) -> bool:
@@ -140,6 +143,7 @@ def _check_args(cfg, pts, nrm, feat, ws, bs):
         raise ValueError("albedo: layer 0 width does not match the input")
 
 
+@trace.spanned("albedo.fwd")
 def albedo_fwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs,
                dtype=torch.bfloat16, packed=None):
     """Forward kernel for CUDA tensors, plain version for CPU tensors.
@@ -176,6 +180,7 @@ def _fwd_f32(cfg, pts, nrm, feat, ws, bs):
     return out
 
 
+@trace.spanned("albedo.bwd")
 def albedo_bwd(cfg: RenderingConfig, pts, nrm, feat, ws, bs, c_out,
                dtype=torch.bfloat16, packed=None):
     """Backward kernels for CUDA tensors, plain version for CPU tensors.
@@ -207,6 +212,7 @@ def wg_layout(ws, n: int = 0) -> dict:
     return wg.offsets([w.shape[0] for w in ws], [w.shape[1] for w in ws], n)
 
 
+@trace.spanned("albedo.pack")
 def wg_pack(ws, bs):
     """The bf16 route's weights: (the bf16 weight image of ``wg_layout``,
     the biases flat in layer order). The op builds them once a
@@ -371,7 +377,8 @@ def bwd_sweep(cfg, pts, nrm, feat, ws, bs, c_out, packed=None, tune=None):
 def _bwd_wg(cfg, pts, nrm, feat, ws, bs, c_out, packed):
     abuf, bbuf, db, cnrm, cfeat, lay = bwd_sweep(cfg, pts, nrm, feat, ws, bs,
                                                  c_out, packed)
-    dws = wg.dw_products(abuf, bbuf, lay, pts.shape[0], "albedo_dw_gemm")
+    with trace.span("albedo.dw"):
+        dws = wg.dw_products(abuf, bbuf, lay, pts.shape[0], "albedo_dw_gemm")
     return dws, _build.unflat(db, [tuple(b.shape) for b in bs]), cnrm, cfeat
 
 
@@ -437,7 +444,8 @@ def albedo_apply_fused(cfg: RenderingConfig, params, points, normals,
     """Drop-in for ``fields.rendering_apply`` in mode 'no_view_dir':
     [N,3],[N,3],[N,F] -> albedo [N,d_out], differentiable w.r.t. params
     (incl. weight norm), normals and features."""
-    ws = [fold_weight_norm(layer) for layer in params]
+    with trace.span("fields.fold"):
+        ws = [fold_weight_norm(layer) for layer in params]
     bs = [layer["b"] for layer in params]
     return _Albedo.apply(cfg, dtype, points, normals, feature_vectors,
                          *ws, *bs)

@@ -19,7 +19,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
@@ -29,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 # filled by the first library() call of the process
-build_info = {"compiler": None, "seconds": None, "path": None, "log": ""}
+build_info = {"compiler": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
 _lib = None
@@ -59,7 +58,6 @@ def _load() -> ctypes.CDLL:
     h = hashlib.sha256(" ".join((compiler, *CXX_FLAGS)).encode())
     h.update(SOURCE.read_bytes())
     out = BUILD_DIR / f"libmarching_cubes_{h.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
     build_info["compiler"] = compiler
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,7 +80,6 @@ def _load() -> ctypes.CDLL:
     lib.mc_get.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
                            ctypes.POINTER(ctypes.c_int32)]
     lib.mc_free.argtypes = [ctypes.c_void_p]
-    build_info["seconds"] = time.perf_counter() - t0
     build_info["path"] = str(out)
     return lib
 

@@ -9,6 +9,8 @@ op dtype: bf16 (the training step's) on the tensor cores
 (``nerf_fwd_wg_kernel``; ``nerf_bwd_wg_kernel`` + ``wg.dw_products``), both
 over the image layers of ``wg_weights`` in one bf16 weight image that the
 op packs once a forward-plus-backward (``wg_pack``); f32 on the CUDA cores.
+Spans (``utils/trace.py``): ``nerf.pack``, ``nerf.fwd``, ``nerf.bwd`` and
+its ``nerf.dw``.
 
     forward:   e = PE(pts), v = PE(views) (double-angle recurrence);
                trunk z_i = x_i @ W_i + b_i, h_i = relu(z_i),
@@ -42,6 +44,7 @@ from torch.autograd.function import once_differentiable
 from rnb_tpu_torch.models.fields import NeRFConfig, round_to
 from rnb_tpu_torch.ops import _build, wg
 from rnb_tpu_torch.ops.albedo import _pe
+from rnb_tpu_torch.utils import trace
 
 _HEADS = ("alpha_layer", "feature_layer", "views_layer", "rgb_layer")
 
@@ -201,6 +204,7 @@ def _check_args(cfg: NeRFConfig, pts, views, ws, bs):
                          "the skips")
 
 
+@trace.spanned("nerf.fwd")
 def nerf_fwd(cfg: NeRFConfig, pts, views, ws, bs, dtype=torch.bfloat16,
              packed=None):
     """Forward kernel for CUDA tensors, plain version for CPU tensors.
@@ -239,6 +243,7 @@ def _fwd_f32(cfg, pts, views, ws, bs):
     return alpha, rgb
 
 
+@trace.spanned("nerf.bwd")
 def nerf_bwd(cfg: NeRFConfig, pts, views, ws, bs, c_alpha, c_rgb,
              dtype=torch.bfloat16, packed=None):
     """Backward kernels for CUDA tensors, plain version for CPU tensors.
@@ -325,6 +330,7 @@ def _check_wg(cfg: NeRFConfig, lay: dict):
             f"<= 128 wide and an rgb head <= 8 wide; got in {ins}, out {outs}")
 
 
+@trace.spanned("nerf.pack")
 def wg_pack(cfg: NeRFConfig, ws, bs):
     """The bf16 route's weights: (the bf16 image of the image layers of
     ``wg_weights`` at ``wg_layout``'s offsets, their biases flat in image
@@ -471,7 +477,8 @@ def _bwd_wg(cfg, pts, views, ws, bs, c_alpha, c_rgb, packed):
     abuf, bbuf, db, lay = bwd_sweep(cfg, pts, views, ws, bs, c_alpha, c_rgb,
                                     packed)
     n = pts.shape[0]
-    dws = wg.dw_products(abuf, bbuf, lay, n, "nerf_dw_gemm")
+    with trace.span("nerf.dw"):
+        dws = wg.dw_products(abuf, bbuf, lay, n, "nerf_dw_gemm")
     dbs = _build.unflat(db, [(o,) for o in lay["out_dims"]])
     return from_image(cfg, dws, dbs, lay["E"], lay["of"])
 

@@ -34,6 +34,9 @@ raise) and run the plain PyTorch version, ``*_plain``, for a CPU tensor. On
 the card the op dtype picks one of two routes, never by failure: bf16 (the
 training step's) runs the tensor-core kernels (wgmma; weights as a padded
 bf16 image, ``pack_weights`` / ``wg_layout``), f32 the CUDA-core kernels.
+Spans (``utils/trace.py``): ``sdf_core.pack``, ``sdf_core.fwd``,
+``sdf_core.bwd`` and its ``sdf_core.dw``, and ``fields.fold`` around the
+weight-norm fold.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from torch.autograd.function import once_differentiable
 
 from rnb_tpu_torch.models.fields import SDFConfig, fold_weight_norm, round_to
 from rnb_tpu_torch.ops import _build, wg
+from rnb_tpu_torch.utils import trace
 
 
 def supported(cfg: SDFConfig) -> bool:
@@ -196,6 +200,7 @@ def _check_args(cfg: SDFConfig, pts, ws, bs):
                          f"encoding gives {cfg.input_ch}")
 
 
+@trace.spanned("sdf_core.fwd")
 def sdf_core_fwd(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16,
                  packed=None):
     """Forward kernel for a CUDA tensor, plain version for a CPU tensor.
@@ -307,6 +312,7 @@ def _check_wg(lay: dict):
             f"and no skip at the last layer; got in {ins}, out {outs}")
 
 
+@trace.spanned("sdf_core.pack")
 def wg_pack(cfg: SDFConfig, ws, bs):
     """The bf16 route's weights: (the bf16 weight image of ``wg_layout``,
     the biases flat), packed once a forward-plus-backward by ``_SDFCore``
@@ -421,6 +427,7 @@ def sdf_fwd_split(split: str, cfg: SDFConfig, pts, ws, bs, packed=None):
     return out
 
 
+@trace.spanned("sdf_core.bwd")
 def sdf_core_bwd(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
                  dtype=torch.bfloat16, packed=None):
     """Backward kernels for a CUDA tensor, plain version for a CPU tensor.
@@ -505,7 +512,8 @@ def _bwd_wg(cfg, pts, ws, bs, c_sdf, c_feat, c_grad, depth=None,
             packed=None):
     abuf, bbuf, db, lay = bwd_sweep(cfg, pts, ws, bs, c_sdf, c_feat, c_grad,
                                     packed, depth)
-    dws = wg.dw_products(abuf, bbuf, lay, 2 * pts.shape[0], "sdf_dw_gemm")
+    with trace.span("sdf_core.dw"):
+        dws = wg.dw_products(abuf, bbuf, lay, 2 * pts.shape[0], "sdf_dw_gemm")
     return dws, _build.unflat(db, [tuple(b.shape) for b in bs])
 
 
@@ -603,6 +611,7 @@ def sdf_value_feat_grad_fused(cfg: SDFConfig, params, pts,
     """[N,3] -> (sdf [N], feat [N,F], grad [N,3]), differentiable w.r.t.
     params (weight norm folded outside the kernel, so autograd carries dW
     back to {v, g}) in one reverse pass."""
-    ws = [fold_weight_norm(layer) for layer in params]
+    with trace.span("fields.fold"):
+        ws = [fold_weight_norm(layer) for layer in params]
     bs = [layer["b"] for layer in params]
     return _SDFCore.apply(cfg, dtype, pts, *ws, *bs)

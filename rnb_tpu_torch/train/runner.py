@@ -15,9 +15,17 @@ The port's counterpart of ``rnb_tpu/train/runner.py``:
     step; the NaN guard reads them there;
   * atomic checkpoints (``utils/checkpoint.py``) in the JAX package's
     layout, ``logs/scalars.jsonl``, validation images, ``meshes/*.ply``;
+  * spans at its boundaries (``utils/trace.py``): ``runner.train_rnb``,
+    its entry's ``runner.snapshot``, ``runner.step`` (request ``("step", it)``),
+    ``runner.fetch`` (and its ``.wait``), ``runner.log``,
+    ``runner.checkpoint``, ``runner.validate_image``,
+    ``runner.validate_mesh`` (request ``("mesh", n)``), ``render.frame``
+    (request ``("frame", n)``) and its ``render.rays``, ``render.chunk`` and
+    ``render.fetch`` (and its ``.wait``);
   * with ``RNB_PROFILE_DIR`` set, a ``torch.profiler`` trace of
     ``RNB_PROFILE_STEPS`` steps from step ``RNB_PROFILE_START`` (20 and 20
-    by default), written there as a Chrome trace;
+    by default), written there as a Chrome trace, with the spans'
+    ``trace.summary()`` over the window and a step beside it;
   * in a process group (a torchrun launch, ``parallel/mesh.py``), the
     data-parallel step of ``parallel/train.py`` with the exact global loss,
     on replicated data, or with ``train.view_shard`` and world > 1 on each
@@ -56,6 +64,7 @@ from rnb_tpu_torch.parallel import train as ptrain
 from rnb_tpu_torch.train import schedules, step as steplib
 from rnb_tpu_torch.utils import checkpoint as ckptlib
 from rnb_tpu_torch.utils import io
+from rnb_tpu_torch.utils import trace
 from rnb_tpu_torch.utils.bridge import tree_leaves
 from rnb_tpu_torch.utils.logging import ScalarLogger
 
@@ -78,7 +87,10 @@ class _TraceWindow:
     """The ``RNB_PROFILE_*`` trace window of the training loop: a
     ``torch.profiler`` over steps [start, start + steps) with the CPU and,
     on the card, the CUDA activities; one synchronize at its end, then a
-    Chrome trace in ``out_dir``."""
+    Chrome trace ``trace_<start>_<steps>.json`` in ``out_dir`` (the
+    program's spans in it as ``rnb::`` ranges) and the spans' summary
+    ``spans_<start>_<steps>.json``: ``window``, the ``trace.summary()`` of
+    the window, and ``per_step``, each step's (request ``("step", it)``)."""
 
     def __init__(self, out_dir: str, device: torch.device):
         self.out_dir = out_dir
@@ -97,6 +109,7 @@ class _TraceWindow:
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
+            trace.reset()
             self.prof.start()
 
     def close(self) -> None:
@@ -111,6 +124,13 @@ class _TraceWindow:
         path = os.path.join(self.out_dir, f"trace_{self.start:08d}_{self.steps}.json")
         self.prof.export_chrome_trace(path)
         self.prof = None
+        spans = {"start": self.start, "steps": self.steps,
+                 "window": trace.summary(),
+                 "per_step": {str(s): trace.summary(request=("step", s)) for s in
+                              range(self.start, self.start + self.steps)}}
+        with open(os.path.join(self.out_dir, f"spans_{self.start:08d}_{self.steps}.json"),
+                  "w") as f:
+            json.dump(spans, f, indent=1)
         logger.info("profiler trace written to %s", path)
 
 
@@ -170,6 +190,7 @@ class Runner:
         self._gen = torch.Generator(device=self.device)
         self._step_fns = {}
         self._snap_good = None  # newest (step, leaves) confirmed finite
+        self._frames = self._meshes = 0  # request ids of render.frame, runner.validate_mesh
 
         if is_continue:
             latest = ckptlib.latest_checkpoint(
@@ -245,15 +266,17 @@ class Runner:
 
     # -- training -------------------------------------------------------------
 
+    @trace.spanned("runner.train_rnb")
     def train_rnb(self) -> dict:
         """The training loop, from the state's step to ``end_iter``.
         Returns {"steps", "seconds", "rays_per_s"} of this call."""
-        self.writer = ScalarLogger(os.path.join(self.base_exp_dir, "logs"),
-                                   enabled=self._is_chief)
-        self.writer.meta({"conf": self.conf_path, "overrides": self.overrides,
-                          "flags": steplib.runtime_flags_dict(self.tcfg),
-                          "device": str(self.device), "world": self.world,
-                          "torch": torch.__version__})
+        with trace.span("runner.log"):
+            self.writer = ScalarLogger(os.path.join(self.base_exp_dir, "logs"),
+                                       enabled=self._is_chief)
+            self.writer.meta({"conf": self.conf_path, "overrides": self.overrides,
+                              "flags": steplib.runtime_flags_dict(self.tcfg),
+                              "device": str(self.device), "world": self.world,
+                              "torch": torch.__version__})
         it = start_it = self.iter_step
         t_start = t_report = time.time()
         rays_done = 0
@@ -261,32 +284,33 @@ class Runner:
         self._rps_at = {}      # report step -> rays/s measured at that step
         pending = []           # (step, metrics) not fetched yet
         self._last_snap = it
-        self._snap_good = (it, ckptlib.state_leaves(self.state))
+        self._snap_good = (it, self._snapshot())
         prof_dir = os.environ.get("RNB_PROFILE_DIR", "")
-        trace = (_TraceWindow(prof_dir, self.device)
-                 if prof_dir and self._is_chief else None)
+        window = (_TraceWindow(prof_dir, self.device)
+                  if prof_dir and self._is_chief else None)
         try:
             while it < self.tcfg.end_iter:
-                warmup = it < self.tcfg.warm_up_iter
-                view = self._view_for_step(it)
-                fn = self._get_step_fn(warmup)
-                if trace:
-                    trace.before_step(it)
-                if self.parallel:
-                    self.state, metrics = fn(self.state, self.dataset.arrays,
-                                             view, **self._rank_draws(it))
-                else:
-                    self.state, metrics = fn(self.state, self.dataset.arrays,
-                                             view, self._step_generator(it))
-                it += 1
-                pending.append((it, metrics))
-                rays_done += self.tcfg.batch_size
+                if window:
+                    window.before_step(it)
+                with trace.span("runner.step", request=("step", it)):
+                    warmup = it < self.tcfg.warm_up_iter
+                    view = self._view_for_step(it)
+                    fn = self._get_step_fn(warmup)
+                    if self.parallel:
+                        self.state, metrics = fn(self.state, self.dataset.arrays,
+                                                 view, **self._rank_draws(it))
+                    else:
+                        self.state, metrics = fn(self.state, self.dataset.arrays,
+                                                 view, self._step_generator(it))
+                    it += 1
+                    pending.append((it, metrics))
+                    rays_done += self.tcfg.batch_size
 
-                if it % self.tcfg.report_freq == 0:
-                    dt = time.time() - t_report
-                    self._report_rps = rays_done / max(dt, 1e-9)
-                    self._rps_at[it] = self._report_rps
-                    t_report, rays_done = time.time(), 0
+                    if it % self.tcfg.report_freq == 0:
+                        dt = time.time() - t_report
+                        self._report_rps = rays_done / max(dt, 1e-9)
+                        self._rps_at[it] = self._report_rps
+                        t_report, rays_done = time.time(), 0
                 if it % self.RING == 0:
                     self._consume(pending)
                     pending = []
@@ -299,10 +323,11 @@ class Runner:
                     self.validate_mesh()
             self._consume(pending)
         finally:
-            if trace:
-                trace.close()
+            if window:
+                window.close()
             self._rps_at.clear()
-            self.writer.close()
+            with trace.span("runner.log"):
+                self.writer.close()
         secs = time.time() - t_start
         steps = it - start_it
         rps = steps * self.tcfg.batch_size / max(secs, 1e-9)
@@ -318,9 +343,29 @@ class Runner:
         step."""
         if not pending:
             return
-        rows = torch.stack([m[k].reshape(()).float() for _, m in pending
-                            for k in METRIC_KEYS]).cpu().numpy()
-        rows = rows.reshape(len(pending), len(METRIC_KEYS))
+        with trace.span("runner.fetch"):
+            rows = torch.stack([m[k].reshape(()).float() for _, m in pending
+                                for k in METRIC_KEYS])
+            trace.wait("runner.fetch.wait", self.device)
+            rows = rows.cpu().numpy()
+            trace.count("bytes_to_host", rows.nbytes)
+        with trace.span("runner.log"):
+            self._log(pending, rows.reshape(len(pending), len(METRIC_KEYS)))
+        # every fetched step is confirmed finite and the fetch waited for
+        # the newest: the live state is a good snapshot (refreshed at most
+        # every 2000 steps: a copy of the whole state to the host)
+        end_it = pending[-1][0]
+        if end_it - self._last_snap >= 2000:
+            self._snap_good = (end_it, self._snapshot())
+            self._last_snap = end_it
+
+    @trace.spanned("runner.snapshot")
+    def _snapshot(self) -> list:
+        """The state's leaves on the host (``checkpoint.state_leaves``)."""
+        return ckptlib.state_leaves(self.state)
+
+    def _log(self, pending, rows) -> None:
+        """Guard the fetched rows against NaN and log them."""
         for (s, metrics), row in zip(pending, rows):
             m = dict(zip(METRIC_KEYS, (float(v) for v in row)))
             m["lr"] = float(metrics["lr"])
@@ -346,13 +391,6 @@ class Runner:
                       f"eik={m['eikonal_loss'] * self.tcfg.igr_weight:.5f} "
                       f"mask={m['mask_loss'] * self.tcfg.mask_weight:.5f} "
                       f"lr={m['lr']:.3e} rays/s={rps:.0f}", flush=True)
-        # every fetched step is confirmed finite and the fetch waited for
-        # the newest: the live state is a good snapshot (refreshed at most
-        # every 2000 steps: a copy of the whole state to the host)
-        end_it = pending[-1][0]
-        if end_it - self._last_snap >= 2000:
-            self._snap_good = (end_it, ckptlib.state_leaves(self.state))
-            self._last_snap = end_it
 
     def _nan_guard(self, s: int, m: dict) -> None:
         """Write the live state and the last confirmed-finite one (the chief
@@ -373,6 +411,7 @@ class Runner:
 
     # -- checkpointing --------------------------------------------------------
 
+    @trace.spanned("runner.checkpoint")
     def save_checkpoint(self):
         if not self._is_chief:
             return  # the state is the same on every rank; one writer
@@ -458,8 +497,10 @@ class Runner:
                      * out["inside_sphere"][..., None]).sum(dim=1)[:end - start])
         img = torch.cat(out_rgb).reshape(H, W, 3).cpu().numpy()
         normal_img = torch.cat(out_normal).reshape(H, W, 3).cpu().numpy()
+        trace.count("bytes_to_host", img.nbytes + normal_img.nbytes)
         return img, normal_img
 
+    @trace.spanned("runner.validate_image")
     def validate_image(self, idv: int = -1, idl: int = -1,
                        resolution_level: int = -1):
         """Render a view under one light; save render‖supervision and
@@ -543,8 +584,9 @@ class Runner:
             grid = rnd.extract_fields(self.statics, self.state.params,
                                       self.dataset.object_bbox_min,
                                       self.dataset.object_bbox_max, resolution)
-        return mc.extract_geometry(grid, self.dataset.object_bbox_min,
-                                   self.dataset.object_bbox_max, threshold)
+        with trace.span("mesh.marching_cubes"):
+            return mc.extract_geometry(grid, self.dataset.object_bbox_min,
+                                       self.dataset.object_bbox_max, threshold)
 
     def _to_world(self, vertices):
         scale_mat = self.dataset.scale_mats_np[0]
@@ -557,12 +599,15 @@ class Runner:
                       threshold: float = 0.0):
         """Extract the zero level set at ``resolution``³ and write
         ``meshes/<iter>.ply`` (the chief); world_space rescales by the first
-        scale mat."""
-        vertices, triangles = self._extract(resolution, threshold)
-        if world_space:
-            vertices = self._to_world(vertices)
-        if self._is_chief:
-            io.write_ply(self._mesh_path(), vertices, triangles)
+        scale mat. Its spans' request id is ``("mesh", n)``, n the runner's
+        count of meshes."""
+        self._meshes += 1
+        with trace.span("runner.validate_mesh", request=("mesh", self._meshes)):
+            vertices, triangles = self._extract(resolution, threshold)
+            if world_space:
+                vertices = self._to_world(vertices)
+            if self._is_chief:
+                io.write_ply(self._mesh_path(), vertices, triangles)
         return vertices, triangles
 
     def validate_mesh_texture(self, world_space: bool = True,
@@ -609,9 +654,16 @@ class Runner:
         between views idx_0 and idx_1 (``Dataset.gen_rays_between``), in
         no-grad chunks of ``batch_size`` rays, the last one padded with its
         edge ray; the same draws for every chunk and call, the weight norm
-        folded once for all chunks. -> uint8 [H/l, W/l, 3]."""
-        rays_o, rays_d = self.dataset.gen_rays_between(idx_0, idx_1, ratio,
-                                                       resolution_level)
+        folded once for all chunks. -> uint8 [H/l, W/l, 3]. Its spans'
+        request id is ``("frame", n)``, n the runner's count of frames."""
+        self._frames += 1
+        with trace.span("render.frame", request=("frame", self._frames)):
+            return self._render_frame(idx_0, idx_1, ratio, resolution_level)
+
+    def _render_frame(self, idx_0, idx_1, ratio, resolution_level):
+        with trace.span("render.rays"):
+            rays_o, rays_d = self.dataset.gen_rays_between(idx_0, idx_1, ratio,
+                                                           resolution_level)
         H, W = rays_o.shape[:2]
         rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
         bsz = self.tcfg.batch_size
@@ -623,17 +675,22 @@ class Runner:
         with torch.no_grad():
             params = fields.fold_params(self.state.params)
             for start in range(0, rays_o.shape[0], bsz):
-                end = min(start + bsz, rays_o.shape[0])
-                o = _pad_chunk(rays_o, start, end, bsz)
-                d = _pad_chunk(rays_d, start, end, bsz)
-                near, far = self.dataset.near_far_from_sphere(o, d)
-                out = rnd.render(self.statics, self.rcfg, params,
-                                 o, d, near, far, t_rand, t_out,
-                                 cos_anneal_ratio=cos_r,
-                                 background_rgb=background_rgb)
-                out_rgb.append(out["color_fine"][:end - start])
-        img = torch.cat(out_rgb).reshape(H, W, 3).cpu().numpy()
-        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+                with trace.span("render.chunk"):
+                    end = min(start + bsz, rays_o.shape[0])
+                    o = _pad_chunk(rays_o, start, end, bsz)
+                    d = _pad_chunk(rays_d, start, end, bsz)
+                    near, far = self.dataset.near_far_from_sphere(o, d)
+                    out = rnd.render(self.statics, self.rcfg, params,
+                                     o, d, near, far, t_rand, t_out,
+                                     cos_anneal_ratio=cos_r,
+                                     background_rgb=background_rgb)
+                    out_rgb.append(out["color_fine"][:end - start])
+        with trace.span("render.fetch"):
+            img = torch.cat(out_rgb).reshape(H, W, 3)
+            trace.wait("render.fetch.wait", self.device)
+            img = img.cpu().numpy()
+            trace.count("bytes_to_host", img.nbytes)
+            return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
     def interpolate_view(self, img_idx_0: int, img_idx_1: int,
                          n_frames: int = 60) -> str:

@@ -26,7 +26,10 @@ zero and their step count advances with the others.
 
 The state is updated in place (parameters, moments, step); the step
 returns it with a dict of 0-d metric tensors and does not synchronise with
-the device.
+the device. Its phases are spans (``utils/trace.py``): ``step.draws``,
+``step.batch`` (the rays and the phase's targets), ``step.zero_grad``,
+``step.forward`` (render and loss terms), ``step.backward`` and
+``step.optimizer`` (``apply_update``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from rnb_tpu_torch.models import renderer as rnd
 from rnb_tpu_torch.models.fields import ModelStatics
 from rnb_tpu_torch.models.renderer import RendererConfig
 from rnb_tpu_torch.train import schedules
+from rnb_tpu_torch.utils import trace
 from rnb_tpu_torch.utils.bridge import tree_leaves
 
 
@@ -261,17 +265,23 @@ def make_train_step(statics: ModelStatics, rcfg: RendererConfig,
                 generator: torch.Generator | None = None, px=None, py=None,
                 t_rand=None, t_out=None):
         _, H, W, _ = arrays.normals.shape
-        px, py, t_rand, t_out = draws(generator, bsz, H, W, rcfg.n_outside,
-                                      px, py, t_rand, t_out)
-        batch = ds.sample_rays_on_all_lights(arrays, view_idx, px, py)
-        true_rgb, lights_dir = phase_targets(batch, warmup, bsz)
+        with trace.span("step.draws"):
+            px, py, t_rand, t_out = draws(generator, bsz, H, W, rcfg.n_outside,
+                                          px, py, t_rand, t_out)
+        with trace.span("step.batch"):
+            batch = ds.sample_rays_on_all_lights(arrays, view_idx, px, py)
+            true_rgb, lights_dir = phase_targets(batch, warmup, bsz)
 
-        state.optimizer.zero_grad(set_to_none=False)
-        loss, metrics = _loss_terms(statics, rcfg, tcfg, state.params, batch,
-                                    true_rgb, lights_dir, t_rand, t_out,
-                                    state.step, warmup, no_albedo)
-        loss.backward()
-        metrics["lr"] = torch.tensor(apply_update(state, sched))
+        with trace.span("step.zero_grad"):
+            state.optimizer.zero_grad(set_to_none=False)
+        with trace.span("step.forward"):
+            loss, metrics = _loss_terms(statics, rcfg, tcfg, state.params, batch,
+                                        true_rgb, lights_dir, t_rand, t_out,
+                                        state.step, warmup, no_albedo)
+        with trace.span("step.backward"):
+            loss.backward()
+        with trace.span("step.optimizer"):
+            metrics["lr"] = torch.tensor(apply_update(state, sched))
         return state, metrics
 
     return step_fn

@@ -25,7 +25,7 @@ import re
 import numpy as np
 import torch
 
-from rnb_tpu_torch.utils import bridge
+from rnb_tpu_torch.utils import bridge, trace
 
 
 def state_leaves(state) -> list:
@@ -36,8 +36,11 @@ def state_leaves(state) -> list:
               for p in bridge.tree_leaves(state.params)]
     mu, nu, count = bridge.adam_state_to_numpy(state.optimizer, state.params)
     step = np.asarray(state.step, np.int32)
-    return (params + [np.asarray(count, np.int32)] + bridge.tree_leaves(mu)
-            + bridge.tree_leaves(nu) + [step, step])
+    leaves = (params + [np.asarray(count, np.int32)] + bridge.tree_leaves(mu)
+              + bridge.tree_leaves(nu) + [step, step])
+    if trace.active():
+        trace.count("bytes_to_host", sum(np.asarray(a).nbytes for a in leaves))
+    return leaves
 
 
 def save_checkpoint(path: str, state_or_leaves) -> None:

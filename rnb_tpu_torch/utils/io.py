@@ -24,6 +24,8 @@ import zlib
 
 import numpy as np
 
+from rnb_tpu_torch.utils import trace
+
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels (0 grey, 2 RGB, 6 RGBA)
 _CHANNELS = {0: 1, 2: 3, 6: 4}
@@ -226,6 +228,7 @@ def resize_image(img: np.ndarray, w: int, h: int) -> np.ndarray:
 # PLY export (binary little-endian, optional per-vertex colour)
 # ---------------------------------------------------------------------------
 
+@trace.spanned("io.write_ply")
 def write_ply(path: str, vertices: np.ndarray, faces: np.ndarray,
               vertex_colors: np.ndarray | None = None) -> None:
     """Minimal binary PLY writer; vertex_colors float [0,1] or uint8."""

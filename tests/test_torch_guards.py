@@ -53,7 +53,7 @@ def test_port_imports_no_jax():
               "tools.predict_scaling", "tools.bench", "tools.bench_step",
               "tools.roofline", "tools.tune_kernel", "tools.bench_scaling",
               "tools.consolidate_parity", "tools.bench_dw",
-              "tools.bench_sdf_bwd"):
+              "tools.bench_sdf_bwd", "utils.trace"):
         assert f"rnb_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {['rnb_tpu_torch', *mods]!r}:\n"

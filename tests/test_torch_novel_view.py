@@ -420,7 +420,8 @@ def test_compare_images_equals_root_tool(tmp_path):
 
 def test_trace_window_writes_a_trace_and_keeps_the_losses(
         tmp_path, case_dir, monkeypatch):
-    """3 steps with a one-step window from step 1: a Chrome trace is
+    """3 steps with a one-step window from step 1: a Chrome trace holding
+    the program's spans and their summary over the window and by step are
     written, and the losses equal those of a run without it."""
     losses = {}
     for traced in (False, True):
@@ -438,9 +439,20 @@ def test_trace_window_writes_a_trace_and_keeps_the_losses(
                           if "Loss/loss" in r}
     assert sorted(losses[True]) == [1, 2, 3]
     assert losses[True] == losses[False]
-    (trace,) = os.listdir(tmp_path / "trace")
-    with open(tmp_path / "trace" / trace) as f:
-        assert json.load(f)["traceEvents"]
+    assert sorted(os.listdir(tmp_path / "trace")) == [
+        "spans_00000001_1.json", "trace_00000001_1.json"]
+    with open(tmp_path / "trace" / "trace_00000001_1.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "rnb::runner.step" for e in events)
+    with open(tmp_path / "trace" / "spans_00000001_1.json") as f:
+        spans = json.load(f)
+    assert (spans["start"], spans["steps"], list(spans["per_step"])) == (1, 1, ["1"])
+    step = spans["per_step"]["1"]["spans"]
+    for name in ("runner.step", "step.draws", "step.batch", "step.forward",
+                 "step.backward", "step.optimizer", "sdf_core.fwd"):
+        assert step[name]["calls"] == 1, name
+        assert step[name]["self_s"] <= step[name]["total_s"], name
+    assert spans["window"]["spans"]["runner.step"] == step["runner.step"]
 
 
 @pytest.fixture(scope="module")
