@@ -221,7 +221,7 @@ WMASK_NOALB = ("confs/wmask_rnb_noalbedo.conf", ())
 WOMASK_NOALB = ("confs/womask_rnb_noalbedo.conf",
                 ("model.neus_renderer.n_outside=4",))
 WMASK_KERNELS = ("sdf_core_fwd", "sdf_core_bwd", "sdf_dw_gemm", "albedo_fwd",
-                 "albedo_bwd", "albedo_dw_gemm")
+                 "albedo_bwd", "albedo_dw_gemm", "sdf_value_wg")
 WOMASK_KERNELS = WMASK_KERNELS + ("nerf_fwd", "nerf_bwd", "nerf_dw_gemm")
 # one grouped dW launch (ops/wg.py dw_products) a bf16 backward
 DW_OF_BWD = {"sdf_dw_gemm": "sdf_core_bwd", "albedo_dw_gemm": "albedo_bwd",
@@ -278,6 +278,10 @@ KERNELS = {
                      "rnb_tpu/ops/pallas_nerf.py:122"),
     "sdf_fwd_ablate": ("rnb_tpu_torch/csrc/sdf_core.cu",
                        "tools/ablate_kernel.py:62"),
+    # the up-sampling sweeps' value-only forward (sdf_fwd_wg_kernel in its
+    # SDF_VALUE mode): the JAX package runs those sweeps as plain XLA
+    "sdf_value_wg": ("rnb_tpu_torch/csrc/sdf_core.cu",
+                     "rnb_tpu/models/fields.py:185"),
 }
 
 
@@ -330,6 +334,12 @@ def chain_macs(ws):
     """Multiply-adds per point of one pass through a chain of [in, out]
     matrices."""
     return sum(w.shape[0] * w.shape[1] for w in ws)
+
+
+def value_macs(ws):
+    """Least multiply-adds per point of the value-only forward: the primal
+    chain with the head cut to its sdf column."""
+    return chain_macs(ws[:-1]) + ws[-1].shape[0]
 
 
 def sdf_macs(cfg, ws, backward):
@@ -529,6 +539,9 @@ def kernel_checks(dev, tune_build):
     results = {}
     dtypes = (torch.float32, torch.bfloat16)
     sdf_w = [*sw, *sb]
+    # the value-only forward's weights, made once an up-sampling call
+    sdf_vp = [{"w": w, "b": b} for w, b in zip(sw, sb)]
+    sdf_vw = sdf_core.value_weights(scfg, sdf_vp)
     alb_w = [*aw, *ab]
     # the bf16 albedo and NeRF kernels take the weight image their op packs
     # once a step for forward and backward (ops/albedo.py, ops/nerf.py
@@ -564,6 +577,11 @@ def kernel_checks(dev, tune_build):
                     lambda: _flat_alb(albedo.albedo_bwd_plain(acfg, pts, nrm, feat, aw, ab, co, dtype)),
                     [pts, nrm, feat, *alb_w, co], n * albedo_bwd_macs(acfg, aw)),
             }
+            if dtype == torch.bfloat16:   # the up-sampling sweeps' forward
+                calls["sdf_value_wg"] = (
+                    lambda: [sdf_core.sdf_value_fused(scfg, sdf_vp, pts, sdf_vw)],
+                    lambda: [sdf_core.sdf_value_plain(scfg, pts, sw, sb)],
+                    [pts, *sdf_w], n * value_macs(sw))
             if n == MAIN_N:   # the ablation variants at the main path's count
                 for mode in sdf_ablate.MODES:
                     macs = n * (sdf_macs(scfg, sw, False) if mode != "primal_only"
@@ -892,7 +910,10 @@ def route_oracle(dev, conf_spec, batch=512):
     against autograd's ('vjp', f32): the f32 kernel route within 1e-5 of
     the loss and 1e-4 of each parameter group's gradient norm, the bf16
     route within 1e-2, 'fwdmode' within 1e-5; 'pallas' with remat bit for
-    bit 'pallas' (bf16)."""
+    bit 'pallas' (bf16). Every route places its samples by the same plain
+    f32 sweeps (the 'pallas' route's bf16 sweeps run the value-only kernel,
+    the others the plain fields), so that only the differentiable core
+    differs."""
     from rnb_tpu_torch.data import dataset as ds
     from rnb_tpu_torch.models import fields
     from rnb_tpu_torch.train import step as steplib
@@ -916,6 +937,7 @@ def route_oracle(dev, conf_spec, batch=512):
                               ("fwdmode", "fwdmode", "f32"),
                               ("bf16_remat", "pallas_remat", "bf16")):
         statics, rcfg, tcfg = _route_cfgs(conf_spec, route, prec)
+        rcfg = dataclasses.replace(rcfg, upsample_prec="f32")
         state = steplib.init_train_state(bridge.params_from_numpy(params, dev))
         fn = steplib.make_train_step(statics, rcfg, tcfg, warmup=False,
                                      no_albedo=False, batch_size=batch)
@@ -1153,6 +1175,8 @@ def runner_path(dev, card, tmp):
 # the kernels of a forward-only render on the bf16 routes; every other
 # counter must stay at 0 there (no backward, no dW product, no f32 route)
 INFER_KERNELS = ("sdf_core_fwd", "albedo_fwd")
+# a render's up-sampling sweeps add the value-only forward
+RENDER_KERNELS = INFER_KERNELS + ("sdf_value_wg",)
 
 
 def _check_infer_counts(counts, where, kernels):
@@ -1164,14 +1188,14 @@ def _check_infer_counts(counts, where, kernels):
             assert v == 0, f"{where}: launched {k} {v} times (forward only, bf16)"
 
 
-def _mode(mode, sets, extra=()):
+def _mode(mode, sets, extra=(), kernels=RENDER_KERNELS):
     """One inference mode of the CLI on phase 6's experiment; -> (stdout,
-    its launch counts)."""
+    its launch counts, ``kernels`` each launched)."""
     out, _ = _sub(["rnb_tpu_torch.cli", "--mode", mode, "--conf", WMASK[0], *extra]
                   + [a for s in sets for a in ("--set", s)], 600)
     counts = json.loads(next(l for l in out.splitlines()
                              if l.startswith('{"launches"')))["launches"]
-    _check_infer_counts(counts, mode, INFER_KERNELS)
+    _check_infer_counts(counts, mode, kernels)
     return out, counts
 
 
@@ -1265,7 +1289,8 @@ def inference_path(dev, card, tmp, sets):
     result, launches = {}, {}
 
     _, launches["validate_mesh_texture"] = _mode(
-        "validate_mesh_texture", sets, ["--mesh_resolution", "128"])
+        "validate_mesh_texture", sets, ["--mesh_resolution", "128"],
+        INFER_KERNELS)
     v, f, c = io.read_ply(os.path.join(exp, "meshes", "00000400.ply"))
     assert c is not None and c.shape == (len(v), 3), "no vertex colours"
     col = c.astype(np.float64) / 255.0
@@ -1320,7 +1345,7 @@ def inference_path(dev, card, tmp, sets):
     img = runner.render_novel_image(0, 1, 0.5, 4)
     launches["womask_render_novel_image"] = dict(_build.launches)
     _check_infer_counts(launches["womask_render_novel_image"],
-                        "womask render_novel_image", INFER_KERNELS + ("nerf_fwd",))
+                        "womask render_novel_image", RENDER_KERNELS + ("nerf_fwd",))
     rays_o, rays_d = runner.dataset.gen_rays_between(0, 1, 0.5, 4)
     o, d = rays_o.reshape(-1, 3)[:512], rays_d.reshape(-1, 3)[:512]
     with torch.no_grad():

@@ -61,6 +61,11 @@
 //                                spill loads (the 16 record loads held
 //                                across a product, which bought ~2%);
 //                                228,752 B dynamic shared memory
+//   sdf_fwd_wg_kernel<SDF_VALUE, 16, 0>  168 registers at launch, 32 B
+//                                stack frame, no spill (the up-sampling
+//                                sweeps' value-only mode; 0.317 ms at
+//                                65,536 points, 1.231 at 262,144 on one
+//                                H100, PERF.md)
 //   sdf_bwd_sweep_kernel<16, 0>  128 registers, 32 B stack frame, no
 //                                spill; 217,344 B dynamic shared memory
 //   sdf_fwd_kernel<SDF_FULL>     128 registers, 96 B stack frame, 64 B
@@ -76,8 +81,15 @@
 //   SDF_NO_ACT       softplus pair -> h = zb/4 forward, s = zb/2 in the sweep
 //   SDF_PRIMAL_ONLY  no reverse sweep and no pre-activation record; grad = 0
 // SDF_FULL is the production kernel: `if constexpr` keeps its code as it was.
-// The bf16 route's sdf_fwd_wg_kernel<MODE> takes the same modes.
-enum SdfMode { SDF_FULL = 0, SDF_NO_PE = 1, SDF_NO_ACT = 2, SDF_PRIMAL_ONLY = 3 };
+// The bf16 route's sdf_fwd_wg_kernel<MODE> takes the same modes, and one
+// more, a production mode of its own:
+//   SDF_VALUE        the no-grad up-sampling sweeps' forward: SDF_PRIMAL_ONLY's
+//                    primal chain and head, storing the sdf alone (no feature,
+//                    no gradient, no record; the head's column 256 not summed)
+enum SdfMode {
+  SDF_FULL = 0, SDF_NO_PE = 1, SDF_NO_ACT = 2, SDF_PRIMAL_ONLY = 3,
+  SDF_VALUE = 4
+};
 
 // Two blocks an SM: left free, ptxas gives this kernel 190 registers and one
 // 256-thread block an SM; capped at 128 (a 72-byte spill) it ran 13.79 ->
@@ -725,7 +737,8 @@ template <int MODE, int RS = SF_RS, int SPLIT = FWD_FULL>
 static __global__ void __launch_bounds__(SF_NT, 1)
 sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
   static_assert(RS >= 3 && sf_smem_bytes<RS>() <= 232448, "ring depth");
-  constexpr bool primal_only = MODE == SDF_PRIMAL_ONLY;
+  constexpr bool value = MODE == SDF_VALUE;
+  constexpr bool primal_only = MODE == SDF_PRIMAL_ONLY || value;
   constexpr bool k_mma = SPLIT != FWD_K_LOOPS_ONLY;
   constexpr bool k_rec =
       !primal_only && (SPLIT == FWD_FULL || SPLIT == FWD_NO_EPILOGUE);
@@ -903,8 +916,10 @@ sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
               const uint64_t da = rnb_desc(X + t * 1024, 1024, 128);
               rnb_wgmma_n256<0, 1>(acc, da, rnb_desc(st, 33 * 128, 128),
                                    t > 0);
-              rnb_wgmma_n8<0, 1>(acc8, da,
-                                 rnb_desc(st + 32 * 64, 33 * 128, 128), t > 0);
+              if constexpr (!value)
+                rnb_wgmma_n8<0, 1>(acc8, da,
+                                   rnb_desc(st + 32 * 64, 33 * 128, 128),
+                                   t > 0);
             });
     const int out = net.out_dim[L - 1];
     if constexpr (k_mma) {
@@ -919,6 +934,7 @@ sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
         const long long row = n0 + r0 + 8 * h;
         const bool live = row < n;
         if (cq == 0 && live) p.sdf[row] = (acc[2 * h] + sb[0]) / p.scale;
+        if constexpr (value) continue;   // the sdf alone
         if (whole) {
           float* frow = p.feat + row * 256;
           float nxt = acc[2 * h] + sb[cq];   // column 8j + cq, j = 0
@@ -955,10 +971,11 @@ sdf_fwd_wg_kernel(const __grid_constant__ SdfFwdParams p) {
   }
 
   if constexpr (primal_only) {
-    for (int idx = lt; idx < WG_M * 3; idx += 128) {
-      const long long row = n0 + idx / 3;
-      if (row < n) p.grad[row * 3 + idx % 3] = 0.0f;
-    }
+    if constexpr (!value)
+      for (int idx = lt; idx < WG_M * 3; idx += 128) {
+        const long long row = n0 + idx / 3;
+        if (row < n) p.grad[row * 3 + idx % 3] = 0.0f;
+      }
     return;
   }
 
@@ -1642,8 +1659,10 @@ static int sdf_fwd_wg_launch(const SdfFwdParams& p, cudaStream_t st) {
   if (rc) return rc;                                                         \
   cudaStream_t st = (cudaStream_t)stream
 
-// The bf16 forward (mode: an SdfMode; SDF_FULL on the main path). rec holds
-// ceil(n/64)·(n_layers-1)·64·256 floats.
+// The bf16 forward (mode: an SdfMode; SDF_FULL on the main path, SDF_VALUE
+// in the up-sampling sweeps). rec holds ceil(n/64)·(n_layers-1)·64·256 floats
+// (SDF_FULL, SDF_NO_PE, SDF_NO_ACT); SDF_VALUE reads neither rec nor feat
+// nor grad, which may be null.
 extern "C" int rnb_sdf_fwd_wg(int mode, RNB_WG_FWD_PARAMS) {
   RNB_WG_FWD_SETUP;
   switch (mode) {
@@ -1651,6 +1670,7 @@ extern "C" int rnb_sdf_fwd_wg(int mode, RNB_WG_FWD_PARAMS) {
     case SDF_NO_PE: return sdf_fwd_wg_launch<SDF_NO_PE>(prm, st);
     case SDF_NO_ACT: return sdf_fwd_wg_launch<SDF_NO_ACT>(prm, st);
     case SDF_PRIMAL_ONLY: return sdf_fwd_wg_launch<SDF_PRIMAL_ONLY>(prm, st);
+    case SDF_VALUE: return sdf_fwd_wg_launch<SDF_VALUE>(prm, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,10 @@ Counterpart of ``rnb_tpu/models/renderer.py``:
   * ``up_sample`` / ``cat_z_vals`` / ``upsampled_z_vals``: the no-grad
     hierarchical up-sampling, 4 rounds at inv_s = 64·2^i. The merge of the
     sorted z list with the new one is a *stable* sort of cat([z, new]), so
-    ties keep z entries first.
+    ties keep z entries first. Its SDF sweeps run the value-only kernel op
+    (``ops.sdf_core.sdf_value_fused``) for CUDA tensors at bf16 on the
+    'pallas' route, else the plain ``fields.sdf_only_lowp`` /
+    ``fields.sdf_only``.
   * ``render_core_outside``: the NeRF++ inverted-sphere background
     (``n_outside > 0``, the womask confs): the background NeRF on
     ``[x/r, 1/r]`` with r = |x| clipped to [1, 1e10], from the fused NeRF op
@@ -46,7 +49,9 @@ Spans (``utils/trace.py``): ``renderer.upsample``, ``renderer.outside`` and
 ``renderer.core`` around the stages of ``render_rnb`` and ``render``;
 ``renderer.grid_query`` around the grid's chunk loop and
 ``renderer.grid_fetch`` around its copy to the host and float32 conversion,
-with ``renderer.grid_fetch.wait`` the wait for the grid query.
+with ``renderer.grid_fetch.wait`` the wait for the grid query. Counters:
+``upsample.kernel_points`` and ``upsample.plain_points``, the points each
+route of the up-sampling sweeps evaluated.
 """
 
 from __future__ import annotations
@@ -196,8 +201,32 @@ def up_sample(rays_o, rays_d, z_vals, sdf, n_importance: int,
     return sample_pdf(z_vals, weights, n_importance)
 
 
-def _sdf_infer(statics: ModelStatics, params, pts_flat, prec: str = "bf16"):
-    """No-grad SDF sweep (sample placement only)."""
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _value_kernel(statics: ModelStatics, pts, prec: str,
+                  core_impl: str) -> bool:
+    """Whether the no-grad sweeps run the value-only kernel op: CUDA
+    tensors, bf16 operands, the 'pallas' route and a net the kernels
+    take."""
+    return (_on_card(pts) and prec == "bf16" and core_impl == "pallas"
+            and sdf_core.supported(statics.sdf))
+
+
+def _sdf_infer(statics: ModelStatics, params, pts_flat, prec: str = "bf16",
+               core_impl: str = "pallas", weights=None):
+    """No-grad SDF sweep (sample placement only): the value-only kernel op
+    (``sdf_core.sdf_value_fused`` on ``weights``) where ``_value_kernel``
+    holds, else the plain ``fields.sdf_only_lowp`` (bf16) or
+    ``fields.sdf_only`` (f32). Counts the points under
+    ``upsample.kernel_points`` or ``upsample.plain_points``."""
+    n = pts_flat.shape[0]
+    if _value_kernel(statics, pts_flat, prec, core_impl):
+        trace.count("upsample.kernel_points", n)
+        return sdf_core.sdf_value_fused(statics.sdf, params["sdf"], pts_flat,
+                                        weights)
+    trace.count("upsample.plain_points", n)
     if prec == "bf16":
         return fields.sdf_only_lowp(statics.sdf, params["sdf"], pts_flat)
     return fields.sdf_only(statics.sdf, params["sdf"], pts_flat)
@@ -216,14 +245,17 @@ def _merge_sorted(z, new, *vals):
 
 
 def cat_z_vals(statics: ModelStatics, params, rays_o, rays_d, z_vals,
-               new_z_vals, sdf, last: bool, prec: str = "bf16"):
-    """Merge new z-values in; query the SDF at them unless final round."""
+               new_z_vals, sdf, last: bool, prec: str = "bf16",
+               core_impl: str = "pallas", weights=None):
+    """Merge new z-values in; query the SDF at them unless final round
+    (``_sdf_infer``'s route)."""
     if last:
         (z_sorted,) = _merge_sorted(z_vals, new_z_vals)
         return z_sorted, sdf
     batch_size = z_vals.shape[0]
     pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., :, None]
-    new_sdf = _sdf_infer(statics, params, pts.reshape(-1, 3), prec)
+    new_sdf = _sdf_infer(statics, params, pts.reshape(-1, 3), prec, core_impl,
+                         weights)
     new_sdf = new_sdf.reshape(batch_size, new_z_vals.shape[-1])
     return _merge_sorted(z_vals, new_z_vals, (sdf, new_sdf))
 
@@ -232,19 +264,25 @@ def cat_z_vals(statics: ModelStatics, params, rays_o, rays_d, z_vals,
 def upsampled_z_vals(statics: ModelStatics, rcfg: RendererConfig, params,
                      rays_o, rays_d, z_vals) -> torch.Tensor:
     """The no-grad up-sample loop: ``up_sample_steps`` rounds with
-    inv_s = 64·2^i."""
+    inv_s = 64·2^i; the SDF is queried at the first samples and at each
+    round's new ones but the last's. On the value kernel's route the weights
+    are folded and packed once for all the sweeps."""
     if rcfg.n_importance <= 0:
         return z_vals
+    prec, core_impl = rcfg.upsample_prec, rcfg.core_impl
+    weights = (sdf_core.value_weights(statics.sdf, params["sdf"])
+               if _value_kernel(statics, z_vals, prec, core_impl) else None)
     batch_size = z_vals.shape[0]
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., :, None]
-    sdf = _sdf_infer(statics, params, pts.reshape(-1, 3), rcfg.upsample_prec)
+    sdf = _sdf_infer(statics, params, pts.reshape(-1, 3), prec, core_impl,
+                     weights)
     sdf = sdf.reshape(batch_size, rcfg.n_samples)
     per_round = rcfg.n_importance // rcfg.up_sample_steps
     for i in range(rcfg.up_sample_steps):
         new_z = up_sample(rays_o, rays_d, z_vals, sdf, per_round, 64 * 2 ** i)
         z_vals, sdf = cat_z_vals(statics, params, rays_o, rays_d, z_vals, new_z,
                                  sdf, last=(i + 1 == rcfg.up_sample_steps),
-                                 prec=rcfg.upsample_prec)
+                                 prec=prec, core_impl=core_impl, weights=weights)
     return z_vals
 
 

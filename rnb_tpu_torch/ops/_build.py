@@ -64,7 +64,8 @@ WG_FWD_TUNE_DEPTHS = {"albedo": (4, 8, 18), "nerf": (4, 8, 15)}
 # sdf_dw_gemm, albedo_dw_gemm and nerf_dw_gemm count each bf16 backward's
 # grouped dW launch (ops/wg.py dw_products; dw_gemm, a one-layer launch,
 # counts under the counter its caller names).
-launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0,
+# sdf_value_wg counts the value-only forward of the up-sampling sweeps.
+launches = {"sdf_core_fwd": 0, "sdf_core_bwd": 0, "sdf_value_wg": 0,
             "sdf_core_fwd_f32": 0, "sdf_core_bwd_f32": 0, "sdf_dw_gemm": 0,
             "albedo_fwd": 0, "albedo_bwd": 0, "albedo_fwd_f32": 0,
             "albedo_bwd_f32": 0, "albedo_dw_gemm": 0, "nerf_fwd": 0,

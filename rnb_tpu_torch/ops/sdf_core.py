@@ -34,9 +34,16 @@ raise) and run the plain PyTorch version, ``*_plain``, for a CPU tensor. On
 the card the op dtype picks one of two routes, never by failure: bf16 (the
 training step's) runs the tensor-core kernels (wgmma; weights as a padded
 bf16 image, ``pack_weights`` / ``wg_layout``), f32 the CUDA-core kernels.
+The no-grad up-sampling sweeps have an op of their own beside it,
+``sdf_value_fused``: the same forward kernel in its value-only mode
+(``sdf_fwd_wg_kernel<SDF_VALUE>``: the primal chain and the head's sdf
+column, bf16 operands, no record, feature or gradient) on weights folded
+and packed once an up-sampling call (``value_weights``); its plain version
+``sdf_value_plain`` runs for CPU tensors.
+
 Spans (``utils/trace.py``): ``sdf_core.pack``, ``sdf_core.fwd``,
-``sdf_core.bwd`` and its ``sdf_core.dw``, and ``fields.fold`` around the
-weight-norm fold.
+``sdf_core.bwd`` and its ``sdf_core.dw``, ``sdf_core.value``, and
+``fields.fold`` around the weight-norm fold.
 """
 
 from __future__ import annotations
@@ -90,26 +97,30 @@ def _softplus100_pair(z):
     return s, h
 
 
+def _primal_plain(cfg: SDFConfig, e16, w16, bs, dtype):
+    """The primal chain up to the head: (the head's input, rounded to
+    ``dtype``, the hidden layers' biased pre-activations)."""
+    L, c16 = len(w16), _c16(dtype)
+    h, recs = e16, []
+    for l in range(L):
+        if l in cfg.skip_in:
+            h = round_to(torch.cat([h, e16], dim=-1) * c16, dtype)
+        if l == L - 1:
+            return h, recs
+        recs.append(h @ w16[l] + bs[l])
+        h = round_to(_softplus100_pair(recs[-1])[1], dtype)
+
+
 def sdf_core_fwd_plain(cfg: SDFConfig, pts, ws: Sequence[torch.Tensor],
                        bs: Sequence[torch.Tensor], dtype=torch.bfloat16):
     """[N,3] -> (sdf [N], feat [N,d_out-1], grad [N,3]), the forward
     kernel's algorithm on whole tensors."""
     L = len(ws)
     w16 = [round_to(w, dtype) for w in ws]
-    c16 = _c16(dtype)
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
     e, tc = _pe_parts(cfg, pts)
-    e16 = round_to(e, dtype)
-    h, recs, z = e16, [], None
-    for l in range(L):
-        if l in cfg.skip_in:
-            h = round_to(torch.cat([h, e16], dim=-1) * c16, dtype)
-        z = h @ w16[l]
-        if l < L - 1:
-            zb = z + bs[l]
-            recs.append(zb)
-            h = round_to(_softplus100_pair(zb)[1], dtype)
-    z8 = z + bs[L - 1]
+    h, recs = _primal_plain(cfg, round_to(e, dtype), w16, bs, dtype)
+    z8 = h @ w16[L - 1] + bs[L - 1]
     sdf, feat = z8[:, 0] / cfg.scale, z8[:, 1:]
 
     bar_e = torch.zeros_like(e)
@@ -129,6 +140,16 @@ def sdf_core_fwd_plain(cfg: SDFConfig, pts, ws: Sequence[torch.Tensor],
     bar_e = bar_e + bar_h
     grad = (bar_e * tc).reshape(pts.shape[0], -1, 3).sum(dim=1)
     return sdf, feat, grad
+
+
+def sdf_value_plain(cfg: SDFConfig, pts, ws, bs, dtype=torch.bfloat16):
+    """[N,3] -> sdf [N], the value kernel's algorithm on whole tensors: the
+    forward's primal chain, the head cut to its sdf column."""
+    w16 = [round_to(w, dtype) for w in ws[:-1]]
+    w16.append(round_to(ws[-1][:, :1], dtype))
+    e, _ = _pe_parts(cfg, pts)
+    h, _ = _primal_plain(cfg, round_to(e, dtype), w16, bs, dtype)
+    return (h @ w16[-1] + bs[-1][:1])[:, 0] / cfg.scale
 
 
 def sdf_core_bwd_plain(cfg: SDFConfig, pts, ws, bs, c_sdf, c_feat, c_grad,
@@ -370,6 +391,10 @@ def fwd_smem_bytes(depth: int = wg.FWD_RING_DEPTH) -> int:
 FWD_SPLIT = ("full", "no_record", "no_epilogue", "k_loops_only",
              "products_only")
 
+# two of the C SdfModes (csrc/sdf_core.cu): the ablation's primal-only
+# forward and the value-only forward of the no-grad sweeps
+SDF_PRIMAL_ONLY, SDF_VALUE = 3, 4
+
 
 def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
                   depth: int | None = None, packed=None,
@@ -379,7 +404,9 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
     ``depth`` (``rnb_sdf_fwd_wg_tune``; a depth it was not built for
     raises) or the timing ``split`` (a ``FWD_SPLIT`` name,
     ``rnb_sdf_fwd_wg_split``), both mode 0; on ``packed`` (``wg_pack``;
-    packed here when None). -> (sdf, feat, grad)."""
+    packed here when None). -> (sdf, feat, grad); sdf alone in
+    ``SDF_VALUE``, which allocates nothing else. The record is allocated
+    only for the modes that write it."""
     _check_args(cfg, pts, ws, bs)
     lay = wg_layout(cfg, ws)
     _check_wg(lay)
@@ -398,21 +425,24 @@ def launch_fwd_wg(cfg: SDFConfig, pts, ws, bs, mode: int = 0,
     dev = pts.device
     image, bflat = packed or wg_pack(cfg, ws, bs)
     tiles = -(-n // TILE)
-    rec = torch.empty(tiles * (L - 1) * TILE * 256, device=dev)
-    sdf = torch.empty(n, device=dev)
-    feat = torch.empty(n, lay["out_dims"][-1] - 1, device=dev)
-    grad = torch.empty(n, 3, device=dev)
+    empty = lambda *shape: torch.empty(*shape, device=dev)
+    value = mode == SDF_VALUE
+    rec = (None if mode in (SDF_PRIMAL_ONLY, SDF_VALUE)
+           else empty(tiles * (L - 1) * TILE * 256))
+    sdf = empty(n)
+    feat = None if value else empty(n, lay["out_dims"][-1] - 1)
+    grad = None if value else empty(n, 3)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             lead, pts.data_ptr(), n, image.data_ptr(), bflat.data_ptr(),
             _build.int_array(lay["in_dims"]), _build.int_array(lay["out_dims"]),
             _build.int_array(lay["skip"]), _build.int_array(lay["hd"]),
             _build.ll_array(lay["w_off"]), L, cfg.multires, cfg.scale,
-            _c16(torch.bfloat16), rec.data_ptr(), sdf.data_ptr(),
-            feat.data_ptr(), grad.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            _c16(torch.bfloat16), ptr(rec), sdf.data_ptr(), ptr(feat),
+            ptr(grad), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry, kind)
-    return sdf, feat, grad
+    return sdf if value else (sdf, feat, grad)
 
 
 def sdf_fwd_split(split: str, cfg: SDFConfig, pts, ws, bs, packed=None):
@@ -615,3 +645,32 @@ def sdf_value_feat_grad_fused(cfg: SDFConfig, params, pts,
         ws = [fold_weight_norm(layer) for layer in params]
     bs = [layer["b"] for layer in params]
     return _SDFCore.apply(cfg, dtype, pts, *ws, *bs)
+
+
+# ---------------------------------------------------------------------------
+# the value-only op of the no-grad up-sampling sweeps
+# ---------------------------------------------------------------------------
+
+def value_weights(cfg: SDFConfig, params):
+    """(ws, bs, packed) for ``sdf_value_fused``: the folded weights, and on
+    the card their bf16 image (``wg_pack``; None on the CPU). Made once for
+    the sweeps of one up-sampling call."""
+    with trace.span("fields.fold"):
+        ws = [fold_weight_norm(layer).detach() for layer in params]
+    bs = [layer["b"].detach() for layer in params]
+    return ws, bs, wg_pack(cfg, ws, bs) if ws[0].is_cuda else None
+
+
+@trace.spanned("sdf_core.value")
+def sdf_value_fused(cfg: SDFConfig, params, pts, weights=None):
+    """[N,3] -> sdf [N], no gradient: the value-only forward
+    (``sdf_fwd_wg_kernel<SDF_VALUE>``, bf16 operands, f32 sums) for a CUDA
+    tensor, its plain version for a CPU tensor; on ``weights``
+    (``value_weights``; made here when None). Counts under
+    ``sdf_value_wg``."""
+    ws, bs, packed = weights or value_weights(cfg, params)
+    if not pts.is_cuda:
+        return sdf_value_plain(cfg, pts, ws, bs)
+    sdf = launch_fwd_wg(cfg, pts, ws, bs, SDF_VALUE, packed=packed)
+    _build.launches["sdf_value_wg"] += 1
+    return sdf

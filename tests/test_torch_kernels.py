@@ -27,8 +27,14 @@ backward sweep at 3-6) is held bit for bit against the production kernels
 at every depth (the depth changes no sum's order), and against the plain
 version. The bf16 forward (two tiles a block) gives a point the same bits
 in any launch and repeats bit for bit, as does the backward sweep; the
-``full`` instance of each timing split is the production kernel.
+``full`` instance of each timing split is the production kernel. The
+up-sampling sweeps' value-only forward (``SDF_VALUE``) is held against its
+plain version at 262,144, 65,536 and 65,537 points and bit for bit against
+the production forward's sdf, allocates no record, and places the samples
+of 4096 rays as the plain bf16 sweeps do, within what bf16 itself moves.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -508,6 +514,91 @@ def test_sdf_fwd_parts_and_repeats(cuda, n):
         assert torch.equal(w, torch.cat([x, y]))
     _close(whole, sdf_core.sdf_core_fwd_plain(cfg, pts, ws, bs, bf16),
            TOL[bf16])
+
+
+def _value_setup(dev, n):
+    cfg, ws, bs, pts, _ = _sdf_setup(dev, n)
+    params = [{"w": w, "b": b} for w, b in zip(ws, bs)]
+    return cfg, ws, bs, pts, params, sdf_core.value_weights(cfg, params)
+
+
+@pytest.mark.parametrize("n", [262144, 65536, 65537])
+def test_sdf_value_kernel(cuda, n):
+    """The value-only forward of the up-sampling sweeps (at a step's first
+    sweep, a later round's and a ragged count) against its plain version,
+    and bit for bit the production forward's sdf (the same chain and head
+    column); one ``sdf_value_wg`` launch."""
+    cfg, ws, bs, pts, params, weights = _value_setup(cuda, n)
+    n0 = dict(_build.launches)
+    got = sdf_core.sdf_value_fused(cfg, params, pts, weights)
+    torch.cuda.synchronize()
+    assert _moved(n0) == {"sdf_value_wg": 1}
+    assert got.shape == (n,)
+    _close([got], [sdf_core.sdf_value_plain(cfg, pts, ws, bs)],
+           TOL[torch.bfloat16])
+    full = sdf_core.sdf_core_fwd(cfg, pts, ws, bs, torch.bfloat16, weights[2])
+    assert torch.equal(got, full[0])
+
+
+def test_sdf_value_allocates_the_sdf_alone(cuda):
+    """At 262,144 points the value-only op allocates its [N] sdf and no
+    pre-activation record (2.1 GB): the peak rises by under 64 MB."""
+    cfg, _, _, pts, params, weights = _value_setup(cuda, 262144)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    sdf_core.sdf_value_fused(cfg, params, pts, weights)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - base < 64 << 20
+
+
+def test_upsample_kernel_route_places_the_plain_samples(cuda):
+    """The z-values of 4096 rays through the unit sphere by the kernel
+    route (bf16, 'pallas': four ``sdf_value_wg`` launches) against the
+    plain bf16 sweeps (the 'vjp' route's ``sdf_only_lowp``, no launch): the
+    largest |Δz| and the share of samples that moved by more than 1e-4,
+    beside the same between the plain sweeps at bf16 and at f32."""
+    from rnb_tpu_torch.data import cameras
+    from rnb_tpu_torch.models import renderer
+
+    b = 4096
+    statics = fields.ModelStatics(sdf=fields.SDFConfig(),
+                                  color=fields.RenderingConfig(),
+                                  nerf=fields.NeRFConfig())
+    gen = torch.Generator().manual_seed(0)
+    sdf_p = fields.init_sdf_network(gen, statics.sdf, cuda)
+    for layer in sdf_p:
+        layer["v"] = layer["v"] + 0.02 * torch.randn(
+            layer["v"].shape, generator=gen).to(cuda)
+    o = torch.nn.functional.normalize(torch.randn(b, 3, generator=gen), dim=-1) * 2.5
+    d = torch.nn.functional.normalize(0.3 * (torch.rand(b, 3, generator=gen) - 0.5) - o,
+                                      dim=-1)
+    o, d = o.to(cuda), d.to(cuda)
+    near, far = cameras.near_far_from_sphere(o, d)
+    rcfg = renderer.RendererConfig()
+    z0 = renderer.init_z_vals(rcfg, near, far,
+                              (torch.rand(b, 1, generator=gen) - 0.5).to(cuda))
+    n0 = dict(_build.launches)
+    zk = renderer.upsampled_z_vals(statics, rcfg, {"sdf": sdf_p}, o, d, z0)
+    plain = dataclasses.replace(rcfg, core_impl="vjp")
+    zp = renderer.upsampled_z_vals(statics, plain, {"sdf": sdf_p}, o, d, z0)
+    zf = renderer.upsampled_z_vals(
+        statics, dataclasses.replace(plain, upsample_prec="f32"), {"sdf": sdf_p},
+        o, d, z0)
+    torch.cuda.synchronize()
+    assert _moved(n0) == {"sdf_value_wg": 4}
+    # the kernel moves fewer samples off the plain bf16 sweeps' than bf16
+    # itself moves off f32, and lands as close to f32
+    dz, bf = (zk - zp).abs(), (zp - zf).abs()
+    moved, moved_bf = ((dz > 1e-4).float().mean().item(),
+                       (bf > 1e-4).float().mean().item())
+    print(f"z-values at {b} rays, the kernel route against the plain bf16 "
+          f"route: max |dz| {dz.max().item():.3e}, share moved by > 1e-4 "
+          f"{moved:.3e}; the plain bf16 route against f32: {bf.max().item():.3e}, "
+          f"{moved_bf:.3e}; mean |dz| to f32 {(zk - zf).abs().mean().item():.3e} "
+          f"(kernel), {bf.mean().item():.3e} (plain bf16)")
+    assert moved < 0.25 * moved_bf
+    assert (zk - zf).abs().mean() <= 1.25 * bf.mean()
 
 
 def test_sdf_fwd_split_full_is_production(cuda):
